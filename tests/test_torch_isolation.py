@@ -1,0 +1,70 @@
+"""The PyTorch port stands alone: no file of ``tricolo_tpu_torch`` and not
+``chip_smoke.py`` imports JAX, flax, optax or the JAX package; and the
+kernel wrappers launch nothing on CPU tensors.
+
+The scan reads the sources' import statements (AST) rather than
+``sys.modules``: the test process itself may have JAX loaded.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tricolo_tpu")
+SOURCES = sorted((ROOT / "tricolo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "attr", getattr(node.func, "id", None))
+            in ("import_module", "__import__")
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+        ):
+            yield str(node.args[0].value)
+
+
+def test_sources_found():
+    assert len(SOURCES) > 15 and all(p.exists() for p in SOURCES)
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    bad = [
+        m for m in _imported_modules(path)
+        if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)
+    ]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_counters_stay_zero_on_cpu():
+    from tricolo_tpu_torch import ops
+    from tricolo_tpu_torch.config import load_config
+    from tricolo_tpu_torch.inference import eval_step, to_device_batch
+    from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch.models.tricolo_net import TriCoLoNet
+
+    cfg = load_config([
+        "data=synthetic", "model.image_encoder=MVCNNEncoder",
+        "model.voxel_encoder=VoxelCNNEncoder", "data.batch_size=2",
+        "model.modules.VoxelCNNEncoder.ef_dim=8", "precision.compute_dtype=float32",
+    ])
+    ops.reset_launches()
+    dm = DataModule(cfg)
+    dm.setup("test")
+    model = TriCoLoNet.from_config(cfg).eval()
+    out = eval_step(model, to_device_batch(dm.test_loader().peek(), torch.device("cpu")))
+    assert out["voxel_features"].shape == (2, 512)
+    assert ops.launches() == {"bn_relu_pool": 0, "scatter_tiles_ps": 0}

@@ -1,0 +1,264 @@
+"""Split datasets: caption maps + per-model vision data, loaded into RAM.
+
+The port's copy of ``tricolo_tpu.data.datasets`` (same item contract, same
+seeds, same numbers): a split is a list of captions, each pointing at one
+model's vision data. Items stay uint8/packed on the host — images
+(V, H, W, 3) uint8 NHWC, voxels as packed u32 site words
+(``voxel_flat``: x<<16 | y<<8 | z, sorted; ``voxel_rgb``: r | g<<8 | b<<16
+| occupancy bit 24) — and the float work happens on the device
+(data/device_prep.py).
+
+``SyntheticDataset`` is the CPU/GPU-runnable fixture; ``GeneralDataset``
+reads the Text2Shape ``{split}_map.json`` + per-model ``.npz`` layout with
+numpy only. The precached-CLIP-feature fields are not ported yet (the CLIP
+heads come in a later slice).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any
+
+import numpy as np
+
+# CLIP normalization stats (reference general_dataset.py:87-89).
+CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
+
+_VOXEL_PAD_MULTIPLE = 512
+_TILE = 8
+
+
+def _pad_target(n: int) -> int:
+    """Per-split padded voxel budget: a multiple of 512, at least 512."""
+    return max(
+        _VOXEL_PAD_MULTIPLE,
+        -(-n // _VOXEL_PAD_MULTIPLE) * _VOXEL_PAD_MULTIPLE,
+    )
+
+
+def _resolve_voxel_budget(cfg, vision_data: dict, split: str) -> int:
+    """Split max occupied-site count, optionally capped by
+    ``data.voxel_max_points`` (warns when the cap truncates)."""
+    data_max = max((v["flat"].shape[0] for v in vision_data.values()), default=1)
+    cap = cfg.data.get("voxel_max_points")
+    budget = _pad_target(min(cap, data_max) if cap else data_max)
+    if cap and cap < data_max:
+        clipped = sum(1 for v in vision_data.values() if v["flat"].shape[0] > budget)
+        if clipped:
+            import warnings
+
+            warnings.warn(
+                f"voxel_max_points={cap} truncates {clipped}/{len(vision_data)} "
+                f"models in split '{split}' (split max {data_max} occupied "
+                "sites); truncation keeps the first sites in flat-grid order. "
+                "Set data.voxel_max_points=null for exact batches.",
+                stacklevel=3,
+            )
+    return budget
+
+
+def max_voxel_tiles(vision_data: dict, voxel_size: int) -> int:
+    """Split max per-sample active 8³-tile count — the fitted
+    windowed_compact row budget (``tile_budget="auto"``)."""
+    tg = voxel_size // _TILE
+    worst = 1
+    for v in vision_data.values():
+        flat = v["flat"]
+        if flat.shape[0] == 0:
+            continue
+        x = (flat >> np.uint32(16)) & np.uint32(0xFF)
+        y = (flat >> np.uint32(8)) & np.uint32(0xFF)
+        z = flat & np.uint32(0xFF)
+        tid = ((x // _TILE).astype(np.int64) * tg + y // _TILE) * tg + z // _TILE
+        worst = max(worst, len(np.unique(tid)))
+    return worst
+
+
+class _SplitDataset:
+    """Shared item contract (``tricolo_tpu`` GeneralDataset.__getitem__)."""
+
+    language_data: list
+    vision_data: dict
+    voxel_size: int
+
+    def __len__(self) -> int:
+        return len(self.language_data)
+
+    def __getitem__(self, idx: int) -> dict[str, Any]:
+        lang = self.language_data[idx]
+        vision = self.vision_data[(lang["category"], lang["model_id"])]
+        return {
+            "model_id": lang["model_id"],
+            "category": lang["category"],
+            "tokens": lang["tokens"],
+            "images": vision["images"],
+            "voxel_flat": vision["flat"],
+            "voxel_rgb": vision["rgb"],
+        }
+
+    @property
+    def max_voxel_tiles(self) -> int:
+        cached = getattr(self, "_max_voxel_tiles", None)
+        if cached is None:
+            cached = self._max_voxel_tiles = max_voxel_tiles(
+                self.vision_data, self.voxel_size
+            )
+        return cached
+
+
+def dense_rgba_to_packed(dense_voxel: np.ndarray):
+    """Dense (4, D, D, D) RGBA grid → packed (flat, rgb) u32 site words."""
+    alpha = dense_voxel[3]
+    sites = np.nonzero(alpha.reshape(-1))[0].astype(np.uint32)
+    d = dense_voxel.shape[1]
+    x = (sites // (d * d)).astype(np.uint32)
+    rem = sites % (d * d)
+    y = (rem // d).astype(np.uint32)
+    z = (rem % d).astype(np.uint32)
+    flat = (x * 256 + y) * 256 + z
+    rgb_channels = dense_voxel[:3].reshape(3, -1)[:, sites].astype(np.uint32)
+    rgb = (
+        rgb_channels[0]
+        | (rgb_channels[1] << 8)
+        | (rgb_channels[2] << 16)
+        | np.uint32(1 << 24)
+    )
+    return flat, rgb
+
+
+def _resize_views_bicubic(views_chw: np.ndarray, size: int) -> np.ndarray:
+    """(V, 3, H, W) uint8 → (V, size, size, 3) uint8, bicubic + antialias
+    (torchvision Resize(size, BICUBIC, antialias=True) semantics)."""
+    if views_chw.shape[-1] == size and views_chw.shape[-2] == size:
+        return np.ascontiguousarray(views_chw.transpose(0, 2, 3, 1))
+    import torch
+    import torch.nn.functional as F
+
+    t = torch.from_numpy(np.ascontiguousarray(views_chw)).to(torch.float32)
+    out = F.interpolate(t, size=(size, size), mode="bicubic", antialias=True)
+    out = out.round().clamp(0, 255).to(torch.uint8).numpy()
+    return np.ascontiguousarray(out.transpose(0, 2, 3, 1))
+
+
+class GeneralDataset(_SplitDataset):
+    """One Text2Shape split in RAM (caption map + per-model npz)."""
+
+    def __init__(self, cfg, split: str):
+        data = cfg.data
+        if cfg.model.text_encoder == "CLIPTextEncoder" or (
+            cfg.model.image_encoder == "CLIPImageEncoder"
+        ):
+            raise NotImplementedError("the CLIP heads are not ported yet")
+        self.voxel_size = data.voxel_size
+        max_tokens = data.get("max_tokens", 96)
+        with open(data.get(f"{split}_lang_data_path")) as f:
+            raw_rows = json.load(f)
+        self.language_data = []
+        keys: dict[tuple, None] = {}  # unique (category, model_id), in order
+        for row in raw_rows:
+            key = (row["category"], row["model_id"])
+            tokens = np.zeros(max_tokens, np.int32)
+            arr = np.asarray(row["tokens"], np.int32)[:max_tokens]
+            tokens[: arr.shape[0]] = arr
+            self.language_data.append(
+                {
+                    "model_id": row["model_id"],
+                    "category": row["category"],
+                    "tokens": tokens,
+                    "text": row["caption"].strip(),
+                }
+            )
+            keys.setdefault(key)
+        self.vision_data = {}
+        for category, model_id in keys:
+            npz = np.load(
+                os.path.join(data.exp_data_root_path, category, f"{model_id}.npz")
+            )
+            flat, rgb = dense_rgba_to_packed(npz[f"voxel{self.voxel_size}"])
+            stored = npz["images"]
+            sub = np.round(np.linspace(0, len(stored) - 1, data.num_views)).astype(int)
+            self.vision_data[(category, model_id)] = {
+                "flat": flat,
+                "rgb": rgb,
+                "images": _resize_views_bicubic(stored[sub], data.image_size),
+            }
+        self.max_voxel_points = _resolve_voxel_budget(cfg, self.vision_data, split)
+
+
+class SyntheticDataset(_SplitDataset):
+    """Deterministic random data in the GeneralDataset item contract —
+    draw for draw the same numbers as ``tricolo_tpu``'s SyntheticDataset."""
+
+    def __init__(self, cfg, split: str):
+        data = cfg.data
+        self.voxel_size = data.voxel_size
+        max_tokens = data.get("max_tokens", 16)
+        num_models = data.get("num_models", 12)
+        captions_per_model = data.get("captions_per_model", 3)
+        vocab = data.vocab_size
+        rng = np.random.default_rng({"train": 0, "val": 1, "test": 2}.get(split, 3))
+        clip = cfg.model.text_encoder == "CLIPTextEncoder" or (
+            cfg.model.image_encoder == "CLIPImageEncoder"
+        )
+
+        self.language_data = []
+        self.vision_data = {}
+        d = np.uint32(self.voxel_size)
+        for m in range(num_models):
+            model_id = f"{split}_model_{m:04d}"
+            n_points = int(rng.integers(32, 256))
+            sites = np.sort(
+                rng.choice(self.voxel_size**3, size=n_points, replace=False)
+            ).astype(np.uint32)
+            x, y, z = sites // (d * d), (sites // d) % d, sites % d
+            flat = (x * 256 + y) * 256 + z
+            feats = rng.integers(0, 256, (n_points, 3), dtype=np.uint32)
+            rgb = (
+                feats[:, 0] | (feats[:, 1] << 8) | (feats[:, 2] << 16)
+                | np.uint32(1 << 24)
+            )
+            images = rng.integers(
+                0, 256,
+                (data.num_views, data.image_size, data.image_size, 3),
+                dtype=np.uint8,
+            )
+            if clip:
+                # Keep the stream aligned with the JAX package's draws.
+                rng.standard_normal(768)
+                rng.standard_normal(768)
+            self.vision_data[("synthetic", model_id)] = {
+                "flat": flat.astype(np.uint32),
+                "rgb": rgb.astype(np.uint32),
+                "images": images,
+            }
+            for c in range(captions_per_model):
+                length = int(rng.integers(4, max_tokens))
+                tokens = np.zeros(max_tokens, dtype=np.int32)
+                tokens[:length] = rng.integers(1, vocab, length)
+                self.language_data.append(
+                    {
+                        "model_id": model_id,
+                        "category": "synthetic",
+                        "tokens": tokens,
+                        "text": f"synthetic caption {m}-{c}",
+                    }
+                )
+        self.max_voxel_points = _resolve_voxel_budget(cfg, self.vision_data, split)
+
+
+_DATASETS = {
+    "Text2ShapeChairTable": GeneralDataset,
+    "Text2ShapeC13": GeneralDataset,
+    "GeneralDataset": GeneralDataset,
+    "Synthetic": SyntheticDataset,
+}
+
+
+def build_dataset(cfg, split: str):
+    """Resolve ``cfg.data.dataset`` by name."""
+    name = cfg.data.dataset
+    if name not in _DATASETS:
+        raise KeyError(f"unknown dataset {name!r}; known: {sorted(_DATASETS)}")
+    return _DATASETS[name](cfg, split)

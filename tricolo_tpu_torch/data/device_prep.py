@@ -1,0 +1,166 @@
+"""Batch preparation: host-side voxel packing/windowing and device unpack.
+
+Host side (numpy, runs in the loader): ``pack_sparse_voxels``,
+``windowed_on_host`` and ``windowed_compact_on_host`` produce exactly the
+arrays of their ``tricolo_tpu.data.device_prep`` namesakes (the port has no
+binding to the C++ loader yet, so these are the numpy formulations).
+
+Device side (torch): ``normalize_images`` and ``unpack_windowed_rows``.
+torch's ``uint32`` supports few operations, so packed rows travel as
+``int32`` tensors holding the same bits; bits 25-31 of a packed word are
+always zero, so shifts and masks on the int32 view give the u32 answers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .datasets import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
+
+VOXEL_PAD_SENTINEL = np.uint32(0xFFFFFFFF)
+# Byte 3 of a packed RGB word flags the site as occupied (alpha>0).
+VOXEL_OCCUPIED_BIT = np.uint32(1 << 24)
+
+
+def normalize_images(images_u8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """(..., H, W, 3) uint8 → normalized float with CLIP statistics."""
+    mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=dtype, device=images_u8.device)
+    std = torch.tensor(CLIP_IMAGE_STD, dtype=dtype, device=images_u8.device)
+    x = images_u8.to(dtype) / 255.0
+    return (x - mean) / std
+
+
+def unpack_windowed_rows(rows: torch.Tensor, dtype=torch.float32):
+    """Packed window rows (int32 view of the u32 words) →
+    (rgb0 (..., 4) float, mask (..., 1) float).
+
+    Channel 3 of ``rgb0`` is the zero pad channel of the Cin=4 block-1 conv
+    (its weights are zero), not the occupancy bit; the occupancy bit is
+    returned separately as the mask.
+    """
+    if rows.dtype != torch.int32:
+        raise TypeError(f"packed rows must be an int32 view, got {rows.dtype}")
+    x = torch.stack(
+        [
+            (rows & 0xFF).to(dtype) / 255.0,
+            ((rows >> 8) & 0xFF).to(dtype) / 255.0,
+            ((rows >> 16) & 0xFF).to(dtype) / 255.0,
+            torch.zeros(rows.shape, dtype=dtype, device=rows.device),
+        ],
+        dim=-1,
+    )
+    mask = ((rows >> 24) & 0x1).to(dtype)[..., None]
+    return x, mask
+
+
+def pack_sparse_voxels(coords: np.ndarray, feats: np.ndarray, n_pad: int):
+    """One sample's sorted-unique (N, 3) uint8 coords + (N, 3) uint8 RGB →
+    (flat (n_pad,) u32 with 0xFFFFFFFF padding, rgb (n_pad,) u32)."""
+    n = min(coords.shape[0], n_pad)
+    c = coords[:n].astype(np.uint32)
+    f = feats[:n].astype(np.uint32)
+    flat = np.full(n_pad, VOXEL_PAD_SENTINEL, dtype=np.uint32)
+    rgb = np.zeros(n_pad, dtype=np.uint32)
+    flat[:n] = (c[:, 0] * 256 + c[:, 1]) * 256 + c[:, 2]
+    rgb[:n] = f[:, 0] | (f[:, 1] << 8) | (f[:, 2] << 16) | VOXEL_OCCUPIED_BIT
+    return flat, rgb
+
+
+def _site_windows(flat_u32: np.ndarray, voxel_size: int, tile: int, halo: int):
+    """Per-site home tile, neighbour window per axis and validity.
+
+    A site lands in its home tile's window and, along each axis where it
+    sits within ``halo`` of the tile edge, in the neighbour's halo — up to
+    8 windows in all (the ``pick`` loop of the callers)."""
+    tg = voxel_size // tile
+    v = np.stack(
+        [(flat_u32 >> 16) & 0xFF, (flat_u32 >> 8) & 0xFF, flat_u32 & 0xFF]
+    ).astype(np.int64)
+    valid = (flat_u32 != VOXEL_PAD_SENTINEL) & (v < voxel_size).all(axis=0)
+    home = v // tile
+    mod = v % tile
+    nbr = np.where(
+        (mod < halo) & (home > 0),
+        home - 1,
+        np.where((mod >= tile - halo) & (home + 1 < tg), home + 1, -1),
+    )
+    return v, valid, home, nbr
+
+
+def _window_picks(v, valid, home, nbr, tile: int, halo: int):
+    """Yield (window (3, B, N), selected (B, N), local flat offset) for each
+    of the 8 home/neighbour combinations."""
+    s = tile + 2 * halo
+    for pick in range(8):
+        use_nbr = np.array([(pick >> 2) & 1, (pick >> 1) & 1, pick & 1], bool)
+        w = np.where(use_nbr.reshape(3, 1, 1), nbr, home)
+        sel = valid & (w >= 0).all(axis=0)
+        local = v - (w * tile - halo)
+        yield w, sel, (local[0] * s + local[1]) * s + local[2]
+
+
+def windowed_on_host(
+    flat_u32: np.ndarray,
+    rgb_u32: np.ndarray,
+    voxel_size: int,
+    tile: int = 8,
+    halo: int = 1,
+):
+    """Packed sparse (B, N) → ((B·tg³, s³) u32 window rows, (B·tg³,) u8
+    per-tile occupancy), s = tile + 2·halo."""
+    batch = flat_u32.shape[0]
+    tg = voxel_size // tile
+    tg3, s3 = tg**3, (tile + 2 * halo) ** 3
+    rows = np.zeros(batch * tg3 * s3, np.uint32)
+    occ = np.zeros(batch * tg3, np.uint8)
+    b_idx = np.broadcast_to(np.arange(batch, dtype=np.int64)[:, None], flat_u32.shape)
+    v, valid, home, nbr = _site_windows(flat_u32, voxel_size, tile, halo)
+    occ[(b_idx * tg3 + (home[0] * tg + home[1]) * tg + home[2])[valid]] = 1
+    for w, sel, local in _window_picks(v, valid, home, nbr, tile, halo):
+        idx = (b_idx * tg3 + (w[0] * tg + w[1]) * tg + w[2]) * s3 + local
+        np.put(rows, idx[sel], rgb_u32[sel])
+    return rows.reshape(batch * tg3, s3), occ
+
+
+def windowed_compact_on_host(
+    flat_u32: np.ndarray,
+    rgb_u32: np.ndarray,
+    voxel_size: int,
+    k: int,
+    tile: int = 8,
+    halo: int = 1,
+):
+    """Per-sample compacted windows: rows for only each sample's active
+    tiles.
+
+    Returns (rows (B, k, s³) u32, local_ids (B, k) i32, counts (B,) i32):
+    each sample's first ``k`` active tiles in ascending tile-id order, zero
+    rows / tg³-sentinel ids as padding, ``counts`` the total active tiles
+    (count > k means truncation). Writes the compact rows directly through
+    a per-sample tile → row map instead of materialising every window.
+    """
+    batch = flat_u32.shape[0]
+    tg = voxel_size // tile
+    tg3, s3 = tg**3, (tile + 2 * halo) ** 3
+    b_idx = np.broadcast_to(np.arange(batch, dtype=np.int64)[:, None], flat_u32.shape)
+    v, valid, home, nbr = _site_windows(flat_u32, voxel_size, tile, halo)
+    occ = np.zeros((batch, tg3), bool)
+    occ[b_idx[valid], ((home[0] * tg + home[1]) * tg + home[2])[valid]] = True
+
+    rows = np.zeros((batch, k, s3), np.uint32)
+    local_ids = np.full((batch, k), tg3, np.int32)
+    counts = occ.sum(axis=1).astype(np.int32)
+    row_of = np.full((batch, tg3), -1, np.int64)
+    for b in range(batch):
+        (ids,) = np.nonzero(occ[b])
+        ids = ids[:k]
+        local_ids[b, : len(ids)] = ids
+        row_of[b, ids] = np.arange(len(ids))
+    flat_rows = rows.reshape(-1)
+    for w, sel, local in _window_picks(v, valid, home, nbr, tile, halo):
+        wid = np.where(sel, (w[0] * tg + w[1]) * tg + w[2], 0)
+        j = row_of[b_idx, wid]
+        sel = sel & (j >= 0)
+        np.put(flat_rows, ((b_idx * k + j) * s3 + local)[sel], rgb_u32[sel])
+    return rows, local_ids, counts

@@ -1,0 +1,183 @@
+"""Eval batching: fixed-shape collation of the windowed_compact transfer.
+
+The port's copy of the serving half of ``tricolo_tpu.data.loader``: batches
+come in split order, the short tail batch is padded with repeats of its
+last item and carries ``num_valid``, and every batch of a split has the
+same shapes. Only the default ``data.voxel_transfer=windowed_compact`` is
+ported; the packed/dense/windowed transfers feed encoder paths the port
+does not have yet.
+"""
+
+from __future__ import annotations
+
+import logging
+import warnings
+from typing import Any, Iterator
+
+import numpy as np
+
+from ..ops.tile_sparse import sample_tile_budget, windowed_halo
+from .datasets import build_dataset
+from .device_prep import VOXEL_PAD_SENTINEL, windowed_compact_on_host
+
+
+def collate(
+    items: list[dict],
+    max_voxel_points: int,
+    voxel_size: int = 64,
+    with_images: bool = True,
+    with_voxels: bool = True,
+    tile_budget_rows: int = 0,
+    windowed_halo: int = 3,
+    tile_overflow: str = "error",
+) -> dict[str, Any]:
+    """Stack items into one fixed-shape numpy batch: tokens (B, T) int32,
+    images (B, V, H, W, 3) uint8, voxel_rows (B, k, s³) u32 and
+    voxel_row_ids (B, k) int32."""
+    batch: dict[str, Any] = {
+        "model_id": [item["model_id"] for item in items],
+        "category": [item["category"] for item in items],
+        "tokens": np.stack([item["tokens"] for item in items]).astype(np.int32),
+    }
+    if with_images:
+        batch["images"] = np.stack([item["images"] for item in items])
+    if with_voxels:
+        if tile_budget_rows <= 0:
+            raise ValueError("windowed_compact collate needs tile_budget_rows > 0")
+        flat = np.full((len(items), max_voxel_points), VOXEL_PAD_SENTINEL, np.uint32)
+        rgb = np.zeros((len(items), max_voxel_points), np.uint32)
+        for i, item in enumerate(items):
+            n = min(item["voxel_flat"].shape[0], max_voxel_points)
+            flat[i, :n] = item["voxel_flat"][:n]
+            rgb[i, :n] = item["voxel_rgb"][:n]
+        rows, local_ids, counts = windowed_compact_on_host(
+            flat, rgb, voxel_size, tile_budget_rows, halo=windowed_halo
+        )
+        if (counts > tile_budget_rows).any():
+            msg = (
+                f"windowed_compact: a sample has {int(counts.max())} active "
+                f"tiles > tile_budget={tile_budget_rows} — set model.modules."
+                "VoxelCNNEncoder.tile_budget=auto or raise the budget"
+            )
+            if tile_overflow != "truncate":
+                raise ValueError(msg)
+            logging.getLogger(__name__).warning("%s (highest tiles dropped)", msg)
+        batch["voxel_rows"] = rows
+        batch["voxel_row_ids"] = local_ids
+    return batch
+
+
+class BatchIterator:
+    """Iterate a dataset in split order, in fixed-shape batches."""
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        voxel_size: int = 64,
+        with_images: bool = True,
+        with_voxels: bool = True,
+        tile_budget: "int | str" = "auto",
+        windowed_halo: int = 3,
+        tile_overflow: str = "error",
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.voxel_size = voxel_size
+        self.with_images = with_images
+        self.with_voxels = with_voxels
+        self.tile_budget = tile_budget
+        self.windowed_halo = windowed_halo
+        self.tile_overflow = tile_overflow
+        self._tile_budget_rows: int | None = None
+
+    @property
+    def tile_budget_rows(self) -> int:
+        """The resolved per-sample row budget k (see sample_tile_budget)."""
+        if self._tile_budget_rows is None:
+            explicit = isinstance(self.tile_budget, (int, float)) and not isinstance(
+                self.tile_budget, bool
+            )
+            self._tile_budget_rows = sample_tile_budget(
+                self.tile_budget,
+                (self.voxel_size // 8) ** 3,
+                None if explicit else self.dataset.max_voxel_tiles,
+            )
+        return self._tile_budget_rows
+
+    def __len__(self) -> int:
+        return -(-len(self.dataset) // self.batch_size)
+
+    def __iter__(self) -> Iterator[dict]:
+        n = len(self.dataset)
+        for start in range(0, n, self.batch_size):
+            chunk = np.arange(start, min(start + self.batch_size, n))
+            valid = len(chunk)
+            if valid < self.batch_size:
+                chunk = np.concatenate(
+                    [chunk, np.full(self.batch_size - valid, chunk[-1])]
+                )
+            batch = collate(
+                [self.dataset[int(i)] for i in chunk],
+                self.dataset.max_voxel_points,
+                self.voxel_size,
+                self.with_images,
+                self.with_voxels,
+                self.tile_budget_rows if self.with_voxels else 0,
+                self.windowed_halo,
+                self.tile_overflow,
+            )
+            batch["num_valid"] = valid
+            yield batch
+
+    def peek(self) -> dict:
+        return next(iter(self))
+
+
+class DataModule:
+    """Split construction + eval loader config (``setup("test")``)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.val_set = None
+
+    def setup(self, stage: str | None = None):
+        if stage in ("fit", None):
+            raise NotImplementedError("training is not ported yet; use setup('test')")
+        self.val_set = build_dataset(self.cfg, self.cfg.inference.split)
+
+    def _loader_kwargs(self) -> dict:
+        model = self.cfg.model
+        voxel_cfg = model.modules.VoxelCNNEncoder
+        transfer = str(self.cfg.data.get("voxel_transfer", "windowed_compact"))
+        if model.voxel_encoder is not None:
+            if transfer != "windowed_compact":
+                raise NotImplementedError(
+                    f"data.voxel_transfer={transfer} is not ported; the port "
+                    "runs windowed_compact"
+                )
+            if not voxel_cfg.get("masked_bn", False):
+                raise NotImplementedError(
+                    "the port runs the masked (submanifold) voxel encoder only"
+                )
+        blocks = int(voxel_cfg.get("tile_sparse_blocks", 2))
+        if blocks > 2:
+            warnings.warn(
+                f"tile_sparse_blocks={blocks}: the windowed encoder runs at "
+                "most 2 sparse blocks — running 2.",
+                stacklevel=2,
+            )
+        return dict(
+            batch_size=self.cfg.data.batch_size,
+            voxel_size=self.cfg.data.voxel_size,
+            with_images=model.image_encoder == "MVCNNEncoder",
+            with_voxels=model.voxel_encoder is not None,
+            tile_budget=voxel_cfg.get("tile_budget", "auto"),
+            tile_overflow=str(self.cfg.data.get("tile_overflow", "error")),
+            windowed_halo=windowed_halo(blocks),
+        )
+
+    def val_loader(self) -> BatchIterator:
+        return BatchIterator(self.val_set, **self._loader_kwargs())
+
+    test_loader = val_loader

@@ -1,0 +1,9 @@
+"""Encoders of the port (eval forward)."""
+
+from .bigru import BiGRUEncoder
+from .mvcnn import MVCNNEncoder
+from .resnet import ResNet
+from .tricolo_net import TriCoLoNet
+from .voxel_cnn import VoxelCNNEncoder
+
+__all__ = ["BiGRUEncoder", "MVCNNEncoder", "ResNet", "TriCoLoNet", "VoxelCNNEncoder"]

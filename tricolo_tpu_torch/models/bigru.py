@@ -1,0 +1,37 @@
+"""Bidirectional GRU text encoder.
+
+Port of ``tricolo_tpu.models.bigru``: Embedding(vocab, 256) → 1-layer
+bidirectional GRU(256 → 128) from a zero state over the full padded
+sequence → concat(final forward, final backward) → Linear → tanh → L2.
+
+The JAX package realises ``padding_idx=0`` by multiplying the embedding
+output with ``tokens != 0``; a converted embedding row 0 need not be zero,
+so the same mask is applied here (``padding_idx`` alone would differ). Gate
+order (r, z, n) and the candidate ``n = tanh(x_n + r·(W_hn h + b_hn))`` are
+torch's own GRU formula.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .common import l2_normalize
+
+
+class BiGRUEncoder(nn.Module):
+    """tokens (B, T) int → L2-normalized (B, out_dim) float32."""
+
+    def __init__(self, vocab_size: int, out_dim: int = 512, embed_dim: int = 256,
+                 hidden_dim: int = 128):
+        super().__init__()
+        self.embedding = nn.Embedding(vocab_size, embed_dim)
+        self.gru = nn.GRU(embed_dim, hidden_dim, batch_first=True, bidirectional=True)
+        self.fc = nn.Linear(2 * hidden_dim, out_dim)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.embedding(tokens)
+        x = x * (tokens != 0)[..., None].to(x.dtype)
+        _, h_n = self.gru(x)  # (2, B, H): final forward, final backward
+        h = torch.cat([h_n[0], h_n[1]], dim=-1)
+        return l2_normalize(torch.tanh(self.fc(h).float()))

@@ -1,0 +1,114 @@
+"""Build the hand-written CUDA kernels (``csrc/*.cu``) and load them.
+
+Each source compiles on its own with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o <build>/lib<name>-<hash>.so csrc/<name>.cu
+
+into ``build/tricolo_tpu_torch/`` at the repository root (listed in
+``.gitignore``), at first use. The sources have a plain C interface and
+include no PyTorch header, so a build takes seconds; the library is loaded
+with ``ctypes``. The file name carries a hash of the source, so an edited
+kernel is never served from a stale library. ``build_all`` starts one
+``nvcc`` per source at once and waits for all of them.
+
+There is no fallback: a missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tricolo_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the CUDA "
+        "kernels of tricolo_tpu_torch cannot be built"
+    )
+
+
+def library_path(name: str) -> Path:
+    source = CSRC / f"{name}.cu"
+    digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library exists; returns
+    (target, tmp, process) or None."""
+    target = library_path(name)
+    if target.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return target, tmp, proc
+
+
+def _finish(name: str, started) -> None:
+    if started is None:
+        return
+    target, tmp, proc = started
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    os.replace(tmp, target)  # atomic: a concurrent loader sees old or new
+
+
+def build_all(names: list[str] | None = None) -> dict[str, Path]:
+    """Build every kernel source at once (one nvcc each); returns
+    name → library path."""
+    names = names or sorted(p.stem for p in CSRC.glob("*.cu"))
+    started = {name: _start(name) for name in names}
+    errors = []
+    for name, handle in started.items():
+        try:
+            _finish(name, handle)
+        except RuntimeError as exc:
+            errors.append(str(exc))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {name: library_path(name) for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            _finish(name, _start(name))
+            lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return lib
+
+
+def check(status: int, kernel: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` returned by a C entry."""
+    if status != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {status}")

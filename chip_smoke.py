@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's retrieval-serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,20 +7,34 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. card — ``nvidia-smi`` name and power limit;
 2. build — every ``tricolo_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, all
-   sources at once;
-3. kernels — K1 (bn_relu_pool) at the five flagship voxel-block shapes and
-   K2 (scatter_tiles_ps) at the block-2 handoff, in f32 and bf16, against
-   their plain PyTorch versions on the card (bit-exact required), and timed
-   beside their bandwidth bound;
+   sources at once (K1-K6);
+3. kernels — each against its plain PyTorch version on the card, timed
+   beside its bound: K1 (bn_relu_pool) at the five flagship voxel-block
+   shapes and K2 (scatter_tiles_ps) at the block-2 handoff, in f32 and bf16,
+   bit-exact; K3 (bn_relu_pool_bwd) at the same five shapes, in f32 and
+   bf16, on K1's argmax of inputs with ties and dead windows, bit-exact;
+   K4-K6 (nt_xent_fwd / _bwd_rows / _bwd_cols) at B = 128 and 8192, D = 512,
+   f32, within ``NT_XENT_TOL``·max|plain|;
 4. serving — ``RetrievalServer.build_index`` over a 256-model synthetic
    split at the flagship widths (Tri(I+V), 64³ voxels, 6×128² views,
    batch 128, bf16), four token queries and one image query, with the
    kernels' launch counts taken over exactly this phase;
-5. plain path — the same index in f32 (TF32 off) through the kernels and
-   through their plain versions; the two must agree to 1e-5;
-6. one flagship batch — 128 solid-ellipsoid shapes through the eval
-   forward, CUDA-event median;
-7. the kernels line, then the card line, then ``{"ok": true, ...}``.
+5. serving plain path — the same index in f32 (TF32 off) through the
+   kernels and through their plain versions; the two must agree to 1e-5;
+6. one flagship eval batch — 128 solid-ellipsoid shapes, CUDA-event median;
+7. training — ``Trainer.fit`` for one epoch of the 256-model synthetic
+   train split (768 captions: 6 steps of 128) at the flagship widths, bf16,
+   ``use_pallas=true``; per-step losses (finite), CUDA-event step times and
+   launches (K1 5, K2 2, K3 5, K4-K6 6 each a step), peak memory; the
+   launch counts are reset just before ``fit`` and read just after it;
+8. the trained checkpoint serves: ``RetrievalServer.from_checkpoint`` builds
+   an index and answers a query;
+9. train plain path — one f32 train step (TF32 off, deterministic cuDNN)
+   through the kernels and through their plain versions from the same
+   state: losses, gradients and running variances within stated tolerances;
+10. one flagship train step on 128 solid ellipsoids, CUDA-event median,
+    and a ``torch.profiler`` breakdown of one such step;
+11. the kernels line, then the card line, then ``{"ok": true, ...}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. The script imports nothing
 of JAX and nothing of the JAX package.
@@ -38,7 +52,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_FLOPS = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 F32_TOL = 1e-5
+# K4-K6 against their plain versions: the logits' 512-term dot products and
+# the B-term sums run in another order (errors ~1e-6 relative per logit,
+# carried through exp by at most |logit| <= 1/τ = 10).
+NT_XENT_TOL = 1e-4
+INV_TAU = 10.0
+# One f32 train step, kernel path vs plain path from the same state. Only
+# K4-K6 differ from their plain versions (K1-K3 are bit-exact): the losses
+# to f32 rounding of the logsumexps; the gradients by that relative error
+# carried back through the encoders (per tensor, of its largest magnitude);
+# the running variances come from the bit-identical forward.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_VAR_TOL = 1e-6
 FLAGSHIP = [
     "data=synthetic",
     "model.image_encoder=MVCNNEncoder",
@@ -50,6 +78,12 @@ FLAGSHIP = [
     "data.batch_size=128",
     "data.vocab_size=3588",
     "data.num_models=256",
+]
+TRAIN = [
+    "loss.NTXentLoss.use_pallas=true",
+    "trainer.max_epochs=1",
+    "experiment_name=chip_smoke",
+    f"project_root_path={ROOT / 'build' / 'chip_smoke'}",
 ]
 
 
@@ -191,6 +225,92 @@ def check_k2(torch, ids, grid, flush):
     return max_err, rows
 
 
+def k3_inputs(torch, shape, dtype, two_masks, gen):
+    """K1's argmax of quantized activations with dead windows (ties in
+    every window), the cotangent at live pooled cells, random per-channel
+    coefficients."""
+    from tricolo_tpu_torch.ops import bn_relu_pool
+
+    y, mul, add, zmask, smask = k1_inputs(torch, shape, dtype, two_masks, gen)
+    pooled, _, idx = bn_relu_pool(y, mul, add, zmask, smask, want_idx=True)
+    ga = torch.randn(pooled.shape, generator=gen, device="cuda") * (pooled > 0)
+    C = shape[-1]
+    vec = lambda s, o: torch.randn(C, generator=gen, device="cuda") * s + o  # noqa: E731
+    stats = zmask if smask is None else smask
+    return y, ga.to(dtype), idx, stats, vec(1e-3, 0.0), vec(1e-3, 0.0), vec(0.3, 1.0), vec(0.3, 0.0)
+
+
+def check_k3(torch, shapes, flush):
+    from tricolo_tpu_torch.ops import bn_relu_pool_bwd, bn_relu_pool_bwd_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    max_err, rows = 0.0, []
+    for name, shape, two in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = k3_inputs(torch, shape, dtype, two, gen)
+            got = bn_relu_pool_bwd(*args)
+            torch.cuda.synchronize()
+            ref = bn_relu_pool_bwd_plain(*args)
+            err = (got.float() - ref.float()).abs().max().item()
+            max_err = max(max_err, err)
+            require(torch.equal(got, ref), f"K3 {name} {dtype}: kernel != plain ({err})")
+            del got, ref
+            if dtype == torch.bfloat16:  # the main path's dtype
+                y, ga, idx, stats = args[:4]
+                bound = nbytes(y, ga, idx, stats, y) / HBM_BYTES_PER_S * 1e3  # + dy
+                ms = time_ms(lambda: bn_relu_pool_bwd(*args), torch, flush=flush)
+                plain = time_ms(lambda: bn_relu_pool_bwd_plain(*args), torch, repeats=5,
+                                flush=flush)
+                rows.append({"block": name, "shape": list(shape), "dtype": "bf16",
+                             "ms": ms, "plain_ms": plain, "bound_ms": bound})
+                log(f"  K3 {name:7s} {tuple(shape)} bf16: {ms:.4f} ms "
+                    f"(plain {plain:.4f} ms, bound {bound:.4f} ms)")
+            del args
+            torch.cuda.empty_cache()
+    return max_err, rows
+
+
+def check_nt_xent(torch, sizes, flush):
+    """K4-K6 against their plain versions on L2-normalised f32 (B, D)
+    embeddings; bound = flops / 67 TFLOP/s (2B²D forward, 4B²D each
+    backward), the bytes being far smaller."""
+    from tricolo_tpu_torch import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    errs = {"nt_xent_fwd": 0.0, "nt_xent_bwd_rows": 0.0, "nt_xent_bwd_cols": 0.0}
+    rows = {name: [] for name in errs}
+    for B, D in sizes:
+        zi, zj = (torch.nn.functional.normalize(
+            torch.randn((B, D), generator=gen, device="cuda"), dim=-1) for _ in range(2))
+        lse = ops.nt_xent_fwd_plain(zi, zj, INV_TAU)[:, 1].contiguous()
+        scale = torch.tensor([0.25 * INV_TAU / B], device="cuda")
+        cases = [
+            ("nt_xent_fwd", ops.nt_xent_fwd, ops.nt_xent_fwd_plain, (zi, zj, INV_TAU), 2),
+            ("nt_xent_bwd_rows", ops.nt_xent_bwd_rows, ops.nt_xent_bwd_rows_plain,
+             (zi, zj, lse, scale, INV_TAU), 4),
+            ("nt_xent_bwd_cols", ops.nt_xent_bwd_cols, ops.nt_xent_bwd_cols_plain,
+             (zj, zi, lse, scale, INV_TAU), 4),
+        ]
+        for name, kernel, plain, args, flops_per in cases:
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            ref = plain(*args)
+            err = (got - ref).abs().max().item()
+            limit = NT_XENT_TOL * ref.abs().max().item()
+            require(err <= limit, f"{name} B={B}: max |kernel - plain| {err} > {limit}")
+            errs[name] = max(errs[name], err)
+            bound = max(flops_per * B * B * D / F32_FLOPS,
+                        nbytes(*[a for a in args if hasattr(a, "numel")], got)
+                        / HBM_BYTES_PER_S) * 1e3
+            ms = time_ms(lambda: kernel(*args), torch, flush=flush)
+            plain_ms = time_ms(lambda: plain(*args), torch, repeats=5, flush=flush)
+            rows[name].append({"shape": [B, D], "dtype": "f32", "ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound, "max_abs_err": err})
+            log(f"  {name:16s} ({B}, {D}) f32: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+                f"bound {bound:.4f} ms), max |d| {err:.3g} (limit {limit:.3g})")
+    return errs, rows
+
+
 # -------------------------------------------------------------- phase 4
 
 
@@ -256,6 +376,126 @@ def ellipsoid_batch(cfg, n_points=8192):
     }, k
 
 
+# ------------------------------------------------------------ phases 7-10
+
+TRAIN_LAUNCHES = {"bn_relu_pool": 5, "scatter_tiles_ps": 2, "bn_relu_pool_bwd": 5,
+                  "nt_xent_fwd": 6, "nt_xent_bwd_rows": 6, "nt_xent_bwd_cols": 6}
+
+
+def timed_step(torch, step, rows):
+    """Wrap a train step: CUDA-event time, host wall, launches and losses
+    of every call go to ``rows``."""
+    from tricolo_tpu_torch import ops
+
+    def wrapped(batch, lr):
+        before = ops.launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        tic = time.perf_counter()
+        start.record()
+        losses = step(batch, lr)
+        end.record()
+        end.synchronize()
+        wall_ms = (time.perf_counter() - tic) * 1e3
+        after = ops.launches()
+        rows.append({"ms": start.elapsed_time(end), "wall_ms": wall_ms,
+                     "launches": {k: after[k] - before[k] for k in after},
+                     "losses": {k.split("/")[-1]: float(v) for k, v in losses.items()}})
+        return losses
+
+    return wrapped
+
+
+def train_plain_compare(torch, cfg, batch) -> dict:
+    """One f32 train step from the same state through the kernels and
+    through their plain versions (TF32 off, deterministic cuDNN)."""
+    from tricolo_tpu_torch.models.tricolo_net import TriCoLoNet
+    from tricolo_tpu_torch.training import make_optimizer, make_train_step
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.manual_seed(SEED)
+    model = TriCoLoNet.from_config(cfg).cuda()
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = {}
+    for use_kernels in (True, False):
+        model.load_state_dict(state0)
+        model.voxel_encoder.use_kernels = use_kernels
+        step = make_train_step(model, make_optimizer(cfg, model), cfg, use_kernels=use_kernels)
+        losses = step(batch, cfg.optimizer.lr)
+        runs[use_kernels] = (
+            {k: v.item() for k, v in losses.items()},
+            {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+            {n: b.detach().clone() for n, b in model.named_buffers() if n.endswith("running_var")},
+        )
+        del step
+    (loss_k, grad_k, var_k), (loss_p, grad_p, var_p) = runs[True], runs[False]
+    loss_dev = max(abs(loss_k[n] / loss_p[n] - 1) for n in loss_p)
+    grad_dev = max(((grad_k[n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+                   for n, g in grad_p.items())
+    var_dev = max((var_k[n] - v).abs().max().item() for n, v in var_p.items())
+    require(loss_dev <= TRAIN_LOSS_RTOL, f"train step losses: kernel vs plain {loss_dev}")
+    require(grad_dev <= TRAIN_GRAD_TOL, f"train step gradients: kernel vs plain {grad_dev}")
+    require(var_dev <= TRAIN_VAR_TOL, f"train step running_var: kernel vs plain {var_dev}")
+    torch.backends.cudnn.deterministic = False
+    return {"loss_rel": loss_dev, "grad_rel_of_max": grad_dev, "running_var_abs": var_dev,
+            "losses_kernel": loss_k, "losses_plain": loss_p}
+
+
+def profile_step(torch, step, batch, lr) -> dict:
+    """``torch.profiler`` over one train step: device time by kernel and the
+    device busy share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        tic = time.perf_counter()
+        step(batch, lr)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - tic) * 1e6
+
+    def device_us(event):
+        return getattr(event, "self_device_time_total", None) or getattr(
+            event, "self_cuda_time_total", 0.0)
+
+    # Device-side events only (kernels, copies): an operator's own row also
+    # carries the device time of the kernels it launched.
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0]
+    events.sort(key=device_us, reverse=True)
+    busy_us = sum(device_us(e) for e in events)
+    if not events:  # the profiler saw no device activity: nothing measured
+        return {"wall_ms": wall_us / 1e3, "device_busy_ms": None, "device_idle_share": None,
+                "port_kernels_ms": None, "top": []}
+    # The port's kernels by their device function names (csrc/*.cu).
+    names = {"K1": ("::bn_relu_pool_kernel",), "K2": ("::gather_kernel", "::inverse_kernel"),
+             "K3": ("::bn_relu_pool_bwd_kernel",), "K4": ("::nt_xent_fwd_kernel",),
+             "K5-K6": ("::nt_xent_bwd_kernel",)}
+    ours = dict.fromkeys(names, 0.0)
+    for e in events:
+        for label, keys in names.items():
+            if any(key in e.key for key in keys):
+                ours[label] += device_us(e)
+    # The operators behind the device time, with their input shapes.
+    def total_us(event):
+        return getattr(event, "device_time_total", None) or getattr(
+            event, "cuda_time_total", 0.0)
+
+    op_rows = [e for e in prof.key_averages(group_by_input_shape=True)
+               if e.key.startswith("aten::") and total_us(e) > 0]
+    op_rows.sort(key=total_us, reverse=True)
+    return {
+        "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / wall_us,
+        "port_kernels_ms": {k: v / 1e3 for k, v in ours.items()},
+        "top": [{"name": e.key[:120], "device_ms": device_us(e) / 1e3, "count": e.count}
+                for e in events[:25]],
+        "top_ops": [{"op": e.key, "device_ms": total_us(e) / 1e3, "count": e.count,
+                     "shapes": str(e.input_shapes)[:200]} for e in op_rows[:12]],
+    }
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -278,6 +518,7 @@ def main() -> int:
     from tricolo_tpu_torch.models.tricolo_net import TriCoLoNet
     from tricolo_tpu_torch.ops import _build
     from tricolo_tpu_torch.serving import RetrievalServer
+    from tricolo_tpu_torch.training import make_train_step
 
     report: dict = {"phases": {}}
     walls = report["phases"]
@@ -325,11 +566,16 @@ def main() -> int:
     k1_err, k1_rows = check_k1(torch, k1_shapes, flush)
     ids = torch.from_numpy(first["voxel_row_ids"]).cuda()
     k2_err, k2_rows = check_k2(torch, ids, cfg.data.voxel_size // 4, flush)
+    k3_err, k3_rows = check_k3(torch, k1_shapes, flush)
+    nt_errs, nt_rows = check_nt_xent(torch, [(B, cfg.model.out_dim), (8192, cfg.model.out_dim)],
+                                     flush)
     del flush
     torch.cuda.empty_cache()
     walls["kernels_s"] = time.perf_counter() - tic
-    report["k1"], report["k2"] = k1_rows, k2_rows
-    log(f"kernels: K1 max err {k1_err}, K2 max err {k2_err} (bit-exact required)")
+    report["k1"], report["k2"], report["k3"], report["nt_xent"] = (
+        k1_rows, k2_rows, k3_rows, nt_rows)
+    log(f"kernels: K1 max err {k1_err}, K2 max err {k2_err}, K3 max err {k3_err} "
+        f"(bit-exact required); K4-K6 max err {nt_errs} (limit {NT_XENT_TOL}·max|plain|)")
 
     # 4. serving path at flagship widths, bf16, through the kernels
     torch.manual_seed(SEED)
@@ -346,8 +592,8 @@ def main() -> int:
     require(index.matrix.shape == (256, cfg.model.out_dim), f"index {index.matrix.shape}")
     require(bool(np.isfinite(index.matrix).all()), "index has non-finite values")
     require(len(set(index.model_ids)) == 256, "index model ids are not unique")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the serving path")
+    for name in ("bn_relu_pool", "scatter_tiles_ps"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the serving path")
     log(f"index: {len(index.model_ids)} models x {index.matrix.shape[1]} in "
         f"{walls['index_build_s']:.3f} s over {n_batches} batches; launches {launches} "
         f"[{card}]")
@@ -417,26 +663,154 @@ def main() -> int:
         f"(plain kernels {plain_step_ms:.3f} ms), launches/batch {per_batch}, "
         f"peak {peak_gib:.2f} GiB [{card}]")
 
-    # 7. kernels line, card line, result
+    # 7. training: one epoch of the flagship train split through Trainer.fit
+    from tricolo_tpu_torch.training import Trainer
+
+    del server, model, index
+    torch.cuda.empty_cache()
+    train_cfg = load_config(FLAGSHIP + TRAIN)
+    trainer = Trainer(train_cfg)  # device: cuda
+    steps: list = []
+    plain_step = trainer.train_step
+    trainer.train_step = timed_step(torch, plain_step, steps)
+    train_dm = DataModule(train_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    tic = time.perf_counter()
+    ckpt = trainer.fit(train_dm)
+    torch.cuda.synchronize()
+    walls["train_fit_s"] = time.perf_counter() - tic
+    train_launches = ops.launches()
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    require(len(steps) == 6, f"one epoch of 768 captions ran {len(steps)} steps, not 6")
+    for i, row in enumerate(steps):
+        finite = all(np.isfinite(v) for v in row["losses"].values())
+        require(finite, f"train step {i}: non-finite losses {row['losses']}")
+        require(row["launches"] == TRAIN_LAUNCHES,
+                f"train step {i}: launches {row['launches']} != {TRAIN_LAUNCHES}")
+        log(f"  train step {i}: {row['ms']:.3f} ms (wall {row['wall_ms']:.3f} ms) losses "
+            + " ".join(f"{k}={v:.5f}" for k, v in row["losses"].items()))
+    step_ms = statistics.median(r["ms"] for r in steps[1:])
+    train = {"steps": steps, "step_ms_median_2_6": step_ms,
+             "step_wall_ms_median_2_6": statistics.median(r["wall_ms"] for r in steps[1:]),
+             "pairs_per_s": train_cfg.data.batch_size / (step_ms / 1e3),
+             "peak_gib": train_peak, "launches_fit": train_launches,
+             "val_rr5": trainer.metrics.summary("")["RR@5"], "fit_s": walls["train_fit_s"]}
+    report["train"] = train
+    log(f"train: 6 steps, median step (2-6) {step_ms:.3f} ms = "
+        f"{train['pairs_per_s']:.1f} pairs/s, peak {train_peak:.2f} GiB, launches/step "
+        f"{steps[-1]['launches']}, fit launches {train_launches}, fit "
+        f"{walls['train_fit_s']:.1f} s [{card}]")
+
+    # 8. the trained checkpoint serves
+    tic = time.perf_counter()
+    trained = RetrievalServer.from_checkpoint(train_cfg, ckpt)
+    trained_index = trained.build_index(train_dm)
+    answer = trained.query(tokens=train_dm.val_set[0]["tokens"], k=5)
+    walls["trained_index_s"] = time.perf_counter() - tic
+    require(trained_index.matrix.shape == (256, train_cfg.model.out_dim), "trained index shape")
+    require(bool(np.isfinite(trained_index.matrix).all()), "trained index non-finite")
+    require(len(answer) == 5 and all(np.isfinite(s) for _, s in answer), "trained query")
+    log(f"trained checkpoint {Path(ckpt).name} serves: index {trained_index.matrix.shape}, "
+        f"query -> {[m for m, _ in answer]}")
+    del trained, trained_index
+
+    # 9. one f32 train step: kernels vs plain versions from the same state
+    tic = time.perf_counter()
+    train_batch = to_device_batch(next(iter(train_dm.train_loader())), torch.device("cuda"))
+    cfg32 = load_config(FLAGSHIP + TRAIN + ["precision.compute_dtype=float32"])
+    report["train_plain_compare"] = cmp = train_plain_compare(torch, cfg32, train_batch)
+    walls["train_plain_compare_s"] = time.perf_counter() - tic
+    log(f"train plain path (f32, TF32 off, deterministic): losses rel {cmp['loss_rel']:.3g} "
+        f"(tol {TRAIN_LOSS_RTOL}), grads rel-of-max {cmp['grad_rel_of_max']:.3g} "
+        f"(tol {TRAIN_GRAD_TOL}), running_var |d| {cmp['running_var_abs']:.3g} "
+        f"(tol {TRAIN_VAR_TOL})")
+    torch.cuda.empty_cache()
+
+    # 10. profiled flagship train steps (bf16): one synthetic-256 batch, then
+    # 128 solid ellipsoids
+    lr = train_cfg.optimizer.lr
+    trainer.model.voxel_encoder.use_kernels = True
+    plain_step(train_batch, lr)  # warm the bf16 path after the f32 phase
+    report["train"]["profile"] = syn = profile_step(torch, plain_step, train_batch, lr)
+    log(f"profiled synthetic-256 train step: device busy {syn['device_busy_ms']} ms of "
+        f"{syn['wall_ms']:.3f} ms wall, idle share {syn['device_idle_share']}, port kernels "
+        f"{syn['port_kernels_ms']} [{card}]")
+    for row in syn["top"][:8]:
+        log(f"    {row['device_ms']:9.3f} ms x{row['count']:<4d} {row['name'][:90]}")
+    for row in syn["top_ops"][:6]:
+        log(f"    {row['device_ms']:9.3f} ms x{row['count']:<4d} {row['op']} {row['shapes']}")
+    del train_batch
+    torch.cuda.reset_peak_memory_stats()
+    ell_ms = time_ms(lambda: plain_step(batch, lr), torch, repeats=5, warmup=2)
+    ell_peak = torch.cuda.max_memory_allocated() / 2**30
+    profile = profile_step(torch, plain_step, batch, lr)
+    trainer.model.voxel_encoder.use_kernels = False
+    ell_plain = make_train_step(trainer.model, trainer.optimizer, train_cfg, use_kernels=False)
+    ell_plain_ms = time_ms(lambda: ell_plain(batch, lr), torch, repeats=5, warmup=2)
+    trainer.model.voxel_encoder.use_kernels = True
+    report["ellipsoid_train_step"] = {"k": k_ell, "ms": ell_ms, "plain_ms": ell_plain_ms,
+                                      "peak_gib": ell_peak, "profile": profile}
+    log(f"flagship train step (128 ellipsoids, k={k_ell}): {ell_ms:.3f} ms "
+        f"(plain kernels {ell_plain_ms:.3f} ms), peak {ell_peak:.2f} GiB; profiled step: "
+        f"device busy {profile['device_busy_ms']} ms of {profile['wall_ms']:.3f} ms wall, "
+        f"idle share {profile['device_idle_share']}, port kernels "
+        f"{profile['port_kernels_ms']} [{card}]")
+    for row in profile["top"][:12]:
+        log(f"    {row['device_ms']:9.3f} ms x{row['count']:<4d} {row['name'][:90]}")
+    for row in profile["top_ops"][:8]:
+        log(f"    {row['device_ms']:9.3f} ms x{row['count']:<4d} {row['op']} {row['shapes']}")
+    # Diagnostic beside the main path (not used by it): the same step with
+    # cuDNN's autotuner choosing the convolution algorithms.
+    torch.backends.cudnn.benchmark = True
+    tuned_ms = time_ms(lambda: plain_step(batch, lr), torch, repeats=5, warmup=3)
+    torch.backends.cudnn.benchmark = False
+    report["ellipsoid_train_step"]["cudnn_benchmark_ms"] = tuned_ms
+    log(f"  same step with torch.backends.cudnn.benchmark=True: {tuned_ms:.3f} ms [{card}]")
+
+    # 11. kernels line, card line, result
     def total(rows, key):
         return sum(r[key] for r in rows)
+
+    def both(name):
+        return {"serving": launches[name], "train": train_launches[name]}
 
     kernels = [
         {"name": "bn_relu_pool", "route": "cuda",
          "source": "tricolo_tpu_torch/csrc/bn_relu_pool.cu",
          "replaces": "tricolo_tpu/ops/fused_bn_pool.py:99",
-         "launches": launches["bn_relu_pool"], "max_abs_err": k1_err,
+         "launches": launches["bn_relu_pool"] + train_launches["bn_relu_pool"],
+         "launches_by_path": both("bn_relu_pool"), "max_abs_err": k1_err,
          "ms": total(k1_rows, "ms"), "plain_ms": total(k1_rows, "plain_ms"),
          "bound_ms": total(k1_rows, "bound_ms"), "bound_by": "bytes",
          "library_ms": None, "shapes": k1_rows},
         {"name": "scatter_tiles_ps", "route": "cuda",
          "source": "tricolo_tpu_torch/csrc/tile_scatter.cu",
          "replaces": "tricolo_tpu/ops/_graveyard/dma_tiles.py:128",
-         "launches": launches["scatter_tiles_ps"], "max_abs_err": k2_err,
+         "launches": launches["scatter_tiles_ps"] + train_launches["scatter_tiles_ps"],
+         "launches_by_path": both("scatter_tiles_ps"), "max_abs_err": k2_err,
          "ms": total(k2_rows, "ms"), "plain_ms": total(k2_rows, "plain_ms"),
          "bound_ms": total(k2_rows, "bound_ms"), "bound_by": "bytes",
          "library_ms": None, "shapes": k2_rows},
+        {"name": "bn_relu_pool_bwd", "route": "cuda",
+         "source": "tricolo_tpu_torch/csrc/bn_relu_pool_bwd.cu",
+         "replaces": "tricolo_tpu/ops/fused_bn_pool.py:134",
+         "launches": train_launches["bn_relu_pool_bwd"],
+         "launches_by_path": both("bn_relu_pool_bwd"), "max_abs_err": k3_err,
+         "ms": total(k3_rows, "ms"), "plain_ms": total(k3_rows, "plain_ms"),
+         "bound_ms": total(k3_rows, "bound_ms"), "bound_by": "bytes",
+         "library_ms": None, "shapes": k3_rows},
     ]
+    for name, line in (("nt_xent_fwd", 43), ("nt_xent_bwd_rows", 92), ("nt_xent_bwd_cols", 208)):
+        rows = nt_rows[name]
+        kernels.append(
+            {"name": name, "route": "cuda", "source": "tricolo_tpu_torch/csrc/nt_xent.cu",
+             "replaces": f"tricolo_tpu/ops/nt_xent_pallas.py:{line}",
+             "launches": train_launches[name], "launches_by_path": both(name),
+             "max_abs_err": nt_errs[name], "ms": total(rows, "ms"),
+             "plain_ms": total(rows, "plain_ms"), "bound_ms": total(rows, "bound_ms"),
+             "bound_by": "operations", "library_ms": None, "shapes": rows})
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -84,7 +84,9 @@ def jax_variables(cfg, seed=0):
     from tricolo_tpu.models.tricolo_net import TriCoLoNet
 
     model = TriCoLoNet.from_config(cfg)
-    variables = model.init(jax.random.PRNGKey(seed), jax_device_batch(host_batch(cfg), cfg))
+    variables = jax.jit(model.init)(
+        jax.random.PRNGKey(seed), jax_device_batch(host_batch(cfg), cfg)
+    )
     params = _numpy_tree(variables["params"])
     stats = _numpy_tree(variables["batch_stats"])
     _randomize_bn(params, stats, np.random.default_rng(seed))

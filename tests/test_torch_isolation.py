@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no file of ``tricolo_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, flax, optax or the JAX package; and the
-kernel wrappers launch nothing on CPU tensors.
+kernel wrappers launch nothing on CPU tensors, eval or train.
 
 The scan reads the sources' import statements (AST) rather than
 ``sys.modules``: the test process itself may have JAX loaded.
@@ -50,21 +50,31 @@ def test_no_jax_import(path):
 
 
 def test_counters_stay_zero_on_cpu():
+    """An eval step and a train step with the blocked loss on CPU tensors
+    take every kernel's plain version: all six counters stay 0."""
     from tricolo_tpu_torch import ops
     from tricolo_tpu_torch.config import load_config
     from tricolo_tpu_torch.inference import eval_step, to_device_batch
     from tricolo_tpu_torch.data import DataModule
     from tricolo_tpu_torch.models.tricolo_net import TriCoLoNet
+    from tricolo_tpu_torch.training import make_optimizer, make_train_step
 
     cfg = load_config([
         "data=synthetic", "model.image_encoder=MVCNNEncoder",
         "model.voxel_encoder=VoxelCNNEncoder", "data.batch_size=2",
         "model.modules.VoxelCNNEncoder.ef_dim=8", "precision.compute_dtype=float32",
+        "loss.NTXentLoss.use_pallas=true",
     ])
     ops.reset_launches()
     dm = DataModule(cfg)
     dm.setup("test")
     model = TriCoLoNet.from_config(cfg).eval()
-    out = eval_step(model, to_device_batch(dm.test_loader().peek(), torch.device("cpu")))
+    batch = to_device_batch(dm.test_loader().peek(), torch.device("cpu"))
+    out = eval_step(model, batch)
     assert out["voxel_features"].shape == (2, 512)
-    assert ops.launches() == {"bn_relu_pool": 0, "scatter_tiles_ps": 0}
+    step = make_train_step(model, make_optimizer(cfg, model), cfg)
+    losses = step(batch, cfg.optimizer.lr)
+    assert all(torch.isfinite(v) for v in losses.values())
+    assert ops.launches() == {name: 0 for name in (
+        "bn_relu_pool", "scatter_tiles_ps", "bn_relu_pool_bwd", "nt_xent_fwd",
+        "nt_xent_bwd_rows", "nt_xent_bwd_cols")}

@@ -2,11 +2,12 @@
 
 On the CPU: the plain versions' edge cases and the wrappers' dispatch
 (CPU tensors take the plain version and launch nothing). On a card
-(``-m cuda``): each kernel against its plain version, bit-exact in f32 and
-bf16, and the wrappers' refusals — a CUDA tensor never falls back to the
-plain version. Run the card tests with
+(``-m cuda``): each kernel against its plain version — K1-K3 bit-exact in
+f32 and bf16, K4-K6 (f32 sums in another order) within
+``NT_XENT_TOL · max|plain|`` — and the wrappers' refusals: a CUDA tensor
+never falls back to the plain version. Run the card tests with
 
-    python -m pytest tests/test_torch_kernels.py -m cuda
+    python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 """
 
 import numpy as np
@@ -16,11 +17,25 @@ torch = pytest.importorskip("torch")
 
 from tricolo_tpu_torch.ops import (  # noqa: E402
     bn_relu_pool,
+    bn_relu_pool_bwd,
+    bn_relu_pool_bwd_plain,
     bn_relu_pool_plain,
     fold_bn,
+    nt_xent_bwd_cols,
+    nt_xent_bwd_cols_plain,
+    nt_xent_bwd_rows,
+    nt_xent_bwd_rows_plain,
+    nt_xent_fwd,
+    nt_xent_fwd_plain,
     scatter_tiles_ps,
     scatter_tiles_ps_plain,
 )
+
+# K4-K6 against their plain versions: the logits' 512-term dot products and
+# the B-term sums run in another order (errors ~1e-6 relative per logit,
+# carried through exp by at most |logit| <= 1/τ = 10).
+NT_XENT_TOL = 1e-4
+INV_TAU = 10.0
 
 
 def _need_cuda():
@@ -41,6 +56,31 @@ def _k1_inputs(shape, seed, dtype, device, two_masks):
     mul, add = fold_bn(*map(to, bn), 1e-5, dtype)
     smask = to(stats).to(dtype) if two_masks else None
     return to(y).to(dtype), mul, add, to(mask).to(dtype), smask
+
+
+def _k3_inputs(shape, seed, dtype, device):
+    """y quantized (exact values in bf16), random ga/idx/mask, f32 vectors."""
+    rng = np.random.default_rng(seed)
+    N, D, H, W, C = shape
+    pooled = (N, D // 2, H // 2, W // 2, C)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    y = f32(rng.integers(-16, 17, shape) / 8.0).to(dtype)
+    ga = f32(rng.normal(size=pooled)).to(dtype)
+    idx = torch.tensor(rng.integers(0, 8, pooled), dtype=torch.uint8, device=device)
+    mask = f32(rng.random((N, D, H, W, 1)) < 0.5).to(dtype)
+    vectors = [f32(rng.normal(size=C)) for _ in range(3)] + [f32(rng.uniform(0.5, 2, C))]
+    b, c, sub, inv = vectors
+    return y, ga, idx, mask, b, c, inv, sub
+
+
+def _nt_inputs(B, D, seed, device):
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(2, B, D))
+    z /= np.linalg.norm(z, axis=-1, keepdims=True)
+    zi, zj = (torch.tensor(a, dtype=torch.float32, device=device) for a in z)
+    lse = nt_xent_fwd_plain(zi, zj, INV_TAU)[:, 1].contiguous()
+    scale = torch.tensor([0.75 * INV_TAU / B], dtype=torch.float32, device=device)
+    return zi, zj, lse, scale
 
 
 def _k2_inputs(B, k, C, grid, seed, dtype, device):
@@ -79,7 +119,32 @@ def test_cpu_tensors_take_the_plain_version():
         assert torch.equal(a, b)
     tiles, ids = _k2_inputs(3, 5, 4, 8, 0, torch.float32, "cpu")
     assert torch.equal(scatter_tiles_ps(tiles, ids, 8), scatter_tiles_ps_plain(tiles, ids, 8))
-    assert ops.launches() == {"bn_relu_pool": 0, "scatter_tiles_ps": 0}
+    args = _k3_inputs((2, 4, 4, 4, 8), 0, torch.float32, "cpu")
+    assert torch.equal(bn_relu_pool_bwd(*args), bn_relu_pool_bwd_plain(*args))
+    zi, zj, lse, scale = _nt_inputs(40, 64, 0, "cpu")
+    assert torch.equal(nt_xent_fwd(zi, zj, INV_TAU), nt_xent_fwd_plain(zi, zj, INV_TAU))
+    assert torch.equal(nt_xent_bwd_rows(zi, zj, lse, scale, INV_TAU),
+                       nt_xent_bwd_rows_plain(zi, zj, lse, scale, INV_TAU))
+    assert torch.equal(nt_xent_bwd_cols(zj, zi, lse, scale, INV_TAU),
+                       nt_xent_bwd_cols_plain(zj, zi, lse, scale, INV_TAU))
+    assert set(ops.launches().values()) == {0} and len(ops.launches()) == 6
+
+
+def test_bwd_plain_routes_to_the_argmax_member():
+    """K3's plain version: ga lands on window member idx (r = dd·4 + hh·2 +
+    ww), every site gets (b + c·ẑ)·mask."""
+    y = torch.zeros(1, 2, 2, 2, 1)
+    ga = torch.full((1, 1, 1, 1, 1), 3.0)
+    idx = torch.full((1, 1, 1, 1, 1), 5, dtype=torch.uint8)
+    mask = torch.ones(1, 2, 2, 2, 1)
+    one, zero = torch.ones(1), torch.zeros(1)
+    dy = bn_relu_pool_bwd_plain(y, ga, idx, mask, one * 0.5, zero, one, zero)
+    expected = torch.full((1, 2, 2, 2, 1), 0.5)
+    expected[0, 1, 0, 1, 0] += 3.0
+    assert torch.equal(dy, expected)
+    mask[0, 0, 0, 0] = 0
+    dy = bn_relu_pool_bwd_plain(y, ga, idx, mask, one * 0.5, zero, one, zero)
+    assert dy[0, 0, 0, 0, 0] == 0 and dy[0, 1, 0, 1, 0] == 3.5
 
 
 def test_wrappers_reject_bad_shapes():
@@ -104,6 +169,16 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         scatter_tiles_ps(torch.zeros(1, 1, 2, 2, 2, 4, device="meta"),
                          torch.zeros(1, 1, dtype=torch.int32, device="meta"), 8)
+    args = _k3_inputs((1, 2, 2, 2, 4), 0, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        bn_relu_pool_bwd(*(t.to("meta") for t in args))
+    zi, zj, lse, scale = (t.to("meta") for t in _nt_inputs(8, 64, 0, "cpu"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        nt_xent_fwd(zi, zj, INV_TAU)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        nt_xent_bwd_rows(zi, zj, lse, scale, INV_TAU)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        nt_xent_bwd_cols(zj, zi, lse, scale, INV_TAU)
 
 
 # ---------------------------------------------------------------- card
@@ -141,6 +216,42 @@ def test_cuda_scatter_tiles_matches_plain(dtype, C):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "shape", [(64, 12, 12, 12, 32), (64, 4, 4, 4, 64), (8, 16, 16, 16, 128),
+              (8, 4, 4, 4, 512), (3, 4, 2, 6, 6)]
+)
+def test_cuda_bn_relu_pool_bwd_matches_plain(dtype, shape):
+    _need_cuda()
+    args = _k3_inputs(shape, 5, getattr(torch, dtype), "cuda")
+    before = bn_relu_pool_bwd.launches
+    got = bn_relu_pool_bwd(*args)
+    torch.cuda.synchronize()
+    assert bn_relu_pool_bwd.launches == before + 1
+    assert torch.equal(got, bn_relu_pool_bwd_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D", [(128, 512), (100, 128), (8192, 512)])
+def test_cuda_nt_xent_matches_plain(B, D):
+    _need_cuda()
+    zi, zj, lse, scale = _nt_inputs(B, D, B, "cuda")
+    pairs = [
+        (nt_xent_fwd, nt_xent_fwd_plain, (zi, zj, INV_TAU)),
+        (nt_xent_bwd_rows, nt_xent_bwd_rows_plain, (zi, zj, lse, scale, INV_TAU)),
+        (nt_xent_bwd_cols, nt_xent_bwd_cols_plain, (zj, zi, lse, scale, INV_TAU)),
+    ]
+    for kernel, plain, args in pairs:
+        before = kernel.launches
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        ref = plain(*args)
+        err = (got - ref).abs().max().item()
+        assert err <= NT_XENT_TOL * ref.abs().max().item(), (kernel.__name__, err)
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_refuse_instead_of_falling_back():
     _need_cuda()
     y, mul, add, mask, _ = _k1_inputs((2, 4, 4, 4, 8), 1, torch.float32, "cuda", False)
@@ -151,3 +262,12 @@ def test_cuda_wrappers_refuse_instead_of_falling_back():
     tiles, ids = _k2_inputs(2, 3, 4, 8, 1, torch.float32, "cuda")
     with pytest.raises(TypeError, match="int32"):
         scatter_tiles_ps(tiles, ids.long(), 8)
+    y, ga, idx, mask, b, c, inv, sub = _k3_inputs((2, 4, 4, 4, 8), 1, torch.float32, "cuda")
+    with pytest.raises(TypeError, match="uint8"):
+        bn_relu_pool_bwd(y, ga, idx.long(), mask, b, c, inv, sub)
+    zi, zj, lse, scale = _nt_inputs(64, 96, 1, "cuda")
+    with pytest.raises(ValueError, match="multiple of 64"):
+        nt_xent_fwd(zi, zj, INV_TAU)
+    zi, zj, lse, scale = _nt_inputs(64, 128, 1, "cuda")
+    with pytest.raises(TypeError, match="float32"):
+        nt_xent_bwd_rows(zi.double(), zj.double(), lse, scale, INV_TAU)

@@ -59,3 +59,24 @@ def test_plain_matches_pallas_dma_scatter(t, C, grid):
     )
     got = scatter_tiles_ps_plain(torch.from_numpy(tiles), torch.from_numpy(ids), grid)
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("t,C,grid", [(2, 64, 8), (4, 32, 16)])
+def test_scatter_grad_matches_jax_autodiff(t, C, grid):
+    """The autograd Function's backward (the tile gather out of dy, zeros
+    for padding ids) equals ``jax.grad`` through ``scatter_tiles_ps``."""
+    import jax.numpy as jnp
+
+    from tricolo_tpu.ops.tile_sparse import scatter_tiles_ps as jax_scatter
+    from tricolo_tpu_torch.ops.tile_scatter import scatter_tiles
+
+    tiles, ids = _inputs(3, 6, t, C, grid, seed=11 + C)
+    g = np.random.default_rng(5).normal(size=(3, grid, grid, grid, C)).astype(np.float32)
+    ref = jax.grad(lambda x: jnp.sum(jax_scatter(x, ids, grid, layout="transpose") * g))(
+        jnp.asarray(tiles)
+    )
+    x = torch.tensor(tiles, requires_grad=True)
+    (scatter_tiles(x, torch.from_numpy(ids), grid) * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_array_equal(x.grad.numpy(), np.asarray(ref))
+    padding = ids >= (grid // t) ** 3
+    assert padding.any() and np.all(x.grad.numpy()[padding] == 0)

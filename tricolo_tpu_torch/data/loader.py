@@ -1,11 +1,14 @@
-"""Eval batching: fixed-shape collation of the windowed_compact transfer.
+"""Batching: fixed-shape collation of the windowed_compact transfer.
 
-The port's copy of the serving half of ``tricolo_tpu.data.loader``: batches
-come in split order, the short tail batch is padded with repeats of its
-last item and carries ``num_valid``, and every batch of a split has the
-same shapes. Only the default ``data.voxel_transfer=windowed_compact`` is
-ported; the packed/dense/windowed transfers feed encoder paths the port
-does not have yet.
+The port's copy of ``tricolo_tpu.data.loader``. Eval batches come in split
+order, the short tail batch is padded with repeats of its last item and
+carries ``num_valid``, and every batch of a split has the same shapes. The
+train loader shuffles with ``np.random.default_rng((seed, epoch))`` — the
+JAX loader's permutation, so both packages see the same batches — and
+drops the short tail. Only the default
+``data.voxel_transfer=windowed_compact`` is ported; the packed/dense/
+windowed transfers feed encoder paths the port does not have yet. The
+prefetch thread and multi-process striping are not ported yet.
 """
 
 from __future__ import annotations
@@ -68,12 +71,16 @@ def collate(
 
 
 class BatchIterator:
-    """Iterate a dataset in split order, in fixed-shape batches."""
+    """Iterate a dataset in fixed-shape batches: split order, or a seeded
+    per-epoch permutation with ``shuffle``."""
 
     def __init__(
         self,
         dataset,
         batch_size: int,
+        shuffle: bool = False,
+        drop_last: bool = False,
+        seed: int = 0,
         voxel_size: int = 64,
         with_images: bool = True,
         with_voxels: bool = True,
@@ -83,6 +90,10 @@ class BatchIterator:
     ):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.epoch = 0
         self.voxel_size = voxel_size
         self.with_images = with_images
         self.with_voxels = with_voxels
@@ -106,14 +117,25 @@ class BatchIterator:
         return self._tile_budget_rows
 
     def __len__(self) -> int:
+        if self.drop_last:
+            return len(self.dataset) // self.batch_size
         return -(-len(self.dataset) // self.batch_size)
+
+    def set_epoch(self, epoch: int) -> None:
+        """Advance the shuffle stream (a new seeded permutation each epoch)."""
+        self.epoch = epoch
 
     def __iter__(self) -> Iterator[dict]:
         n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            order = np.random.default_rng((self.seed, self.epoch)).permutation(n)
         for start in range(0, n, self.batch_size):
-            chunk = np.arange(start, min(start + self.batch_size, n))
+            chunk = order[start : start + self.batch_size]
             valid = len(chunk)
             if valid < self.batch_size:
+                if self.drop_last:
+                    return
                 chunk = np.concatenate(
                     [chunk, np.full(self.batch_size - valid, chunk[-1])]
                 )
@@ -135,15 +157,17 @@ class BatchIterator:
 
 
 class DataModule:
-    """Split construction + eval loader config (``setup("test")``)."""
+    """Split construction + loader config: ``setup("fit")`` builds the train
+    split and the ``inference.split`` split, ``setup("test")`` the latter."""
 
     def __init__(self, cfg):
         self.cfg = cfg
+        self.train_set = None
         self.val_set = None
 
     def setup(self, stage: str | None = None):
         if stage in ("fit", None):
-            raise NotImplementedError("training is not ported yet; use setup('test')")
+            self.train_set = build_dataset(self.cfg, "train")
         self.val_set = build_dataset(self.cfg, self.cfg.inference.split)
 
     def _loader_kwargs(self) -> dict:
@@ -176,6 +200,10 @@ class DataModule:
             tile_overflow=str(self.cfg.data.get("tile_overflow", "error")),
             windowed_halo=windowed_halo(blocks),
         )
+
+    def train_loader(self) -> BatchIterator:
+        return BatchIterator(self.train_set, shuffle=True, drop_last=True,
+                             seed=self.cfg.train_seed, **self._loader_kwargs())
 
     def val_loader(self) -> BatchIterator:
         return BatchIterator(self.val_set, **self._loader_kwargs())

@@ -1,4 +1,4 @@
-"""Encoders of the port (eval forward)."""
+"""Encoders of the port (eval and train forward)."""
 
 from .bigru import BiGRUEncoder
 from .mvcnn import MVCNNEncoder

@@ -6,7 +6,10 @@ sequence → concat(final forward, final backward) → Linear → tanh → L2.
 
 The JAX package realises ``padding_idx=0`` by multiplying the embedding
 output with ``tokens != 0``; a converted embedding row 0 need not be zero,
-so the same mask is applied here (``padding_idx`` alone would differ). Gate
+so the same mask is applied here (``padding_idx`` alone would differ). In
+training the mask zeroes row 0's gradient, and weight decay still moves
+the row, as in the JAX package. The cuDNN GRU (and its backward) is a
+library call, as the JAX package leaves the GRU to XLA. Gate
 order (r, z, n) and the candidate ``n = tanh(x_n + r·(W_hn h + b_hn))`` are
 torch's own GRU formula.
 """

@@ -1,12 +1,16 @@
-"""ResNet18 backbone (eval), channels-last.
+"""ResNet18 backbone, channels-last.
 
 Port of ``tricolo_tpu.models.resnet.ResNet`` with ``BasicBlock``: the
 7×7/2 pad-3 stem conv → BN → ReLU → 3×3/2 pad-1 max pool, four stages of
 two BasicBlocks (64/128/256/512, stride 2 from stage 2 on, 1×1/stride
-downsample where the shape changes), global average pool. BN runs with its
-running statistics (``F.batch_norm(training=False)`` through
-``nn.BatchNorm2d`` in eval mode). Parameter names follow the JAX tree
-(``layer1.0.conv1`` for ``layer1_0/conv1``) so ``convert.py`` is a rename.
+downsample where the shape changes), global average pool. Parameter names
+follow the JAX tree (``layer1.0.conv1`` for ``layer1_0/conv1``) so
+``convert.py`` is a rename.
+
+BatchNorm is ``BatchNorm2d``: in eval mode torch's own (running
+statistics); in train mode it normalises with the batch statistics and
+updates its running buffers as flax ``nn.BatchNorm`` does — momentum 0.9
+and the *biased* batch variance (torch's module would use the unbiased one).
 
 ResNet34/50, EfficientNet and the stem opt-ins (hybrid/space-to-depth) are
 not ported yet.
@@ -15,7 +19,24 @@ not ported yet.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+_MOMENTUM = 0.9  # flax convention: running = 0.9·running + 0.1·batch
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode follows flax ``nn.BatchNorm``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+            self.running_mean.copy_(_MOMENTUM * self.running_mean + (1.0 - _MOMENTUM) * mean)
+            self.running_var.copy_(_MOMENTUM * self.running_var + (1.0 - _MOMENTUM) * var)
+        return F.batch_norm(x, None, None, self.weight, self.bias, training=True,
+                            eps=self.eps)
 
 
 def _conv(cin: int, cout: int, k: int, stride: int) -> nn.Conv2d:
@@ -26,13 +47,13 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, features: int, stride: int):
         super().__init__()
         self.conv1 = _conv(cin, features, 3, stride)
-        self.bn1 = nn.BatchNorm2d(features, eps=1e-5)
+        self.bn1 = BatchNorm2d(features, eps=1e-5)
         self.conv2 = _conv(features, features, 3, 1)
-        self.bn2 = nn.BatchNorm2d(features, eps=1e-5)
+        self.bn2 = BatchNorm2d(features, eps=1e-5)
         self.has_downsample = stride != 1 or cin != features
         if self.has_downsample:
             self.downsample_conv = _conv(cin, features, 1, stride)
-            self.downsample_bn = nn.BatchNorm2d(features, eps=1e-5)
+            self.downsample_bn = BatchNorm2d(features, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -52,7 +73,7 @@ class ResNet(nn.Module):
         if cnn_name not in _ARCHS:
             raise NotImplementedError(f"backbone {cnn_name!r} is not ported yet")
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        self.bn1 = BatchNorm2d(64, eps=1e-5)
         cin = 64
         for stage, num_blocks in enumerate(_ARCHS[cnn_name]):
             features = 64 * 2**stage

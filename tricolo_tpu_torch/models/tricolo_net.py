@@ -1,8 +1,10 @@
-"""TriCoLoNet: the configured modality encoders, eval forward.
+"""TriCoLoNet: the configured modality encoders.
 
 Port of ``tricolo_tpu.models.tricolo_net.TriCoLoNet`` for the BiGRU text
 encoder, the MVCNN image encoder and the windowed voxel encoder
-(``voxel_rows`` input). The CLIP heads are not ported yet.
+(``voxel_rows`` input). ``train()`` / ``eval()`` switch the BatchNorms
+between batch and running statistics; the non-CLIP encoders have no
+dropout. The CLIP heads are not ported yet.
 """
 
 from __future__ import annotations

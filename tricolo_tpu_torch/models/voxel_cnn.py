@@ -1,7 +1,7 @@
-"""Voxel encoder on host-windowed tile rows (eval), channels-last.
+"""Voxel encoder on host-windowed tile rows, channels-last.
 
 Port of ``tricolo_tpu.models.voxel_cnn.VoxelCNNEncoder._windowed_forward``
-under the masked (submanifold) semantics at eval time. Input is the
+under the masked (submanifold) semantics, eval and train. Input is the
 ``windowed_compact`` transfer: per-sample packed rows (B, k, s³) of each
 active 8³ tile's halo'd window (s = 8 + 2·halo) and their local tile ids
 (B, k).
@@ -14,6 +14,13 @@ pooled centre mask cropped by its VALID conv. K2 (``ops.scatter_tiles_ps``)
 then places the (B, k, 2³, 64) tiles and their mask on dense 16³ grids,
 blocks 3-5 run dense (SAME conv + K1), and the NDHWC flatten feeds the MLP
 head. Halo 1 (10³ rows) runs block 1 on the rows and blocks 2-5 dense.
+
+In ``train()`` mode each block normalises with its masked batch statistics
+through ``ops.masked_bn_relu_pool_train`` (K1 forward with the argmax
+index, K3 backward) and updates ``running_mean``/``running_var`` by hand:
+flax momentum 0.9 and the *biased* masked variance, as the JAX package does
+(``nn.BatchNorm3d``'s own update would use the unbiased variance over all
+sites). K2 runs through its autograd Function (``ops.scatter_tiles``).
 
 Convolutions are ``F.conv3d`` on channels-last-3d views (cuDNN on the
 card), as the JAX package leaves them to XLA. ``use_kernels=False`` runs
@@ -30,15 +37,23 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..data.device_prep import unpack_windowed_rows
-from ..ops.bn_relu_pool import bn_relu_pool, bn_relu_pool_plain, fold_bn
-from ..ops.tile_scatter import scatter_tiles_ps, scatter_tiles_ps_plain
+from ..ops.bn_relu_pool import (
+    bn_relu_pool,
+    bn_relu_pool_plain,
+    fold_bn,
+    masked_bn_relu_pool_train,
+)
+from ..ops.tile_scatter import scatter_tiles
 from .common import MLPHead, l2_normalize
 
 _TILE = 8
 
 
+_MOMENTUM = 0.9  # flax convention: running = 0.9·running + 0.1·batch
+
+
 class ConvBlock(nn.Module):
-    """Conv3D(3³, no bias) → masked eval BN → ReLU → zero → MaxPool(2³)."""
+    """Conv3D(3³, no bias) → masked BN → ReLU → zero → MaxPool(2³)."""
 
     def __init__(self, cin: int, features: int):
         super().__init__()
@@ -51,11 +66,21 @@ class ConvBlock(nn.Module):
         y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.conv.weight, padding=padding)
         y = y.permute(0, 2, 3, 4, 1).contiguous()
         bn = self.bn
-        mul, add = fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var,
-                           bn.eps, y.dtype)
         zero_mask = zero_mask.to(y.dtype).contiguous()
         if stats_mask is not None:
             stats_mask = stats_mask.to(y.dtype).contiguous()
+        if self.training:
+            # Two masks: statistics over stats_mask, zeroing over zero_mask.
+            stats = zero_mask if stats_mask is None else stats_mask
+            pooled, mean, var, pooled_mask = masked_bn_relu_pool_train(
+                y, bn.weight, bn.bias, stats, zero_mask, bn.eps, use_kernels
+            )
+            with torch.no_grad():
+                bn.running_mean.copy_(_MOMENTUM * bn.running_mean + (1.0 - _MOMENTUM) * mean)
+                bn.running_var.copy_(_MOMENTUM * bn.running_var + (1.0 - _MOMENTUM) * var)
+            return pooled, pooled_mask
+        mul, add = fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                           bn.eps, y.dtype)
         op = bn_relu_pool if use_kernels else bn_relu_pool_plain
         return op(y, mul, add, zero_mask, stats_mask)
 
@@ -98,7 +123,6 @@ class VoxelCNNEncoder(nn.Module):
                 "(halo 1) or 14³ (halo 3)"
             )
         kernels = self.use_kernels
-        scatter = scatter_tiles_ps if kernels else scatter_tiles_ps_plain
         batch, k = rows.shape[:2]
         s = _TILE + 2 * halo
         x_t, m_full = unpack_windowed_rows(rows.reshape(-1, s, s, s), self.compute_dtype)
@@ -115,8 +139,8 @@ class VoxelCNNEncoder(nn.Module):
             dense_from, grid = 2, self.voxel_size // 4
         t = x_t.shape[1]
         ids = row_ids.to(torch.int32).contiguous()
-        x = scatter(x_t.reshape(batch, k, t, t, t, -1), ids, grid)
-        mask = scatter(m_t.reshape(batch, k, t, t, t, 1), ids, grid)
+        x = scatter_tiles(x_t.reshape(batch, k, t, t, t, -1), ids, grid, kernels)
+        mask = scatter_tiles(m_t.reshape(batch, k, t, t, t, 1), ids, grid, kernels)
         for block in self.blocks[dense_from:]:
             x, mask = block(x, mask, padding=1, use_kernels=kernels)
         x = self.head(x.reshape(batch, -1))

@@ -1,16 +1,45 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
 PyTorch version and a launch counter.
 
-* ``bn_relu_pool`` (K1, ``csrc/bn_relu_pool.cu``) — masked eval BN → ReLU →
-  zero → MaxPool(2³); replaces ``fused_bn_pool._fwd_kernel``.
+* ``bn_relu_pool`` (K1, ``csrc/bn_relu_pool.cu``) — masked BN → ReLU →
+  zero → MaxPool(2³) + first argmax; replaces ``fused_bn_pool._fwd_kernel``.
 * ``scatter_tiles_ps`` (K2, ``csrc/tile_scatter.cu``) — per-sample tile →
   grid scatter; replaces ``_graveyard/dma_tiles._scatter_kernel``.
+* ``bn_relu_pool_bwd`` (K3, ``csrc/bn_relu_pool_bwd.cu``) — the
+  full-resolution dy of the masked BN-ReLU-pool backward; replaces
+  ``fused_bn_pool._dy_kernel``.
+* ``nt_xent_fwd`` / ``nt_xent_bwd_rows`` / ``nt_xent_bwd_cols`` (K4-K6,
+  ``csrc/nt_xent.cu``) — the blocked online-softmax NT-Xent; replace
+  ``nt_xent_pallas._fwd_kernel`` / ``_bwd_kernel`` / ``_bwd_cols_kernel``.
 """
 
-from .bn_relu_pool import bn_relu_pool, bn_relu_pool_plain, fold_bn
-from .tile_scatter import scatter_tiles_ps, scatter_tiles_ps_plain
+from .bn_relu_pool import (
+    bn_relu_pool,
+    bn_relu_pool_bwd,
+    bn_relu_pool_bwd_plain,
+    bn_relu_pool_plain,
+    fold_bn,
+    masked_bn_relu_pool_train,
+)
+from .nt_xent import (
+    blocked_nt_xent_loss,
+    nt_xent_bwd_cols,
+    nt_xent_bwd_cols_plain,
+    nt_xent_bwd_rows,
+    nt_xent_bwd_rows_plain,
+    nt_xent_fwd,
+    nt_xent_fwd_plain,
+)
+from .tile_scatter import gather_tiles_ps, scatter_tiles, scatter_tiles_ps, scatter_tiles_ps_plain
 
-KERNELS = (bn_relu_pool, scatter_tiles_ps)
+KERNELS = (
+    bn_relu_pool,
+    scatter_tiles_ps,
+    bn_relu_pool_bwd,
+    nt_xent_fwd,
+    nt_xent_bwd_rows,
+    nt_xent_bwd_cols,
+)
 
 
 def reset_launches() -> None:
@@ -24,11 +53,23 @@ def launches() -> dict[str, int]:
 
 __all__ = [
     "KERNELS",
+    "blocked_nt_xent_loss",
     "bn_relu_pool",
+    "bn_relu_pool_bwd",
+    "bn_relu_pool_bwd_plain",
     "bn_relu_pool_plain",
     "fold_bn",
+    "gather_tiles_ps",
     "launches",
+    "masked_bn_relu_pool_train",
+    "nt_xent_bwd_cols",
+    "nt_xent_bwd_cols_plain",
+    "nt_xent_bwd_rows",
+    "nt_xent_bwd_rows_plain",
+    "nt_xent_fwd",
+    "nt_xent_fwd_plain",
     "reset_launches",
+    "scatter_tiles",
     "scatter_tiles_ps",
     "scatter_tiles_ps_plain",
 ]

@@ -1,16 +1,29 @@
-"""Masked eval BatchNorm → ReLU → zero → MaxPool(2³): kernel K1.
+"""Masked BatchNorm → ReLU → zero → MaxPool(2³): kernels K1 and K3.
 
-``bn_relu_pool`` is the voxel encoder's per-block epilogue at eval time
-(all five blocks). On a CUDA tensor it launches the hand-written kernel
-``csrc/bn_relu_pool.cu`` (it replaces the TPU kernel
-``tricolo_tpu/ops/fused_bn_pool.py::_fwd_kernel``) or raises; on a CPU
-tensor it runs ``bn_relu_pool_plain``, the same function in plain PyTorch
-(the torch form of ``masked_inference_bn_relu_pool2``). The kernel repeats
-the plain version's rounding step for step, so the two agree bit for bit.
+``bn_relu_pool`` (K1) is the voxel encoder's per-block epilogue: BN folded
+to ``y·mul + add``, ReLU, zero, window max (and first argmax). On a CUDA
+tensor it launches the hand-written kernel ``csrc/bn_relu_pool.cu`` (it
+replaces the TPU kernel ``tricolo_tpu/ops/fused_bn_pool.py::_fwd_kernel``)
+or raises; on a CPU tensor it runs ``bn_relu_pool_plain``, the same
+function in plain PyTorch (the torch form of
+``masked_inference_bn_relu_pool2``).
 
-``fold_bn`` folds the running statistics into per-channel ``mul``/``add``
-exactly as the JAX package's ``_muladd`` does: f32 fold, then one cast to
-the compute dtype.
+``bn_relu_pool_bwd`` (K3) is the full-resolution pass of the train-mode
+backward, ``dy = route(ga by idx) + (B + C·ẑ)·stats_mask``: the CUDA kernel
+``csrc/bn_relu_pool_bwd.cu`` (it replaces ``fused_bn_pool::_dy_kernel``)
+or, on a CPU tensor, ``bn_relu_pool_bwd_plain`` (the torch form of the dy
+line of ``_masked_hybrid2_bwd``). Both kernels repeat their plain
+version's rounding step for step, so each pair agrees bit for bit.
+
+``masked_bn_relu_pool_train`` is the train-mode op, the counterpart of
+``masked_hybrid_bn_relu_pool2`` (two masks) and ``masked_hybrid_bn_relu_pool``
+(one mask): masked f32 batch statistics, K1 with the argmax index, and a
+backward whose pooled-resolution pieces are plain torch (as the JAX
+package leaves them to XLA) around K3.
+
+``fold_bn`` folds statistics into per-channel ``mul``/``add`` exactly as
+the JAX package's ``_muladd`` does: f32 fold, then one cast to the compute
+dtype.
 """
 
 from __future__ import annotations
@@ -121,3 +134,177 @@ def bn_relu_pool(y, mul, add, zero_mask, stats_mask=None, want_idx=False):
 
 
 bn_relu_pool.launches = 0
+
+
+# ------------------------------------------------------------------ K3
+
+
+def _check_bwd(y, ga, idx, stats_mask, vectors):
+    if y.ndim != 5 or any(s % 2 for s in y.shape[1:4]):
+        raise ValueError(f"expected (N, D, H, W, C) with even D/H/W, got {tuple(y.shape)}")
+    N, D, H, W, C = y.shape
+    pooled = (N, D // 2, H // 2, W // 2, C)
+    if ga.shape != pooled or idx.shape != pooled:
+        raise ValueError(f"ga/idx must be {pooled}, got {tuple(ga.shape)}/{tuple(idx.shape)}")
+    if stats_mask.shape != (N, D, H, W, 1):
+        raise ValueError(f"stats_mask must be {(N, D, H, W, 1)}, got {tuple(stats_mask.shape)}")
+    for v in vectors:
+        if v.shape != (C,):
+            raise ValueError(f"per-channel vectors must be ({C},), got {tuple(v.shape)}")
+
+
+def bn_relu_pool_bwd_plain(y, ga, idx, stats_mask, bcoef, ccoef, invstd, sub):
+    """Plain PyTorch version: ``ga`` routed to each window's member ``idx``
+    (a one-hot over the 8 members), plus ``(bcoef + ccoef·ẑ)·stats_mask``
+    with ``ẑ = y·invstd − sub``, in f32, one cast to y's dtype. The f32
+    work runs in place on one scratch tensor (same rounding per op)."""
+    _check_bwd(y, ga, idx, stats_mask, (bcoef, ccoef, invstd, sub))
+    N, D, H, W, C = y.shape
+    members = torch.arange(8, device=y.device, dtype=torch.uint8)
+    routed = torch.where(idx[..., None] == members, ga[..., None], 0).to(y.dtype)
+    routed = (
+        routed.reshape(N, D // 2, H // 2, W // 2, C, 2, 2, 2)
+        .permute(0, 1, 5, 2, 6, 3, 7, 4)
+        .reshape(N, D, H, W, C)
+    )
+    t = y.to(torch.float32, copy=True)
+    t.mul_(invstd).sub_(sub)
+    t.mul_(ccoef).add_(bcoef)
+    t.mul_(stats_mask)
+    t.add_(routed)
+    return t.to(y.dtype)
+
+
+def _lib_bwd():
+    lib = _build.load("bn_relu_pool_bwd")
+    for suffix in _DTYPES.values():
+        fn = getattr(lib, f"bn_relu_pool_bwd_{suffix}")
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p
+        ]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def bn_relu_pool_bwd(y, ga, idx, stats_mask, bcoef, ccoef, invstd, sub):
+    """Full-resolution dy of the masked BN → ReLU → pool backward; K3 on CUDA.
+
+    y (N, D, H, W, C) bf16 or f32; ga (pooled shape) and stats_mask
+    (N, D, H, W, 1) in y's dtype; idx (pooled shape) uint8 from K1;
+    bcoef/ccoef/invstd/sub (C,) f32. Returns dy in y's dtype.
+    """
+    if y.device.type == "cpu":
+        return bn_relu_pool_bwd_plain(y, ga, idx, stats_mask, bcoef, ccoef, invstd, sub)
+    if y.device.type != "cuda":
+        raise ValueError(f"bn_relu_pool_bwd runs on cuda or cpu tensors, got {y.device}")
+    vectors = (bcoef, ccoef, invstd, sub)
+    _check_bwd(y, ga, idx, stats_mask, vectors)
+    if y.dtype not in _DTYPES:
+        raise TypeError(f"bn_relu_pool_bwd takes float32 or bfloat16, got {y.dtype}")
+    if ga.dtype != y.dtype or stats_mask.dtype != y.dtype or idx.dtype != torch.uint8:
+        raise TypeError("ga and stats_mask must have y's dtype, idx must be uint8")
+    if any(v.dtype != torch.float32 for v in vectors):
+        raise TypeError("bcoef/ccoef/invstd/sub must be float32")
+    for t in (y, ga, idx, stats_mask, *vectors):
+        if t.device != y.device or not t.is_contiguous():
+            raise ValueError("bn_relu_pool_bwd needs contiguous inputs on y's device")
+    N, D, H, W, C = y.shape
+    dy = torch.empty_like(y)
+    vec4 = C % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (y, ga, dy)
+    ) and idx.data_ptr() % 4 == 0
+    fn = getattr(_lib_bwd(), f"bn_relu_pool_bwd_{_DTYPES[y.dtype]}")
+    with torch.cuda.device(y.device):
+        status = fn(
+            y.data_ptr(), ga.data_ptr(), idx.data_ptr(), stats_mask.data_ptr(),
+            bcoef.data_ptr(), ccoef.data_ptr(), invstd.data_ptr(), sub.data_ptr(),
+            dy.data_ptr(), N, D, H, W, C, int(vec4),
+            torch.cuda.current_stream(y.device).cuda_stream,
+        )
+    _build.check(status, "bn_relu_pool_bwd")
+    bn_relu_pool_bwd.launches += 1
+    return dy
+
+
+bn_relu_pool_bwd.launches = 0
+
+
+# ------------------------------------------------------- train-mode op
+
+_SITE_DIMS = (0, 1, 2, 3)
+
+
+def masked_stats(y, stats_mask, eps: float):
+    """(mean, var, invstd, count) over the ``stats_mask`` sites, in f32 —
+    the JAX package's ``_masked_stats``: count = max(Σm, 1), the biased
+    variance Σy²m/count − mean², clipped at 0."""
+    m = stats_mask.float()
+    count = torch.clamp(m.sum(), min=1.0)
+    ym = y.float() * m
+    total = ym.sum(dim=_SITE_DIMS)
+    ym.mul_(y)  # y²·m (exactly square(y)·m: m is 0 or 1)
+    total_sq = ym.sum(dim=_SITE_DIMS)
+    del ym
+    mean = total / count
+    var = torch.clamp(total_sq / count - mean.square(), min=0.0)
+    return mean, var, torch.rsqrt(var + eps), count
+
+
+class _MaskedBNReLUPoolTrain(torch.autograd.Function):
+    """Forward: masked statistics → fold → K1 (with argmax). Backward: the
+    pooled-resolution pieces of ``_masked_hybrid2_bwd`` in plain torch, then
+    K3. Saves y, idx, pooled, the stats mask and the f32 statistics — not
+    the full-resolution activation the JAX package keeps: idx routes."""
+
+    @staticmethod
+    def forward(ctx, y, scale, bias, stats_mask, zero_mask, eps, use_kernels):
+        mean, var, invstd, count = masked_stats(y, stats_mask, eps)
+        mul, add = fold_bn(scale, bias, mean, var, eps, y.dtype)
+        fwd = bn_relu_pool if use_kernels else bn_relu_pool_plain
+        pooled, pooled_mask, idx = fwd(y, mul, add, zero_mask, stats_mask, want_idx=True)
+        ctx.save_for_backward(y, idx, pooled, stats_mask, scale, bias, mean, invstd, count)
+        ctx.use_kernels = use_kernels
+        ctx.mark_non_differentiable(pooled_mask)
+        return pooled, mean, var, pooled_mask
+
+    @staticmethod
+    def backward(ctx, g_out, g_mean, g_var, _g_pmask):
+        y, idx, pooled, stats_mask, scale, bias, mean, invstd, count = ctx.saved_tensors
+        # Pooled-resolution BN parameter grads: a live pooled cell's argmax
+        # site is unmasked and relu-positive, where m = γ·ẑ + β.
+        g32 = g_out.float() * (pooled > 0)
+        scale32 = scale.float()
+        safe = torch.where(scale32 == 0.0, 1.0, scale32)
+        zmax = (pooled.float() - bias.float()) / safe
+        zmax = torch.where(scale32 == 0.0, 0.0, zmax)
+        dbeta = g32.sum(dim=_SITE_DIMS)
+        dgamma = (g32 * zmax).sum(dim=_SITE_DIMS)
+        a32 = scale32 * invstd
+        b32 = -a32 * dbeta / count
+        c32 = -a32 * dgamma / count
+        if g_mean is not None:
+            b32 = b32 + g_mean / count
+        if g_var is not None:
+            c32 = c32 + 2.0 * g_var / (count * invstd)
+        ga = (g32 * a32).to(y.dtype).contiguous()
+        bwd = bn_relu_pool_bwd if ctx.use_kernels else bn_relu_pool_bwd_plain
+        dy = bwd(y, ga, idx, stats_mask, b32.contiguous(), c32.contiguous(),
+                 invstd.contiguous(), (mean * invstd).contiguous())
+        return dy, dgamma.to(scale.dtype), dbeta.to(bias.dtype), None, None, None, None
+
+
+def masked_bn_relu_pool_train(y, scale, bias, stats_mask, zero_mask=None, eps: float = 1e-5,
+                              use_kernels: bool = True):
+    """Train-mode masked BN (batch statistics) → ReLU → zero → MaxPool(2³).
+
+    y (N, D, H, W, C) bf16 or f32 channels-last; scale/bias (C,) f32;
+    masks (N, D, H, W, 1) in y's dtype; ``zero_mask=None`` means
+    ``stats_mask`` (the single-mask blocks). Returns (pooled, mean, var,
+    pooled_mask) with f32 mean and biased var over the ``stats_mask``
+    sites. Differentiable in y, scale and bias. ``use_kernels=False`` runs
+    the kernels' plain versions on any device.
+    """
+    zero_mask = stats_mask if zero_mask is None else zero_mask
+    _check(y, scale, bias, zero_mask, stats_mask)
+    return _MaskedBNReLUPoolTrain.apply(y, scale, bias, stats_mask, zero_mask, eps,
+                                        use_kernels)

@@ -1,0 +1,186 @@
+"""Blocked online-softmax NT-Xent: kernels K4, K5 and K6.
+
+The plain loss (``losses/nt_xent.py``) materialises the (B, B) logits
+twice; these kernels (``csrc/nt_xent.cu``) stream them tile by tile so
+nothing O(B²) reaches device memory. They replace the Pallas TPU kernels of
+``tricolo_tpu/ops/nt_xent_pallas.py``:
+
+* ``nt_xent_fwd`` (K4, ``_fwd_kernel``) — per row of zi the diagonal logit
+  and the logsumexp of ``zi·zjᵀ/τ`` → (B, 2);
+* ``nt_xent_bwd_rows`` (K5, ``_bwd_kernel``) — ``(P − I)·zj·s``;
+* ``nt_xent_bwd_cols`` (K6, ``_bwd_cols_kernel``) — ``(P − I)ᵀ·zi·s``;
+
+with ``P = exp(logits − lse)`` recomputed from the saved logsumexps and
+``s`` a one-element f32 tensor (the loss cotangent times the direction's
+weight over τ·B). On a CUDA tensor each wrapper launches its kernel or
+raises; on a CPU tensor it runs its ``*_plain`` version, explicit torch
+formulas over the materialised logits. The sums run in another order, so
+kernel and plain version agree to f32 rounding, not bit for bit.
+
+``blocked_nt_xent_loss`` is the counterpart of ``pallas_nt_xent_loss``: L2
+normalisation in torch, then an autograd Function with the JAX
+``_fwd``/``_bwd`` composition (two K4 launches forward; two K5 and two K6
+backward).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..models.common import l2_normalize
+from . import _build
+
+
+def _logits(zi, zj, inv_tau):
+    return (zi @ zj.T) * inv_tau
+
+
+def nt_xent_fwd_plain(zi, zj, inv_tau: float):
+    """(B, 2): [:, 0] the diagonal logits, [:, 1] the row logsumexps."""
+    logits = _logits(zi, zj, inv_tau)
+    return torch.stack([logits.diagonal(), torch.logsumexp(logits, dim=1)], dim=1)
+
+
+def _coeff(zi, zj, lse, inv_tau):
+    logits = _logits(zi, zj, inv_tau)
+    eye = torch.eye(zi.shape[0], dtype=logits.dtype, device=logits.device)
+    return torch.exp(logits - lse[:, None]) - eye
+
+
+def nt_xent_bwd_rows_plain(zi, zj, lse, scale, inv_tau: float):
+    """dzi = (P − I)·zj·scale, P over the rows of zi·zjᵀ/τ."""
+    return (_coeff(zi, zj, lse, inv_tau) @ zj) * scale
+
+
+def nt_xent_bwd_cols_plain(zj, zi, lse, scale, inv_tau: float):
+    """dzj = (P − I)ᵀ·zi·scale, P over the rows of zi·zjᵀ/τ (lse per zi row)."""
+    return (_coeff(zi, zj, lse, inv_tau).T @ zi) * scale
+
+
+def _check(zi, zj, *rest):
+    if zi.ndim != 2 or zi.shape != zj.shape:
+        raise ValueError(f"expected two (B, D) operands, got {tuple(zi.shape)}/{tuple(zj.shape)}")
+    B, D = zi.shape
+    if D % 64 or D > 512:
+        raise ValueError(f"the NT-Xent kernels take D a multiple of 64 up to 512, got {D}")
+    for t in (zi, zj, *rest):
+        if t.dtype != torch.float32:
+            raise TypeError(f"the NT-Xent kernels take float32, got {t.dtype}")
+        if t.device != zi.device or not t.is_contiguous():
+            raise ValueError("the NT-Xent kernels need contiguous inputs on one device")
+    return B, D
+
+
+def _lib():
+    lib = _build.load("nt_xent")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.nt_xent_fwd.argtypes = [ptr] * 3 + [i32, i32, ctypes.c_float, ptr]
+    for name in ("nt_xent_bwd_rows", "nt_xent_bwd_cols"):
+        getattr(lib, name).argtypes = [ptr] * 5 + [i32, i32, ctypes.c_float, ptr]
+    for name in ("nt_xent_fwd", "nt_xent_bwd_rows", "nt_xent_bwd_cols"):
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _device(t, name):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {t.device}")
+
+
+def nt_xent_fwd(zi, zj, inv_tau: float):
+    """(B, 2) [diagonal logit, logsumexp] per row of zi; K4 on CUDA.
+    zi, zj (B, D) f32 contiguous, D a multiple of 64 up to 512."""
+    if zi.device.type == "cpu":
+        return nt_xent_fwd_plain(zi, zj, inv_tau)
+    _device(zi, "nt_xent_fwd")
+    B, D = _check(zi, zj)
+    out = torch.empty((B, 2), dtype=torch.float32, device=zi.device)
+    with torch.cuda.device(zi.device):
+        status = _lib().nt_xent_fwd(
+            zi.data_ptr(), zj.data_ptr(), out.data_ptr(), B, D, float(inv_tau),
+            torch.cuda.current_stream(zi.device).cuda_stream,
+        )
+    _build.check(status, "nt_xent_fwd")
+    nt_xent_fwd.launches += 1
+    return out
+
+
+def _bwd(name, wrapper, own, oth, lse, scale, inv_tau):
+    _device(own, name)
+    B, D = _check(own, oth, lse, scale)
+    if lse.shape != (B,) or scale.numel() != 1:
+        raise ValueError(f"lse must be ({B},) and scale one element")
+    out = torch.empty_like(own)
+    with torch.cuda.device(own.device):
+        status = getattr(_lib(), name)(
+            own.data_ptr(), oth.data_ptr(), lse.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), B, D, float(inv_tau),
+            torch.cuda.current_stream(own.device).cuda_stream,
+        )
+    _build.check(status, name)
+    wrapper.launches += 1
+    return out
+
+
+def nt_xent_bwd_rows(zi, zj, lse, scale, inv_tau: float):
+    """dzi = (P − I)·zj·scale with P = exp(zi·zjᵀ/τ − lse[:, None]); K5 on
+    CUDA. lse (B,) f32; scale a one-element f32 tensor."""
+    if zi.device.type == "cpu":
+        return nt_xent_bwd_rows_plain(zi, zj, lse, scale, inv_tau)
+    return _bwd("nt_xent_bwd_rows", nt_xent_bwd_rows, zi, zj, lse, scale, inv_tau)
+
+
+def nt_xent_bwd_cols(zj, zi, lse, scale, inv_tau: float):
+    """dzj = (P − I)ᵀ·zi·scale with P = exp(zi·zjᵀ/τ − lse[:, None]); K6 on
+    CUDA. lse (B,) f32 per row of zi; scale a one-element f32 tensor."""
+    if zj.device.type == "cpu":
+        return nt_xent_bwd_cols_plain(zj, zi, lse, scale, inv_tau)
+    return _bwd("nt_xent_bwd_cols", nt_xent_bwd_cols, zj, zi, lse, scale, inv_tau)
+
+
+nt_xent_fwd.launches = 0
+nt_xent_bwd_rows.launches = 0
+nt_xent_bwd_cols.launches = 0
+
+
+class _BlockedNTXent(torch.autograd.Function):
+    """α·La + (1 − α)·Lb on L2-normalised (B, D) f32 embeddings, where
+    La = mean(lse − diag) of zis·zjsᵀ/τ and Lb of zjs·zisᵀ/τ."""
+
+    @staticmethod
+    def forward(ctx, zis, zjs, temperature, alpha, use_kernels):
+        inv_tau = 1.0 / temperature
+        fwd = nt_xent_fwd if use_kernels else nt_xent_fwd_plain
+        out_a, out_b = fwd(zis, zjs, inv_tau), fwd(zjs, zis, inv_tau)
+        loss_a = torch.mean(out_a[:, 1] - out_a[:, 0])
+        loss_b = torch.mean(out_b[:, 1] - out_b[:, 0])
+        ctx.save_for_backward(zis, zjs, out_a[:, 1].contiguous(), out_b[:, 1].contiguous())
+        ctx.inv_tau, ctx.alpha, ctx.use_kernels = inv_tau, alpha, use_kernels
+        return alpha * loss_a + (1.0 - alpha) * loss_b
+
+    @staticmethod
+    def backward(ctx, ct):
+        zis, zjs, lse_a, lse_b = ctx.saved_tensors
+        inv_tau, alpha, batch = ctx.inv_tau, ctx.alpha, zis.shape[0]
+        rows = nt_xent_bwd_rows if ctx.use_kernels else nt_xent_bwd_rows_plain
+        cols = nt_xent_bwd_cols if ctx.use_kernels else nt_xent_bwd_cols_plain
+        ct = ct.float().reshape(1)
+        scale_a = (ct * alpha * inv_tau / batch).contiguous()
+        scale_b = (ct * (1.0 - alpha) * inv_tau / batch).contiguous()
+        d_zis = rows(zis, zjs, lse_a, scale_a, inv_tau) + cols(zis, zjs, lse_b, scale_b, inv_tau)
+        d_zjs = cols(zjs, zis, lse_a, scale_a, inv_tau) + rows(zjs, zis, lse_b, scale_b, inv_tau)
+        return d_zis, d_zjs, None, None, None
+
+
+def blocked_nt_xent_loss(zis, zjs, temperature: float = 0.1, alpha_weight: float = 0.25,
+                         norm: bool = True, use_kernels: bool = True):
+    """Twin of ``losses.nt_xent_loss`` on the blocked kernels (the port of
+    ``pallas_nt_xent_loss``): f32, L2 normalisation in torch, the O(B²)
+    work in K4-K6. ``use_kernels=False`` runs their plain versions."""
+    zis, zjs = zis.float(), zjs.float()
+    if norm:
+        zis, zjs = l2_normalize(zis), l2_normalize(zjs)
+    return _BlockedNTXent.apply(zis.contiguous(), zjs.contiguous(), float(temperature),
+                                float(alpha_weight), use_kernels)

@@ -7,7 +7,8 @@ launches the hand-written kernel ``csrc/tile_scatter.cu`` (it replaces the
 TPU kernel ``tricolo_tpu/ops/_graveyard/dma_tiles.py::_scatter_kernel``) or
 raises; on a CPU tensor it runs ``scatter_tiles_ps_plain``, the torch form
 of ``tricolo_tpu.ops.tile_sparse._transpose_scatter_ps``. A pure copy, so
-kernel and plain version agree bit for bit.
+kernel and plain version agree bit for bit. ``scatter_tiles`` wraps it in
+an autograd Function whose backward is the tile gather out of ``dy``.
 """
 
 from __future__ import annotations
@@ -91,3 +92,47 @@ def scatter_tiles_ps(tiles, local_ids, grid: int):
 
 
 scatter_tiles_ps.launches = 0
+
+
+def gather_tiles_ps(dy, local_ids, tile: int):
+    """The scatter's backward: ``d_tiles[b, j]`` = the (t, t, t, C) region of
+    ``dy[b]`` at local tile id ``local_ids[b, j]``, zeros for padding ids.
+    Plain torch indexing, as the JAX package leaves this gather to XLA (the
+    autodiff of ``_transpose_scatter_ps``)."""
+    B, G = dy.shape[0], dy.shape[1]
+    C = dy.shape[-1]
+    tg = G // tile
+    n = tg**3
+    k = local_ids.shape[1]
+    rows = (
+        dy.reshape(B, tg, tile, tg, tile, tg, tile, C)
+        .permute(0, 1, 3, 5, 2, 4, 6, 7)
+        .reshape(B, n, tile**3 * C)
+    )
+    ids = local_ids.long()
+    valid = (ids >= 0) & (ids < n)
+    safe = torch.where(valid, ids, 0)
+    out = torch.gather(rows, 1, safe[..., None].expand(B, k, rows.shape[-1]))
+    out = torch.where(valid[..., None], out, 0)
+    return out.reshape(B, k, tile, tile, tile, C)
+
+
+class _ScatterTiles(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tiles, local_ids, grid, use_kernel):
+        ctx.save_for_backward(local_ids)
+        ctx.tile = tiles.shape[2]
+        op = scatter_tiles_ps if use_kernel else scatter_tiles_ps_plain
+        return op(tiles, local_ids, grid)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (local_ids,) = ctx.saved_tensors
+        return gather_tiles_ps(dy, local_ids, ctx.tile), None, None, None
+
+
+def scatter_tiles(tiles, local_ids, grid: int, use_kernel: bool = True):
+    """Differentiable ``scatter_tiles_ps`` (K2 forward, tile-gather
+    backward); ``use_kernel=False`` runs the plain version on any device.
+    The ids carry no gradient."""
+    return _ScatterTiles.apply(tiles, local_ids, grid, use_kernel)

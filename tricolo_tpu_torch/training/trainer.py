@@ -1,0 +1,95 @@
+"""Host-side training orchestration.
+
+Port of ``tricolo_tpu.training.Trainer.fit``: the epoch loop over the train
+step (``lr_for_epoch``, then ``set_epoch``, then the steps), validation on
+the JAX cadence (every ``trainer.check_val_every_n_epoch`` epochs and after
+the last) with the retrieval metrics printed as ``epoch N: RR@1=… …``, and
+at the end one checkpoint: ``torch.save`` of the model's state_dict as
+``{checkpoint_monitor.dirpath}/epoch={N}.pt``, the format
+``RetrievalServer.from_checkpoint`` reads — so training feeds serving.
+
+Not ported yet: top-k checkpoint retention, async saves, resume, the
+metrics logger and validation losses.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from ..evaluation import compute_metrics
+from ..inference import collect_embeddings, resolve_device, to_device_batch
+from ..models.tricolo_net import TriCoLoNet
+from .optim import lr_for_epoch, make_optimizer
+from .steps import make_train_step
+
+
+class Trainer:
+    """``Trainer(cfg, device=None).fit(data_module)`` → checkpoint path.
+
+    Runs on ``cuda`` unless ``device`` names another device; raises without
+    a GPU unless asked for the CPU. Weights are initialised from
+    ``cfg.train_seed``. ``train_step`` is the step function ``fit`` calls
+    (``step(device_batch, lr) -> loss_dict``); ``metrics`` holds the last
+    validation's retrieval metrics.
+    """
+
+    def __init__(self, cfg, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        torch.manual_seed(cfg.train_seed)
+        self.model = TriCoLoNet.from_config(cfg).to(self.device)
+        self.optimizer = make_optimizer(cfg, self.model)
+        self.train_step = make_train_step(self.model, self.optimizer, cfg)
+        self.metrics = None
+        self._timers: dict[str, float] = defaultdict(float)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def fit(self, data_module) -> str:
+        cfg = self.cfg
+        np.random.seed(cfg.train_seed)
+        tic = time.perf_counter()
+        data_module.setup("fit")
+        self._timers["data_load"] += time.perf_counter() - tic
+        train_loader = data_module.train_loader()
+        val_loader = data_module.val_loader()
+        val_every = cfg.trainer.check_val_every_n_epoch
+        last = cfg.trainer.max_epochs - 1
+        for epoch in range(cfg.trainer.max_epochs):
+            lr = lr_for_epoch(cfg, epoch)
+            train_loader.set_epoch(epoch)
+            tic = time.perf_counter()
+            for batch in train_loader:
+                self.train_step(to_device_batch(batch, self.device), lr)
+            self._sync()
+            self._timers["train"] += time.perf_counter() - tic
+
+            if (epoch + 1) % val_every == 0 or epoch == last:
+                tic = time.perf_counter()
+                embeddings = collect_embeddings(self.model, val_loader, self.device)
+                self.metrics = compute_metrics(embeddings, nearest_path=None)
+                summary = self.metrics.summary("val_eval/")
+                print(f"epoch {epoch}: " + " ".join(
+                    f"{k.split('/')[-1]}={v:.2f}" for k, v in summary.items()))
+                self._timers["validate"] += time.perf_counter() - tic
+
+        tic = time.perf_counter()
+        ckpt_dir = cfg.checkpoint_monitor.dirpath
+        os.makedirs(ckpt_dir, exist_ok=True)
+        path = os.path.join(ckpt_dir, f"epoch={last}.pt")
+        torch.save({k: v.detach().cpu() for k, v in self.model.state_dict().items()}, path)
+        self._timers["checkpoint"] += time.perf_counter() - tic
+
+        if cfg.trainer.profiler == "simple":
+            total = sum(self._timers.values()) or 1.0
+            print("\nProfiler (simple) — wall clock by phase:")
+            for phase, seconds in sorted(self._timers.items(), key=lambda kv: -kv[1]):
+                print(f"  {phase:<12} {seconds:8.2f}s  {100 * seconds / total:5.1f}%")
+        return path

@@ -7,14 +7,17 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. card — ``nvidia-smi`` name and power limit;
 2. build — every ``tricolo_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, all
-   sources at once (K1-K6);
+   sources at once (K1-K7);
 3. kernels — each against its plain PyTorch version on the card, timed
    beside its bound: K1 (bn_relu_pool) at the five flagship voxel-block
    shapes and K2 (scatter_tiles_ps) at the block-2 handoff, in f32 and bf16,
    bit-exact; K3 (bn_relu_pool_bwd) at the same five shapes, in f32 and
    bf16, on K1's argmax of inputs with ties and dead windows, bit-exact;
    K4-K6 (nt_xent_fwd / _bwd_rows / _bwd_cols) at B = 128 and 8192, D = 512,
-   f32, within ``NT_XENT_TOL``·max|plain|;
+   f32, within ``NT_XENT_TOL``·max|plain|; K7 (gather_tiles) at the dense
+   plan's four gathers and K2's global entry (scatter_tiles_global) at its
+   four handoffs, on the active tiles of a real packed batch (budget 32,768
+   rows), in f32 and bf16, bit-exact;
 4. serving — ``RetrievalServer.build_index`` over a 256-model synthetic
    split at the flagship widths (Tri(I+V), 64³ voxels, 6×128² views,
    batch 128, bf16), four token queries and one image query, with the
@@ -22,6 +25,13 @@ Phases (any failure exits non-zero and prints no result line):
 5. serving plain path — the same index in f32 (TF32 off) through the
    kernels and through their plain versions; the two must agree to 1e-5;
 6. one flagship eval batch — 128 solid-ellipsoid shapes, CUDA-event median;
+6b. the dense-input plan (``data.voxel_transfer=packed``,
+    ``VoxelCNNEncoder.tile_sparse=true``) with phase 4's weights: the index
+    in bf16 with launches per batch (K7 4, K2-global 4, K1 5, per-sample K2
+    0), in f32 against its plain path (1e-5) and against phase 5's
+    windowed_compact f32 index (``CROSS_PLAN_TOL``), one ellipsoid batch
+    with and without the tile-sparse blocks, and the ``dense`` transfer's
+    host densify and copy of one batch;
 7. training — ``Trainer.fit`` for one epoch of the 256-model synthetic
    train split (768 captions: 6 steps of 128) at the flagship widths, bf16,
    ``use_pallas=true``; per-step losses (finite), CUDA-event step times and
@@ -34,7 +44,15 @@ Phases (any failure exits non-zero and prints no result line):
    state: losses, gradients and running variances within stated tolerances;
 10. one flagship train step on 128 solid ellipsoids, CUDA-event median,
     and a ``torch.profiler`` breakdown of one such step;
-11. the kernels line, then the card line, then ``{"ok": true, ...}``.
+10b. dense-plan training — ``Trainer.fit`` for one epoch on the packed
+    transfer with tile-sparse blocks 1-2 (launches a step exactly K7 4,
+    K2-global 4, K1 5, K3 5, K4-K6 6, per-sample K2 0), the f32 step
+    kernel-vs-plain with phase 9's tolerances, a profiled step;
+10c. a diagnostic beside the main path: the windowed and dense-plan train
+    steps with ``VoxelCNNEncoder.explicit_dgrad`` off and on, and block 2's
+    input gradient alone both ways with the kernels that compute it;
+11. the kernels line (all eight wrappers), then the card line, then
+    ``{"ok": true, ...}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. The script imports nothing
 of JAX and nothing of the JAX package.
@@ -79,6 +97,16 @@ FLAGSHIP = [
     "data.vocab_size=3588",
     "data.num_models=256",
 ]
+# The dense-input plan: packed transfer, tile-sparse blocks 1-2.
+DENSE = [
+    "data.voxel_transfer=packed",
+    "model.modules.VoxelCNNEncoder.tile_sparse=true",
+]
+# The dense-plan f32 index against the windowed_compact f32 index from the
+# same weights: both plans are exact restrictions of the dense masked path,
+# so only convolution rounding (another cuDNN algorithm on other tile
+# shapes) separates them.
+CROSS_PLAN_TOL = 1e-4
 TRAIN = [
     "loss.NTXentLoss.use_pallas=true",
     "trainer.max_epochs=1",
@@ -311,6 +339,89 @@ def check_nt_xent(torch, sizes, flush):
     return errs, rows
 
 
+def dense_plan_inputs(torch, batch, voxel_size, budget):
+    """The dense-input plan's tensors at the flagship shapes, from one real
+    ``packed`` batch: the densified block-1 input (RGB + zero pad channel)
+    and occupancy, block-2's pooled occupancy, and the active tile ids."""
+    from tricolo_tpu_torch.data.device_prep import prepare_device_batch
+    from tricolo_tpu_torch.ops.tile_sparse import active_tile_ids
+
+    voxels = prepare_device_batch(batch, voxel_size, torch.float32)["voxels"]
+    x1 = torch.nn.functional.pad(voxels[..., :3], (0, 1)).contiguous()
+    m1 = voxels[..., 3:].contiguous()
+    B, D = m1.shape[:2]
+    m2 = m1.reshape(B, D // 2, 2, D // 2, 2, D // 2, 2, 1).amax(dim=(2, 4, 6)).contiguous()
+    ids = active_tile_ids(m1, 8, budget)
+    n_active = int((ids < B * (D // 8) ** 3).sum())
+    return x1, m1, m2, ids, n_active
+
+
+def check_k7(torch, cases, ids, n_active, flush):
+    """K7 against its plain version, bit-exact in f32 and bf16; bound =
+    (bytes written + the active tiles' interiors read once + ids) / HBM."""
+    from tricolo_tpu_torch.ops import gather_tiles, gather_tiles_plain
+
+    max_err, rows = 0.0, []
+    for name, x32, tile, halo in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            got = gather_tiles(x, ids, tile, halo)
+            torch.cuda.synchronize()
+            ref = gather_tiles_plain(x, ids, tile, halo)
+            err = (got.float() - ref.float()).abs().max().item()
+            max_err = max(max_err, err)
+            require(torch.equal(got, ref), f"K7 {name} {dtype}: kernel != plain ({err})")
+            if dtype == torch.bfloat16:
+                C = x.shape[-1]
+                read = n_active * tile**3 * C * x.element_size()
+                bound = (nbytes(got, ids) + read) / HBM_BYTES_PER_S * 1e3
+                ms = time_ms(lambda: gather_tiles(x, ids, tile, halo), torch, flush=flush)
+                plain = time_ms(lambda: gather_tiles_plain(x, ids, tile, halo), torch,
+                                repeats=5, flush=flush)
+                rows.append({"tensor": name, "shape": list(x.shape), "out": list(got.shape),
+                             "tile": tile, "halo": halo, "dtype": "bf16", "ms": ms,
+                             "plain_ms": plain, "bound_ms": bound})
+                log(f"  K7 {name:8s} {tuple(x.shape)} -> {tuple(got.shape)} bf16: {ms:.4f} ms "
+                    f"(plain {plain:.4f} ms, bound {bound:.4f} ms)")
+            del x, got, ref
+            torch.cuda.empty_cache()
+    return max_err, rows
+
+
+def check_k2_global(torch, cases, ids, n_active, batch, flush):
+    """K2's global entry against its plain version, bit-exact in f32 and
+    bf16; bound = (the active tiles read once + ids + grid written) / HBM:
+    padding rows are never read."""
+    from tricolo_tpu_torch.ops import scatter_tiles_global, scatter_tiles_global_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    T = ids.shape[0]
+    max_err, rows = 0.0, []
+    for name, t, C, grid in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            tiles = torch.randn((T, t, t, t, C), generator=gen, device="cuda").to(dtype)
+            got = scatter_tiles_global(tiles, ids, batch, grid)
+            torch.cuda.synchronize()
+            ref = scatter_tiles_global_plain(tiles, ids, batch, grid)
+            err = (got.float() - ref.float()).abs().max().item()
+            max_err = max(max_err, err)
+            require(torch.equal(got, ref), f"K2-global {name} {dtype}: kernel != plain ({err})")
+            if dtype == torch.bfloat16:
+                read = n_active * t**3 * C * tiles.element_size()
+                bound = (nbytes(ids, got) + read) / HBM_BYTES_PER_S * 1e3
+                ms = time_ms(lambda: scatter_tiles_global(tiles, ids, batch, grid), torch,
+                             flush=flush)
+                plain = time_ms(lambda: scatter_tiles_global_plain(tiles, ids, batch, grid),
+                                torch, repeats=5, flush=flush)
+                rows.append({"tensor": name, "shape": list(tiles.shape), "grid": grid,
+                             "dtype": "bf16", "ms": ms, "plain_ms": plain, "bound_ms": bound})
+                log(f"  K2g {name:8s} {tuple(tiles.shape)} -> {grid}^3 bf16: {ms:.4f} ms "
+                    f"(plain {plain:.4f} ms, bound {bound:.4f} ms)")
+            del tiles, got, ref
+            torch.cuda.empty_cache()
+    return max_err, rows
+
+
 # -------------------------------------------------------------- phase 4
 
 
@@ -351,7 +462,10 @@ def index_breakdown(torch, dm, model) -> dict:
 # -------------------------------------------------------------- phase 6
 
 
-def ellipsoid_batch(cfg, n_points=8192):
+def ellipsoid_batch(cfg, n_points=8192, packed=False):
+    """One flagship batch of 128 solid ellipsoids: windowed_compact rows
+    (halo 3), or with ``packed`` the packed site/RGB words. Returns (batch,
+    k = the max per-sample active tiles)."""
     import numpy as np
 
     from tricolo_tpu_torch.data.device_prep import windowed_compact_on_host
@@ -366,20 +480,31 @@ def ellipsoid_batch(cfg, n_points=8192):
     for i in range(B):
         flat[i], rgb[i] = ellipsoid_sample(rng, D, n_points)
     k = sample_tile_budget("auto", (D // 8) ** 3, max(host_sample_tile_counts(flat, D)))
-    rows, ids, _ = windowed_compact_on_host(flat, rgb, D, k, halo=3)
-    return {
+    batch = {
         "tokens": rng.integers(1, d.vocab_size, (B, d.max_tokens)).astype(np.int32),
         "images": rng.integers(0, 256, (B, d.num_views, d.image_size, d.image_size, 3),
                                dtype=np.uint8),
-        "voxel_rows": rows,
-        "voxel_row_ids": ids,
-    }, k
+    }
+    if packed:
+        batch["voxel_flat"], batch["voxel_rgb"] = flat, rgb
+    else:
+        batch["voxel_rows"], batch["voxel_row_ids"], _ = windowed_compact_on_host(
+            flat, rgb, D, k, halo=3)
+    return batch, k
 
 
 # ------------------------------------------------------------ phases 7-10
 
 TRAIN_LAUNCHES = {"bn_relu_pool": 5, "scatter_tiles_ps": 2, "bn_relu_pool_bwd": 5,
-                  "nt_xent_fwd": 6, "nt_xent_bwd_rows": 6, "nt_xent_bwd_cols": 6}
+                  "nt_xent_fwd": 6, "nt_xent_bwd_rows": 6, "nt_xent_bwd_cols": 6,
+                  "gather_tiles": 0, "scatter_tiles_global": 0}
+# The dense-input plan, 2 sparse blocks: K7 for x and the mask of each, K2's
+# global entry for each handoff, K1 in all five blocks; no per-sample K2.
+DENSE_EVAL_LAUNCHES = {"bn_relu_pool": 5, "scatter_tiles_ps": 0, "bn_relu_pool_bwd": 0,
+                       "nt_xent_fwd": 0, "nt_xent_bwd_rows": 0, "nt_xent_bwd_cols": 0,
+                       "gather_tiles": 4, "scatter_tiles_global": 4}
+DENSE_TRAIN_LAUNCHES = dict(DENSE_EVAL_LAUNCHES, bn_relu_pool_bwd=5, nt_xent_fwd=6,
+                            nt_xent_bwd_rows=6, nt_xent_bwd_cols=6)
 
 
 def timed_step(torch, step, rows):
@@ -469,9 +594,10 @@ def profile_step(torch, step, batch, lr) -> dict:
         return {"wall_ms": wall_us / 1e3, "device_busy_ms": None, "device_idle_share": None,
                 "port_kernels_ms": None, "top": []}
     # The port's kernels by their device function names (csrc/*.cu).
-    names = {"K1": ("::bn_relu_pool_kernel",), "K2": ("::gather_kernel", "::inverse_kernel"),
+    names = {"K1": ("::bn_relu_pool_kernel",),
+             "K2": ("::gather_kernel", "::inverse_kernel", "::inverse_global_kernel"),
              "K3": ("::bn_relu_pool_bwd_kernel",), "K4": ("::nt_xent_fwd_kernel",),
-             "K5-K6": ("::nt_xent_bwd_kernel",)}
+             "K5-K6": ("::nt_xent_bwd_kernel",), "K7": ("::tile_gather_kernel",)}
     ours = dict.fromkeys(names, 0.0)
     for e in events:
         for label, keys in names.items():
@@ -496,6 +622,235 @@ def profile_step(torch, step, batch, lr) -> dict:
     }
 
 
+# --------------------------------------------------- phases 6b, 10b, 10c
+
+
+def dense_serving(torch, cfg, dense_cfg, dense_dm, model, index, windowed32, first, card):
+    """The dense-input plan through ``RetrievalServer.build_index`` with the
+    weights of phase 4's model: bf16 launches per batch, the f32 kernel path
+    against its plain path and against the windowed_compact f32 index, one
+    ellipsoid batch with and without tile-sparse blocks, and the dense
+    transfer's host densify and copy of one batch."""
+    import numpy as np
+
+    from tricolo_tpu_torch import ops
+    from tricolo_tpu_torch.config import load_config
+    from tricolo_tpu_torch.data.device_prep import densify_on_host
+    from tricolo_tpu_torch.inference import eval_step, to_device_batch
+    from tricolo_tpu_torch.models.tricolo_net import TriCoLoNet
+    from tricolo_tpu_torch.ops.tile_sparse import host_tile_count
+    from tricolo_tpu_torch.serving import RetrievalServer
+
+    out: dict = {}
+    dense_model = TriCoLoNet.from_config(dense_cfg)
+    dense_model.load_state_dict(model.state_dict())
+    server = RetrievalServer(dense_cfg, dense_model)  # device: cuda
+    n_batches = len(dense_dm.test_loader())
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    dense_index = server.build_index(dense_dm)
+    torch.cuda.synchronize()
+    out["index_build_s"] = time.perf_counter() - tic
+    out["launches"] = launches = ops.launches()
+    want = {name: n * n_batches for name, n in DENSE_EVAL_LAUNCHES.items()}
+    require(launches == want, f"dense-plan index launches {launches} != {want}")
+    require(dense_index.model_ids == index.model_ids, "dense-plan index lists other models")
+    require(bool(np.isfinite(dense_index.matrix).all()), "dense-plan index non-finite")
+    log(f"dense-plan index: {dense_index.matrix.shape} in {out['index_build_s']:.3f} s over "
+        f"{n_batches} batches; launches {launches} [{card}]")
+    bf16_matrix = dense_index.matrix.copy()
+
+    dense_model.set_compute_dtype(torch.float32)  # TF32 is off since phase 5
+    kernel32 = server.build_index(dense_dm).matrix.copy()
+    dense_model.voxel_encoder.use_kernels = False
+    plain32 = server.build_index(dense_dm).matrix.copy()
+    dense_model.voxel_encoder.use_kernels = True
+    dense_model.set_compute_dtype(torch.bfloat16)
+    out["plain_vs_kernel_f32_max_abs"] = dev_plain = float(np.abs(kernel32 - plain32).max())
+    out["vs_windowed_compact_f32_max_abs"] = dev_cross = float(np.abs(kernel32 - windowed32).max())
+    out["bf16_vs_f32_max_abs"] = float(np.abs(bf16_matrix - kernel32).max())
+    require(dev_plain <= F32_TOL, f"dense plan f32 kernel vs plain path: {dev_plain} > {F32_TOL}")
+    require(dev_cross <= CROSS_PLAN_TOL,
+            f"dense plan vs windowed_compact f32 index: {dev_cross} > {CROSS_PLAN_TOL}")
+    log(f"dense plan f32: kernel vs plain max |d| = {dev_plain} (tol {F32_TOL}); vs the "
+        f"windowed_compact index max |d| = {dev_cross} (tol {CROSS_PLAN_TOL}); bf16 vs f32 "
+        f"{out['bf16_vs_f32_max_abs']}")
+
+    host, k_ell = ellipsoid_batch(cfg, packed=True)
+    batch = to_device_batch(host, torch.device("cuda"))
+    out["ellipsoid"] = rows = {
+        "k": k_ell, "active_tiles": host_tile_count(host["voxel_flat"], cfg.data.voxel_size)}
+    nosparse = TriCoLoNet.from_config(load_config(
+        FLAGSHIP + DENSE + ["model.modules.VoxelCNNEncoder.tile_sparse=false"])).cuda().eval()
+    nosparse.load_state_dict(model.state_dict())
+    dense_model.eval()
+    for label, m in (("tile_sparse", dense_model), ("dense_masked", nosparse)):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        eval_step(m, batch)
+        per_batch = ops.launches()
+        ms = time_ms(lambda: eval_step(m, batch), torch, repeats=10, warmup=2)
+        rows[label] = {"ms": ms, "launches": per_batch,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"dense-plan eval batch (128 ellipsoids, {rows['active_tiles']} active tiles, "
+            f"packed, {label}): {ms:.3f} ms, launches "
+            f"{per_batch}, peak {rows[label]['peak_gib']:.2f} GiB [{card}]")
+    require(rows["tile_sparse"]["launches"] == DENSE_EVAL_LAUNCHES,
+            f"ellipsoid dense-plan launches {rows['tile_sparse']['launches']}")
+    require(rows["dense_masked"]["launches"]["bn_relu_pool"] == 5
+            and rows["dense_masked"]["launches"]["gather_tiles"] == 0,
+            "tile_sparse=false must run all five blocks dense")
+    del nosparse, batch
+
+    tic = time.perf_counter()
+    grid = densify_on_host(first["voxel_flat"], first["voxel_rgb"], cfg.data.voxel_size)
+    out["dense_transfer_densify_s"] = time.perf_counter() - tic
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    torch.from_numpy(grid.view(np.int32)).cuda()
+    torch.cuda.synchronize()
+    out["dense_transfer_h2d_s"] = time.perf_counter() - tic
+    out["dense_transfer_bytes"] = int(grid.nbytes)
+    log(f"dense transfer, one batch: host densify {out['dense_transfer_densify_s']:.4f} s, "
+        f"H2D of {grid.nbytes / 1e6:.1f} MB {out['dense_transfer_h2d_s']:.4f} s [{card}]")
+    return out
+
+
+def dense_training(torch, card):
+    """One dense-plan epoch (6 steps of 128, bf16, use_pallas) through
+    ``Trainer.fit`` with per-step launches, the f32 kernel-vs-plain step
+    and a profiled step. Returns (report, trainer, step, device batch)."""
+    import numpy as np
+
+    from tricolo_tpu_torch import ops
+    from tricolo_tpu_torch.config import load_config
+    from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch.inference import to_device_batch
+    from tricolo_tpu_torch.training import Trainer
+
+    train_cfg = load_config(FLAGSHIP + DENSE + TRAIN + ["experiment_name=chip_smoke_dense"])
+    trainer = Trainer(train_cfg)  # device: cuda
+    steps: list = []
+    step = trainer.train_step
+    trainer.train_step = timed_step(torch, step, steps)
+    dm = DataModule(train_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    tic = time.perf_counter()
+    trainer.fit(dm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - tic
+    fit_launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(len(steps) == 6, f"one dense-plan epoch ran {len(steps)} steps, not 6")
+    for i, row in enumerate(steps):
+        require(all(np.isfinite(v) for v in row["losses"].values()),
+                f"dense-plan train step {i}: non-finite losses {row['losses']}")
+        require(row["launches"] == DENSE_TRAIN_LAUNCHES,
+                f"dense-plan train step {i}: launches {row['launches']} != "
+                f"{DENSE_TRAIN_LAUNCHES}")
+        log(f"  dense-plan train step {i}: {row['ms']:.3f} ms (wall {row['wall_ms']:.3f} ms) "
+            "losses " + " ".join(f"{k}={v:.5f}" for k, v in row["losses"].items()))
+    step_ms = statistics.median(r["ms"] for r in steps[1:])
+    out = {"steps": steps, "step_ms_median_2_6": step_ms,
+           "step_wall_ms_median_2_6": statistics.median(r["wall_ms"] for r in steps[1:]),
+           "pairs_per_s": train_cfg.data.batch_size / (step_ms / 1e3), "peak_gib": peak,
+           "launches_fit": fit_launches, "val_rr5": trainer.metrics.summary("")["RR@5"],
+           "fit_s": fit_s}
+    log(f"dense-plan train: 6 steps, median step (2-6) {step_ms:.3f} ms = "
+        f"{out['pairs_per_s']:.1f} pairs/s, peak {peak:.2f} GiB, launches/step "
+        f"{steps[-1]['launches']}, fit {fit_s:.1f} s [{card}]")
+
+    batch = to_device_batch(next(iter(dm.train_loader())), torch.device("cuda"))
+    cfg32 = load_config(FLAGSHIP + DENSE + TRAIN + ["precision.compute_dtype=float32"])
+    out["train_plain_compare"] = cmp = train_plain_compare(torch, cfg32, batch)
+    log(f"dense-plan train plain path (f32, TF32 off, deterministic): losses rel "
+        f"{cmp['loss_rel']:.3g}, grads rel-of-max {cmp['grad_rel_of_max']:.3g}, running_var "
+        f"|d| {cmp['running_var_abs']:.3g}")
+    torch.cuda.empty_cache()
+    lr = train_cfg.optimizer.lr
+    step(batch, lr)  # warm the bf16 path after the f32 phase
+    out["profile"] = prof = profile_step(torch, step, batch, lr)
+    log(f"profiled dense-plan train step: device busy {prof['device_busy_ms']} ms of "
+        f"{prof['wall_ms']:.3f} ms wall, idle share {prof['device_idle_share']}, port kernels "
+        f"{prof['port_kernels_ms']} [{card}]")
+    for row in prof["top"][:10]:
+        log(f"    {row['device_ms']:9.3f} ms x{row['count']:<4d} {row['name'][:90]}")
+    for row in prof["top_ops"][:6]:
+        log(f"    {row['device_ms']:9.3f} ms x{row['count']:<4d} {row['op']} {row['shapes']}")
+    return out, trainer, step, batch
+
+
+def block2_dgrad(torch, rows, flush):
+    """Block 2's VALID conv input gradient alone at the flagship shape
+    (bf16, channels-last): autograd's transposed convolution against the
+    explicit forward conv — CUDA-event times of each, and the kernels the
+    profiler sees (the transposed one profiled with its forward conv, as
+    a train step runs it)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    bf16 = torch.bfloat16
+    x = torch.randn((rows, 6, 6, 6, 32), generator=gen, device="cuda").to(bf16)
+    x = x.permute(0, 4, 1, 2, 3)
+    w = (torch.randn((64, 32, 3, 3, 3), generator=gen, device="cuda") * 0.05).to(bf16)
+    dy = torch.randn((rows, 4, 4, 4, 64), generator=gen, device="cuda").to(bf16)
+    dy = dy.permute(0, 4, 1, 2, 3)
+
+    def transposed():
+        return torch.ops.aten.convolution_backward(
+            dy, x, w, None, [1, 1, 1], [0, 0, 0], [1, 1, 1], False, [0, 0, 0], 1,
+            [True, False, False])[0]
+
+    def explicit():
+        return F.conv3d(F.pad(dy, (2, 2, 2, 2, 2, 2)), w.flip((2, 3, 4)).transpose(0, 1))
+
+    def transposed_autograd():  # the step's own path, for the profiler
+        F.conv3d(x.detach().requires_grad_(), w).backward(dy)
+
+    a, b = transposed().float(), explicit().float()
+    rel = ((a - b).abs().max() / a.abs().max()).item()
+    out = {"rows": rows, "rel_diff_of_max": rel}
+    for name, fn, traced in (("transposed", transposed, transposed_autograd),
+                             ("explicit", explicit, explicit)):
+        ms = time_ms(fn, torch, repeats=10, flush=flush)
+        prof = profile_step(torch, lambda *_: traced(), None, None)
+        out[name] = {"ms": ms, "kernels": prof["top"][:4]}
+    return out
+
+
+def explicit_dgrad_diagnostic(torch, trainer, step, batch, dense_trainer, dense_step,
+                              dense_batch, rows, card):
+    """Beside the main path: the windowed and the dense-plan train steps
+    with ``VoxelCNNEncoder.explicit_dgrad`` off and on (CUDA-event medians,
+    in turns), and block 2's input gradient alone both ways."""
+    out = {}
+    lr = trainer.cfg.optimizer.lr
+    for label, tr, fn, b in (("windowed_compact", trainer, step, batch),
+                             ("dense_plan", dense_trainer, dense_step, dense_batch)):
+        enc = tr.model.voxel_encoder
+        times = {}
+        for explicit in (False, True, True, False):
+            enc.explicit_dgrad = explicit
+            times.setdefault(explicit, []).append(
+                time_ms(lambda: fn(b, lr), torch, repeats=3, warmup=1))
+        enc.explicit_dgrad = False
+        out[label] = {"default_ms": min(times[False]), "explicit_ms": min(times[True]),
+                      "runs": {"default": times[False], "explicit": times[True]}}
+        log(f"explicit_dgrad, {label} train step: default {out[label]['default_ms']:.3f} ms, "
+            f"explicit {out[label]['explicit_ms']:.3f} ms [{card}]")
+    flush = make_flush(torch)
+    out["block2_dgrad"] = alone = block2_dgrad(torch, rows, flush)
+    for name in ("transposed", "explicit"):
+        top = alone[name]["kernels"][0] if alone[name]["kernels"] else {"name": "?"}
+        log(f"  block-2 input gradient ({rows} rows), {name}: {alone[name]['ms']:.3f} ms, "
+            f"top kernel {top['name'][:100]} [{card}]")
+    log(f"  explicit vs transposed dgrad: max |d| / max = {alone['rel_diff_of_max']:.3g}")
+    return out
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -517,6 +872,7 @@ def main() -> int:
     from tricolo_tpu_torch.inference import eval_step, to_device_batch
     from tricolo_tpu_torch.models.tricolo_net import TriCoLoNet
     from tricolo_tpu_torch.ops import _build
+    from tricolo_tpu_torch.ops.tile_sparse import tile_budget
     from tricolo_tpu_torch.serving import RetrievalServer
     from tricolo_tpu_torch.training import make_train_step
 
@@ -552,6 +908,13 @@ def main() -> int:
     T = B * k
     log(f"split: {len(dm.val_set)} captions, {len(dm.val_set.vision_data)} models, "
         f"k={k} tiles/sample, T={T} rows/batch")
+    dense_cfg = load_config(FLAGSHIP + DENSE)
+    dense_cfg.experiment_name = "chip_smoke"
+    dense_dm = DataModule(dense_cfg)
+    dense_dm.setup("test")
+    dense_first = next(iter(dense_dm.test_loader()))
+    voxel_cfg = dense_cfg.model.modules.VoxelCNNEncoder
+    budget = tile_budget(voxel_cfg.tile_budget_frac, B, (cfg.data.voxel_size // 8) ** 3)
 
     # 3. kernels vs plain versions
     tic = time.perf_counter()
@@ -569,13 +932,30 @@ def main() -> int:
     k3_err, k3_rows = check_k3(torch, k1_shapes, flush)
     nt_errs, nt_rows = check_nt_xent(torch, [(B, cfg.model.out_dim), (8192, cfg.model.out_dim)],
                                      flush)
-    del flush
+    # K7 and K2's global entry at the dense-input plan's shapes, on the active
+    # tiles of a real packed batch.
+    x1, m1, m2, dense_ids, n_active = dense_plan_inputs(
+        torch, to_device_batch(dense_first, torch.device("cuda")), cfg.data.voxel_size, budget)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    x2 = torch.randn((B, 32, 32, 32, 32), generator=gen, device="cuda")
+    k7_err, k7_rows = check_k7(torch, [("x1", x1, 8, 1), ("mask1", m1, 8, 0),
+                                       ("x2", x2, 4, 1), ("mask2", m2, 4, 0)],
+                               dense_ids, n_active, flush)
+    del x1, m1, m2, x2
+    k2g_err, k2g_rows = check_k2_global(torch, [("x1", 4, 32, 32), ("mask1", 4, 1, 32),
+                                                ("x2", 2, 64, 16), ("mask2", 2, 1, 16)],
+                                        dense_ids, n_active, B, flush)
+    del flush, dense_ids
     torch.cuda.empty_cache()
     walls["kernels_s"] = time.perf_counter() - tic
     report["k1"], report["k2"], report["k3"], report["nt_xent"] = (
         k1_rows, k2_rows, k3_rows, nt_rows)
-    log(f"kernels: K1 max err {k1_err}, K2 max err {k2_err}, K3 max err {k3_err} "
-        f"(bit-exact required); K4-K6 max err {nt_errs} (limit {NT_XENT_TOL}·max|plain|)")
+    report["k7"], report["k2_global"] = k7_rows, k2g_rows
+    report["dense_plan_tiles"] = {"budget": budget, "active": n_active}
+    log(f"kernels: K1 max err {k1_err}, K2 max err {k2_err}, K3 max err {k3_err}, "
+        f"K7 max err {k7_err}, K2-global max err {k2g_err} (bit-exact required); "
+        f"K4-K6 max err {nt_errs} (limit {NT_XENT_TOL}·max|plain|); dense plan: "
+        f"{n_active} active tiles of a {budget}-row budget")
 
     # 4. serving path at flagship widths, bf16, through the kernels
     torch.manual_seed(SEED)
@@ -662,6 +1042,16 @@ def main() -> int:
     log(f"flagship batch (128 ellipsoids, k={k_ell}): {step_ms:.3f} ms eval forward "
         f"(plain kernels {plain_step_ms:.3f} ms), launches/batch {per_batch}, "
         f"peak {peak_gib:.2f} GiB [{card}]")
+
+    # 6b. the dense-input plan (packed transfer, tile-sparse blocks 1-2):
+    # the same weights, index in bf16 with per-batch launches, f32 against
+    # its plain path and against the windowed_compact f32 index, one
+    # ellipsoid batch with and without the tile-sparse blocks, and the
+    # dense transfer's host densify and copy.
+    tic = time.perf_counter()
+    report["dense_serving"] = dense_serving(torch, cfg, dense_cfg, dense_dm, model, index,
+                                            kernel32, dense_first, card)
+    walls["dense_serving_s"] = time.perf_counter() - tic
 
     # 7. training: one epoch of the flagship train split through Trainer.fit
     from tricolo_tpu_torch.training import Trainer
@@ -769,18 +1159,43 @@ def main() -> int:
     report["ellipsoid_train_step"]["cudnn_benchmark_ms"] = tuned_ms
     log(f"  same step with torch.backends.cudnn.benchmark=True: {tuned_ms:.3f} ms [{card}]")
 
+    # 10b. dense-plan training: one epoch through Trainer.fit (packed,
+    # tile-sparse blocks 1-2), the f32 kernel-vs-plain step, a profile.
+    tic = time.perf_counter()
+    dense_train, dense_trainer, dense_step, dense_batch = dense_training(torch, card)
+    report["dense_train"] = dense_train
+    walls["dense_train_s"] = time.perf_counter() - tic
+
+    # 10c. diagnostic beside the main path: explicit_dgrad=true on the
+    # windowed and the dense-plan steps, and block 2's input gradient alone.
+    tic = time.perf_counter()
+    report["explicit_dgrad"] = explicit_dgrad_diagnostic(
+        torch, trainer, plain_step, to_device_batch(next(iter(train_dm.train_loader())),
+                                                    torch.device("cuda")),
+        dense_trainer, dense_step, dense_batch, T, card)
+    walls["explicit_dgrad_s"] = time.perf_counter() - tic
+    del dense_trainer, dense_step, dense_batch
+    torch.cuda.empty_cache()
+
     # 11. kernels line, card line, result
     def total(rows, key):
         return sum(r[key] for r in rows)
 
+    paths = {"serving": launches, "train": train_launches,
+             "dense_serving": report["dense_serving"]["launches"],
+             "dense_train": dense_train["launches_fit"]}
+
     def both(name):
-        return {"serving": launches[name], "train": train_launches[name]}
+        return {path: counts[name] for path, counts in paths.items()}
+
+    def on_paths(name):
+        return sum(both(name).values())
 
     kernels = [
         {"name": "bn_relu_pool", "route": "cuda",
          "source": "tricolo_tpu_torch/csrc/bn_relu_pool.cu",
          "replaces": "tricolo_tpu/ops/fused_bn_pool.py:99",
-         "launches": launches["bn_relu_pool"] + train_launches["bn_relu_pool"],
+         "launches": on_paths("bn_relu_pool"),
          "launches_by_path": both("bn_relu_pool"), "max_abs_err": k1_err,
          "ms": total(k1_rows, "ms"), "plain_ms": total(k1_rows, "plain_ms"),
          "bound_ms": total(k1_rows, "bound_ms"), "bound_by": "bytes",
@@ -788,7 +1203,7 @@ def main() -> int:
         {"name": "scatter_tiles_ps", "route": "cuda",
          "source": "tricolo_tpu_torch/csrc/tile_scatter.cu",
          "replaces": "tricolo_tpu/ops/_graveyard/dma_tiles.py:128",
-         "launches": launches["scatter_tiles_ps"] + train_launches["scatter_tiles_ps"],
+         "launches": on_paths("scatter_tiles_ps"),
          "launches_by_path": both("scatter_tiles_ps"), "max_abs_err": k2_err,
          "ms": total(k2_rows, "ms"), "plain_ms": total(k2_rows, "plain_ms"),
          "bound_ms": total(k2_rows, "bound_ms"), "bound_by": "bytes",
@@ -796,7 +1211,7 @@ def main() -> int:
         {"name": "bn_relu_pool_bwd", "route": "cuda",
          "source": "tricolo_tpu_torch/csrc/bn_relu_pool_bwd.cu",
          "replaces": "tricolo_tpu/ops/fused_bn_pool.py:134",
-         "launches": train_launches["bn_relu_pool_bwd"],
+         "launches": on_paths("bn_relu_pool_bwd"),
          "launches_by_path": both("bn_relu_pool_bwd"), "max_abs_err": k3_err,
          "ms": total(k3_rows, "ms"), "plain_ms": total(k3_rows, "plain_ms"),
          "bound_ms": total(k3_rows, "bound_ms"), "bound_by": "bytes",
@@ -807,10 +1222,29 @@ def main() -> int:
         kernels.append(
             {"name": name, "route": "cuda", "source": "tricolo_tpu_torch/csrc/nt_xent.cu",
              "replaces": f"tricolo_tpu/ops/nt_xent_pallas.py:{line}",
-             "launches": train_launches[name], "launches_by_path": both(name),
+             "launches": on_paths(name), "launches_by_path": both(name),
              "max_abs_err": nt_errs[name], "ms": total(rows, "ms"),
              "plain_ms": total(rows, "plain_ms"), "bound_ms": total(rows, "bound_ms"),
              "bound_by": "operations", "library_ms": None, "shapes": rows})
+    kernels += [
+        {"name": "gather_tiles", "route": "cuda",
+         "source": "tricolo_tpu_torch/csrc/tile_gather.cu",
+         "replaces": "tricolo_tpu/ops/_graveyard/dma_tiles.py:70",
+         "launches": on_paths("gather_tiles"), "launches_by_path": both("gather_tiles"),
+         "max_abs_err": k7_err, "ms": total(k7_rows, "ms"),
+         "plain_ms": total(k7_rows, "plain_ms"), "bound_ms": total(k7_rows, "bound_ms"),
+         "bound_by": "bytes", "library_ms": None, "shapes": k7_rows},
+        {"name": "scatter_tiles_global", "route": "cuda",
+         "source": "tricolo_tpu_torch/csrc/tile_scatter.cu",
+         "replaces": "tricolo_tpu/ops/_graveyard/dma_tiles.py:128",
+         "launches": on_paths("scatter_tiles_global"),
+         "launches_by_path": both("scatter_tiles_global"), "max_abs_err": k2g_err,
+         "ms": total(k2g_rows, "ms"), "plain_ms": total(k2g_rows, "plain_ms"),
+         "bound_ms": total(k2g_rows, "bound_ms"), "bound_by": "bytes", "library_ms": None,
+         "shapes": k2g_rows},
+    ]
+    for row in kernels:
+        require(row["launches"] > 0, f"kernel {row['name']} was launched on no path")
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -2,10 +2,10 @@
 
 On the CPU: the plain versions' edge cases and the wrappers' dispatch
 (CPU tensors take the plain version and launch nothing). On a card
-(``-m cuda``): each kernel against its plain version — K1-K3 bit-exact in
-f32 and bf16, K4-K6 (f32 sums in another order) within
-``NT_XENT_TOL · max|plain|`` — and the wrappers' refusals: a CUDA tensor
-never falls back to the plain version. Run the card tests with
+(``-m cuda``): each kernel against its plain version — K1-K3, K7 and both
+K2 entries bit-exact in f32 and bf16, K4-K6 (f32 sums in another order)
+within ``NT_XENT_TOL · max|plain|`` — and the wrappers' refusals: a CUDA
+tensor never falls back to the plain version. Run the card tests with
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 """
@@ -21,12 +21,16 @@ from tricolo_tpu_torch.ops import (  # noqa: E402
     bn_relu_pool_bwd_plain,
     bn_relu_pool_plain,
     fold_bn,
+    gather_tiles,
+    gather_tiles_plain,
     nt_xent_bwd_cols,
     nt_xent_bwd_cols_plain,
     nt_xent_bwd_rows,
     nt_xent_bwd_rows_plain,
     nt_xent_fwd,
     nt_xent_fwd_plain,
+    scatter_tiles_global,
+    scatter_tiles_global_plain,
     scatter_tiles_ps,
     scatter_tiles_ps_plain,
 )
@@ -94,6 +98,30 @@ def _k2_inputs(B, k, C, grid, seed, dtype, device):
     return tiles, torch.tensor(ids, device=device)
 
 
+def _global_ids(B, tg3, n, rng):
+    """n ascending unique global ids over B·tg³ tiles holding the first and
+    the last tile of the grid (edge windows), then 3 padding ids."""
+    inner = rng.choice(np.arange(1, B * tg3 - 1), n - 2, replace=False)
+    ids = np.sort(np.concatenate([[0, B * tg3 - 1], inner]))
+    return np.concatenate([ids, np.full(3, B * tg3)]).astype(np.int32)
+
+
+def _k7_inputs(B, D, C, tile, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+    tg3 = (D // tile) ** 3
+    ids = _global_ids(B, tg3, max(2, min(B * tg3 // 2, 40)), rng)
+    x = torch.tensor(rng.normal(size=(B, D, D, D, C)), dtype=dtype, device=device)
+    return x, torch.tensor(ids, device=device)
+
+
+def _k2g_inputs(B, G, C, t, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+    tg3 = (G // t) ** 3
+    ids = _global_ids(B, tg3, max(2, min(B * tg3 // 2, 40)), rng)
+    tiles = torch.tensor(rng.normal(size=(len(ids), t, t, t, C)), dtype=dtype, device=device)
+    return tiles, torch.tensor(ids, device=device)
+
+
 # ---------------------------------------------------------------- CPU
 
 
@@ -127,7 +155,12 @@ def test_cpu_tensors_take_the_plain_version():
                        nt_xent_bwd_rows_plain(zi, zj, lse, scale, INV_TAU))
     assert torch.equal(nt_xent_bwd_cols(zj, zi, lse, scale, INV_TAU),
                        nt_xent_bwd_cols_plain(zj, zi, lse, scale, INV_TAU))
-    assert set(ops.launches().values()) == {0} and len(ops.launches()) == 6
+    x, gids = _k7_inputs(2, 16, 4, 8, 0, torch.float32, "cpu")
+    assert torch.equal(gather_tiles(x, gids, 8, 1), gather_tiles_plain(x, gids, 8, 1))
+    tiles, gids = _k2g_inputs(2, 16, 4, 2, 0, torch.float32, "cpu")
+    assert torch.equal(scatter_tiles_global(tiles, gids, 2, 16),
+                       scatter_tiles_global_plain(tiles, gids, 2, 16))
+    assert set(ops.launches().values()) == {0} and len(ops.launches()) == 8
 
 
 def test_bwd_plain_routes_to_the_argmax_member():
@@ -161,6 +194,21 @@ def test_wrappers_reject_bad_shapes():
         scatter_tiles_ps(tiles, torch.zeros(2, 3, dtype=torch.int32), 7)
 
 
+def test_tile_wrappers_reject_bad_shapes():
+    x = torch.zeros(1, 8, 8, 8, 4)
+    with pytest.raises(ValueError, match="multiple"):
+        gather_tiles(x, torch.zeros(2, dtype=torch.int32), 3, 1)
+    with pytest.raises(ValueError, match="halo"):
+        gather_tiles(x, torch.zeros(2, dtype=torch.int32), 4, 3)
+    with pytest.raises(ValueError, match=r"\(T,\)"):
+        gather_tiles(x, torch.zeros(2, 1, dtype=torch.int32), 4, 1)
+    tiles = torch.zeros(3, 2, 2, 2, 4)
+    with pytest.raises(ValueError, match="ids must be"):
+        scatter_tiles_global(tiles, torch.zeros(4, dtype=torch.int32), 1, 8)
+    with pytest.raises(ValueError, match="multiple"):
+        scatter_tiles_global(tiles, torch.zeros(3, dtype=torch.int32), 1, 7)
+
+
 def test_wrappers_reject_other_devices():
     y = torch.zeros(1, 2, 2, 2, 4, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -172,6 +220,12 @@ def test_wrappers_reject_other_devices():
     args = _k3_inputs((1, 2, 2, 2, 4), 0, torch.float32, "cpu")
     with pytest.raises(ValueError, match="cuda or cpu"):
         bn_relu_pool_bwd(*(t.to("meta") for t in args))
+    x, ids = (t.to("meta") for t in _k7_inputs(1, 8, 4, 4, 0, torch.float32, "cpu"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        gather_tiles(x, ids, 4, 1)
+    tiles, ids = (t.to("meta") for t in _k2g_inputs(1, 8, 4, 2, 0, torch.float32, "cpu"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        scatter_tiles_global(tiles, ids, 1, 8)
     zi, zj, lse, scale = (t.to("meta") for t in _nt_inputs(8, 64, 0, "cpu"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         nt_xent_fwd(zi, zj, INV_TAU)
@@ -252,6 +306,54 @@ def test_cuda_nt_xent_matches_plain(B, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,D,C,tile,halo",
+    [(3, 32, 4, 8, 1), (3, 32, 1, 8, 0), (3, 16, 32, 4, 1), (3, 16, 1, 4, 0),
+     (2, 8, 32, 2, 1), (2, 8, 4, 2, 0), (2, 16, 3, 4, 1), (2, 16, 4, 8, 2)],
+)
+def test_cuda_gather_tiles_matches_plain(dtype, B, D, C, tile, halo):
+    """K7 at every halo/tile/channel case, on windows at the grid's edges
+    and on padding ids; C = 3 runs 2-byte or 4-byte copies."""
+    _need_cuda()
+    x, ids = _k7_inputs(B, D, C, tile, B * D + C, getattr(torch, dtype), "cuda")
+    before = gather_tiles.launches
+    got = gather_tiles(x, ids, tile, halo)
+    torch.cuda.synchronize()
+    assert gather_tiles.launches == before + 1
+    ref = gather_tiles_plain(x, ids, tile, halo)
+    assert torch.equal(got, ref)
+    assert (ref[-3:] == 0).all() and (ref[:-3] != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_gather_tiles_unaligned_view(dtype):
+    """A grid view that starts 2 bytes past an aligned address takes the
+    narrowest copy and stays exact."""
+    _need_cuda()
+    x, ids = _k7_inputs(2, 16, 32, 4, 9, getattr(torch, dtype), "cuda")
+    flat = torch.cat([torch.zeros(1, dtype=x.dtype, device="cuda"), x.reshape(-1)])
+    view = flat[1:].view(x.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    assert torch.equal(gather_tiles(view, ids, 4, 1), gather_tiles_plain(x, ids, 4, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,G,C,t", [(3, 32, 32, 4), (3, 32, 1, 4), (3, 16, 64, 2),
+                                     (3, 16, 1, 2), (2, 8, 128, 1)])
+def test_cuda_scatter_tiles_global_matches_plain(dtype, B, G, C, t):
+    _need_cuda()
+    tiles, ids = _k2g_inputs(B, G, C, t, G + C, getattr(torch, dtype), "cuda")
+    before = scatter_tiles_global.launches
+    got = scatter_tiles_global(tiles, ids, B, G)
+    torch.cuda.synchronize()
+    assert scatter_tiles_global.launches == before + 1
+    assert torch.equal(got, scatter_tiles_global_plain(tiles, ids, B, G))
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_refuse_instead_of_falling_back():
     _need_cuda()
     y, mul, add, mask, _ = _k1_inputs((2, 4, 4, 4, 8), 1, torch.float32, "cuda", False)
@@ -265,6 +367,18 @@ def test_cuda_wrappers_refuse_instead_of_falling_back():
     y, ga, idx, mask, b, c, inv, sub = _k3_inputs((2, 4, 4, 4, 8), 1, torch.float32, "cuda")
     with pytest.raises(TypeError, match="uint8"):
         bn_relu_pool_bwd(y, ga, idx.long(), mask, b, c, inv, sub)
+    x, ids = _k7_inputs(2, 8, 4, 4, 1, torch.float32, "cuda")
+    with pytest.raises(TypeError, match="int32"):
+        gather_tiles(x, ids.long(), 4, 1)
+    with pytest.raises(TypeError, match="2- or 4-byte"):
+        gather_tiles(x.double(), ids, 4, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_tiles(x.transpose(1, 2), ids, 4, 1)
+    tiles, ids = _k2g_inputs(2, 8, 4, 2, 1, torch.float32, "cuda")
+    with pytest.raises(TypeError, match="int32"):
+        scatter_tiles_global(tiles, ids.long(), 2, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        scatter_tiles_global(tiles.transpose(1, 2), ids, 2, 8)
     zi, zj, lse, scale = _nt_inputs(64, 96, 1, "cuda")
     with pytest.raises(ValueError, match="multiple of 64"):
         nt_xent_fwd(zi, zj, INV_TAU)

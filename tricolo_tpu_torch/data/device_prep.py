@@ -1,14 +1,20 @@
 """Batch preparation: host-side voxel packing/windowing and device unpack.
 
 Host side (numpy, runs in the loader): ``pack_sparse_voxels``,
-``windowed_on_host`` and ``windowed_compact_on_host`` produce exactly the
-arrays of their ``tricolo_tpu.data.device_prep`` namesakes (the port has no
-binding to the C++ loader yet, so these are the numpy formulations).
+``densify_on_host``, ``windowed_on_host`` and ``windowed_compact_on_host``
+produce exactly the arrays of their ``tricolo_tpu.data.device_prep``
+namesakes (the port has no binding to the C++ loader yet, so these are the
+numpy formulations).
 
-Device side (torch): ``normalize_images`` and ``unpack_windowed_rows``.
-torch's ``uint32`` supports few operations, so packed rows travel as
-``int32`` tensors holding the same bits; bits 25-31 of a packed word are
-always zero, so shifts and masks on the int32 view give the u32 answers.
+Device side (torch): ``normalize_images``, ``densify_voxels``,
+``unpack_dense_voxels``, ``unpack_windowed_rows`` and
+``prepare_device_batch``, which the eval and train steps call on the
+device. torch's ``uint32`` supports few operations, so packed words travel
+as ``int32`` tensors holding the same bits. Bits 25-31 of a packed *RGB*
+word are always zero, so shifts and masks on its int32 view give the u32
+answers. A packed *site* word is different: its padding sentinel
+``0xFFFFFFFF`` is −1 in the view, and right shifts of it are arithmetic,
+so ``densify_voxels`` tests for the sentinel before it decodes x/y/z.
 """
 
 from __future__ import annotations
@@ -54,6 +60,81 @@ def unpack_windowed_rows(rows: torch.Tensor, dtype=torch.float32):
     return x, mask
 
 
+def unpack_dense_voxels(grid: torch.Tensor, dtype=torch.float32, with_mask: bool = False):
+    """Dense packed-RGB grid (B, D, D, D) (int32 view of the u32 words) →
+    (B, D, D, D, 3) float RGB/255, plus a 4th channel with ``with_mask``:
+    the 0/1 occupancy flag of bit 24 (an occupied pure-black voxel is
+    occupied)."""
+    if grid.dtype != torch.int32:
+        raise TypeError(f"packed grid must be an int32 view, got {grid.dtype}")
+    channels = [
+        (grid & 0xFF).to(dtype) / 255.0,
+        ((grid >> 8) & 0xFF).to(dtype) / 255.0,
+        ((grid >> 16) & 0xFF).to(dtype) / 255.0,
+    ]
+    if with_mask:
+        channels.append(((grid >> 24) & 0x1).to(dtype))
+    return torch.stack(channels, dim=-1)
+
+
+def densify_voxels(flat: torch.Tensor, rgb: torch.Tensor, voxel_size: int,
+                   dtype=torch.float32, with_mask: bool = False):
+    """Packed sparse batch (int32 views of the (B, N) u32 site and RGB
+    words) → dense (B, D, D, D, 3 or 4) float grid on the device.
+
+    Each site's RGB word is set into a flat per-sample buffer of D³ slots
+    plus N trash slots; a padding word (−1 in the view) goes to its own
+    trash slot, which the final slice drops, and an index past the batch
+    buffer goes to one extra slot — the drop rule of the JAX package's
+    ``.at[].set``. Sites are unique, so the set is deterministic. Input data:
+    no gradient."""
+    if flat.dtype != torch.int32 or rgb.dtype != torch.int32:
+        raise TypeError("packed site and RGB words must be int32 views")
+    batch, n_points = flat.shape
+    d3 = voxel_size**3
+    stride = d3 + n_points
+    pad = flat == -1  # the 0xFFFFFFFF sentinel, before any shift
+    x = ((flat >> 16) & 0xFF).long()
+    y = ((flat >> 8) & 0xFF).long()
+    z = (flat & 0xFF).long()
+    local = (x * voxel_size + y) * voxel_size + z
+    point = torch.arange(n_points, device=flat.device)[None, :]
+    local = torch.where(pad, d3 + point, local)
+    idx = (torch.arange(batch, device=flat.device)[:, None] * stride + local).reshape(-1)
+    total = batch * stride
+    idx = torch.where(idx < total, idx, total)
+    grid = torch.zeros(total + 1, dtype=torch.int32, device=flat.device)
+    grid[idx] = rgb.reshape(-1)
+    grid = grid[:total].reshape(batch, stride)[:, :d3]
+    grid = grid.reshape(batch, voxel_size, voxel_size, voxel_size)
+    return unpack_dense_voxels(grid, dtype, with_mask)
+
+
+def prepare_device_batch(batch: dict, voxel_size: int, dtype=torch.float32) -> dict:
+    """Expand a device batch (``inference.to_device_batch``) into the
+    tensors TriCoLoNet consumes, as the JAX package's namesake does inside
+    its jitted steps: tokens pass through; images are normalised; the
+    windowed transfers' packed rows pass through (the encoder unpacks them
+    after its row take); a dense packed grid is unpacked and packed sites
+    are densified into ``voxels`` (B, D, D, D, 4: RGB and the occupancy
+    channel the masked encoder splits off)."""
+    out: dict = {"tokens": batch["tokens"]}
+    if "images" in batch:
+        out["images"] = normalize_images(batch["images"], dtype)
+    if "voxel_windows" in batch:
+        out["voxel_windows"] = batch["voxel_windows"]
+        out["voxel_tile_occ"] = batch["voxel_tile_occ"]
+    elif "voxel_rows" in batch:
+        out["voxel_rows"] = batch["voxel_rows"]
+        out["voxel_row_ids"] = batch["voxel_row_ids"]
+    elif "voxel_grid" in batch:
+        out["voxels"] = unpack_dense_voxels(batch["voxel_grid"], dtype, with_mask=True)
+    elif "voxel_flat" in batch:
+        out["voxels"] = densify_voxels(batch["voxel_flat"], batch["voxel_rgb"], voxel_size,
+                                       dtype, with_mask=True)
+    return out
+
+
 def pack_sparse_voxels(coords: np.ndarray, feats: np.ndarray, n_pad: int):
     """One sample's sorted-unique (N, 3) uint8 coords + (N, 3) uint8 RGB →
     (flat (n_pad,) u32 with 0xFFFFFFFF padding, rgb (n_pad,) u32)."""
@@ -65,6 +146,25 @@ def pack_sparse_voxels(coords: np.ndarray, feats: np.ndarray, n_pad: int):
     flat[:n] = (c[:, 0] * 256 + c[:, 1]) * 256 + c[:, 2]
     rgb[:n] = f[:, 0] | (f[:, 1] << 8) | (f[:, 2] << 16) | VOXEL_OCCUPIED_BIT
     return flat, rgb
+
+
+def densify_on_host(flat_u32: np.ndarray, rgb_u32: np.ndarray, voxel_size: int):
+    """Packed sparse (B, N) → dense (B, D, D, D) u32 RGB words on the host
+    (the ``dense`` transfer's collation). Slot D³ swallows padding and
+    out-of-range coordinates."""
+    batch = flat_u32.shape[0]
+    d3 = voxel_size**3
+    x = (flat_u32 >> 16) & 0xFF
+    y = (flat_u32 >> 8) & 0xFF
+    z = flat_u32 & 0xFF
+    local = (x.astype(np.int64) * voxel_size + y.astype(np.int64)) * voxel_size + z.astype(
+        np.int64
+    )
+    grid = np.zeros((batch, d3 + 1), np.uint32)
+    out_of_range = (x >= voxel_size) | (y >= voxel_size) | (z >= voxel_size)
+    local = np.where((flat_u32 == VOXEL_PAD_SENTINEL) | out_of_range, d3, local)
+    np.put_along_axis(grid, local, rgb_u32, axis=1)
+    return grid[:, :d3].reshape(batch, voxel_size, voxel_size, voxel_size)
 
 
 def _site_windows(flat_u32: np.ndarray, voxel_size: int, tile: int, halo: int):

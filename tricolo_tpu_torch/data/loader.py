@@ -1,13 +1,16 @@
-"""Batching: fixed-shape collation of the windowed_compact transfer.
+"""Batching: fixed-shape collation of every voxel transfer.
 
 The port's copy of ``tricolo_tpu.data.loader``. Eval batches come in split
 order, the short tail batch is padded with repeats of its last item and
 carries ``num_valid``, and every batch of a split has the same shapes. The
 train loader shuffles with ``np.random.default_rng((seed, epoch))`` — the
 JAX loader's permutation, so both packages see the same batches — and
-drops the short tail. Only the default
-``data.voxel_transfer=windowed_compact`` is ported; the packed/dense/
-windowed transfers feed encoder paths the port does not have yet. The
+drops the short tail. ``data.voxel_transfer`` takes every value the JAX
+package takes: ``packed`` (sparse u32 site/RGB words, densified on the
+device), ``dense`` (the u32 grid, densified here), ``windowed`` (every
+tile's halo'd window rows + per-tile occupancy) and ``windowed_compact``
+(per-sample rows of the active tiles only). The port runs the masked
+(submanifold) voxel encoder only, so ``masked_bn=false`` raises. The
 prefetch thread and multi-process striping are not ported yet.
 """
 
@@ -21,22 +24,33 @@ import numpy as np
 
 from ..ops.tile_sparse import sample_tile_budget, windowed_halo
 from .datasets import build_dataset
-from .device_prep import VOXEL_PAD_SENTINEL, windowed_compact_on_host
+from .device_prep import (
+    VOXEL_PAD_SENTINEL,
+    densify_on_host,
+    windowed_compact_on_host,
+    windowed_on_host,
+)
+
+TRANSFERS = ("packed", "dense", "windowed", "windowed_compact")
 
 
 def collate(
     items: list[dict],
     max_voxel_points: int,
+    voxel_transfer: str = "packed",
     voxel_size: int = 64,
     with_images: bool = True,
     with_voxels: bool = True,
     tile_budget_rows: int = 0,
-    windowed_halo: int = 3,
+    windowed_halo: int = 1,
     tile_overflow: str = "error",
 ) -> dict[str, Any]:
     """Stack items into one fixed-shape numpy batch: tokens (B, T) int32,
-    images (B, V, H, W, 3) uint8, voxel_rows (B, k, s³) u32 and
-    voxel_row_ids (B, k) int32."""
+    images (B, V, H, W, 3) uint8 and the voxels of ``voxel_transfer``:
+    voxel_flat/voxel_rgb (B, N) u32 (packed), voxel_grid (B, D, D, D) u32
+    (dense), voxel_windows (B·tg³, s³) u32 + voxel_tile_occ (B·tg³,) u8
+    (windowed), or voxel_rows (B, k, s³) u32 + voxel_row_ids (B, k) int32
+    (windowed_compact)."""
     batch: dict[str, Any] = {
         "model_id": [item["model_id"] for item in items],
         "category": [item["category"] for item in items],
@@ -45,28 +59,40 @@ def collate(
     if with_images:
         batch["images"] = np.stack([item["images"] for item in items])
     if with_voxels:
-        if tile_budget_rows <= 0:
-            raise ValueError("windowed_compact collate needs tile_budget_rows > 0")
+        if voxel_transfer not in TRANSFERS:
+            raise ValueError(f"unknown data.voxel_transfer={voxel_transfer!r}")
         flat = np.full((len(items), max_voxel_points), VOXEL_PAD_SENTINEL, np.uint32)
         rgb = np.zeros((len(items), max_voxel_points), np.uint32)
         for i, item in enumerate(items):
             n = min(item["voxel_flat"].shape[0], max_voxel_points)
             flat[i, :n] = item["voxel_flat"][:n]
             rgb[i, :n] = item["voxel_rgb"][:n]
-        rows, local_ids, counts = windowed_compact_on_host(
-            flat, rgb, voxel_size, tile_budget_rows, halo=windowed_halo
-        )
-        if (counts > tile_budget_rows).any():
-            msg = (
-                f"windowed_compact: a sample has {int(counts.max())} active "
-                f"tiles > tile_budget={tile_budget_rows} — set model.modules."
-                "VoxelCNNEncoder.tile_budget=auto or raise the budget"
+        if voxel_transfer == "dense":
+            batch["voxel_grid"] = densify_on_host(flat, rgb, voxel_size)
+        elif voxel_transfer == "windowed":
+            batch["voxel_windows"], batch["voxel_tile_occ"] = windowed_on_host(
+                flat, rgb, voxel_size, halo=windowed_halo
             )
-            if tile_overflow != "truncate":
-                raise ValueError(msg)
-            logging.getLogger(__name__).warning("%s (highest tiles dropped)", msg)
-        batch["voxel_rows"] = rows
-        batch["voxel_row_ids"] = local_ids
+        elif voxel_transfer == "windowed_compact":
+            if tile_budget_rows <= 0:
+                raise ValueError("windowed_compact collate needs tile_budget_rows > 0")
+            rows, local_ids, counts = windowed_compact_on_host(
+                flat, rgb, voxel_size, tile_budget_rows, halo=windowed_halo
+            )
+            if (counts > tile_budget_rows).any():
+                msg = (
+                    f"windowed_compact: a sample has {int(counts.max())} active "
+                    f"tiles > tile_budget={tile_budget_rows} — set model.modules."
+                    "VoxelCNNEncoder.tile_budget=auto or raise the budget"
+                )
+                if tile_overflow != "truncate":
+                    raise ValueError(msg)
+                logging.getLogger(__name__).warning("%s (highest tiles dropped)", msg)
+            batch["voxel_rows"] = rows
+            batch["voxel_row_ids"] = local_ids
+        else:
+            batch["voxel_flat"] = flat
+            batch["voxel_rgb"] = rgb
     return batch
 
 
@@ -81,6 +107,7 @@ class BatchIterator:
         shuffle: bool = False,
         drop_last: bool = False,
         seed: int = 0,
+        voxel_transfer: str = "windowed_compact",
         voxel_size: int = 64,
         with_images: bool = True,
         with_voxels: bool = True,
@@ -94,6 +121,7 @@ class BatchIterator:
         self.drop_last = drop_last
         self.seed = seed
         self.epoch = 0
+        self.voxel_transfer = voxel_transfer
         self.voxel_size = voxel_size
         self.with_images = with_images
         self.with_voxels = with_voxels
@@ -139,13 +167,15 @@ class BatchIterator:
                 chunk = np.concatenate(
                     [chunk, np.full(self.batch_size - valid, chunk[-1])]
                 )
+            compact = self.with_voxels and self.voxel_transfer == "windowed_compact"
             batch = collate(
                 [self.dataset[int(i)] for i in chunk],
                 self.dataset.max_voxel_points,
+                self.voxel_transfer,
                 self.voxel_size,
                 self.with_images,
                 self.with_voxels,
-                self.tile_budget_rows if self.with_voxels else 0,
+                self.tile_budget_rows if compact else 0,
                 self.windowed_halo,
                 self.tile_overflow,
             )
@@ -174,25 +204,25 @@ class DataModule:
         model = self.cfg.model
         voxel_cfg = model.modules.VoxelCNNEncoder
         transfer = str(self.cfg.data.get("voxel_transfer", "windowed_compact"))
+        if transfer not in TRANSFERS:
+            raise ValueError(f"unknown data.voxel_transfer={transfer!r}; one of {TRANSFERS}")
+        blocks = int(voxel_cfg.get("tile_sparse_blocks", 2))
         if model.voxel_encoder is not None:
-            if transfer != "windowed_compact":
-                raise NotImplementedError(
-                    f"data.voxel_transfer={transfer} is not ported; the port "
-                    "runs windowed_compact"
-                )
             if not voxel_cfg.get("masked_bn", False):
                 raise NotImplementedError(
                     "the port runs the masked (submanifold) voxel encoder only"
                 )
-        blocks = int(voxel_cfg.get("tile_sparse_blocks", 2))
-        if blocks > 2:
-            warnings.warn(
-                f"tile_sparse_blocks={blocks}: the windowed encoder runs at "
-                "most 2 sparse blocks — running 2.",
-                stacklevel=2,
-            )
+            if transfer.startswith("windowed") and blocks > 2:
+                warnings.warn(
+                    f"tile_sparse_blocks={blocks} with a windowed voxel transfer: "
+                    "the windowed encoder runs at most 2 sparse blocks — running "
+                    "2. Use voxel_transfer=dense or packed with tile_sparse=true "
+                    "for deeper sparse stacks.",
+                    stacklevel=2,
+                )
         return dict(
             batch_size=self.cfg.data.batch_size,
+            voxel_transfer=transfer,
             voxel_size=self.cfg.data.voxel_size,
             with_images=model.image_encoder == "MVCNNEncoder",
             with_voxels=model.voxel_encoder is not None,

@@ -1,9 +1,10 @@
 """Eval step, shape embedding and embedding collection.
 
 Port of the serving half of ``tricolo_tpu.training``: ``eval_step`` is
-``make_eval_step`` without the loss (normalize images, forward with
-running statistics in the compute dtype — bf16 autocast when
-``precision.compute_dtype=bfloat16`` — and return float32 features),
+``make_eval_step`` without the loss (``prepare_device_batch`` on the
+device — normalize images, densify packed or dense voxels — then the
+forward with running statistics in the compute dtype — bf16 autocast when
+``precision.compute_dtype=bfloat16`` — and float32 features out),
 ``shape_embedding_sum`` is ``steps.shape_embedding_sum`` and
 ``collect_embeddings`` is ``Trainer.collect_embeddings`` (padded tail rows
 dropped through ``num_valid``).
@@ -14,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .data.device_prep import normalize_images
+from .data.device_prep import prepare_device_batch
 
 
 def resolve_device(device=None) -> torch.device:
@@ -33,19 +34,34 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+# Packed u32 voxel words, shipped as their int32 bit view.
+_PACKED_KEYS = ("voxel_flat", "voxel_rgb", "voxel_grid", "voxel_windows", "voxel_rows")
+
+
 def to_device_batch(batch: dict, device: torch.device) -> dict:
-    """Host numpy batch → tensors on ``device`` (packed u32 rows travel as
-    their int32 bit view)."""
+    """Host numpy batch → tensors on ``device``: tokens, images, and the
+    voxel keys of the batch's transfer (packed u32 words travel as their
+    int32 bit view)."""
     out = {"tokens": torch.from_numpy(np.asarray(batch["tokens"], np.int32)).to(device)}
     if "images" in batch:
         out["images"] = torch.from_numpy(np.asarray(batch["images"])).to(device)
-    if "voxel_rows" in batch:
-        rows = np.ascontiguousarray(batch["voxel_rows"], np.uint32).view(np.int32)
-        out["voxel_rows"] = torch.from_numpy(rows).to(device)
+    for key in _PACKED_KEYS:
+        if key in batch:
+            words = np.ascontiguousarray(batch[key], np.uint32).view(np.int32)
+            out[key] = torch.from_numpy(words).to(device)
+    if "voxel_row_ids" in batch:
         out["voxel_row_ids"] = torch.from_numpy(
             np.asarray(batch["voxel_row_ids"], np.int32)
         ).to(device)
+    if "voxel_tile_occ" in batch:
+        out["voxel_tile_occ"] = torch.from_numpy(np.asarray(batch["voxel_tile_occ"])).to(device)
     return out
+
+
+def prepare_inputs(model, batch: dict) -> dict:
+    """``prepare_device_batch`` in the model's compute dtype and grid."""
+    voxel_size = model.voxel_encoder.voxel_size if model.voxel_encoder is not None else 0
+    return prepare_device_batch(batch, voxel_size, model.compute_dtype)
 
 
 def autocast(model, device_type: str):
@@ -57,9 +73,7 @@ def autocast(model, device_type: str):
 @torch.no_grad()
 def eval_step(model, batch: dict) -> dict:
     """Device batch → float32 features (running-statistics forward)."""
-    inputs = dict(batch)
-    if "images" in inputs:
-        inputs["images"] = normalize_images(inputs["images"], model.compute_dtype)
+    inputs = prepare_inputs(model, batch)
     with autocast(model, batch["tokens"].device.type):
         output = model(inputs)
     return {k: v.float() for k, v in output.items()}

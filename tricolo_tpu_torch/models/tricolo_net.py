@@ -1,10 +1,11 @@
 """TriCoLoNet: the configured modality encoders.
 
 Port of ``tricolo_tpu.models.tricolo_net.TriCoLoNet`` for the BiGRU text
-encoder, the MVCNN image encoder and the windowed voxel encoder
-(``voxel_rows`` input). ``train()`` / ``eval()`` switch the BatchNorms
-between batch and running statistics; the non-CLIP encoders have no
-dropout. The CLIP heads are not ported yet.
+encoder, the MVCNN image encoder and the masked voxel encoder on every
+voxel input (``voxel_windows``, ``voxel_rows`` or dense ``voxels``).
+``train()`` / ``eval()`` switch the BatchNorms between batch and running
+statistics; the non-CLIP encoders have no dropout. The CLIP heads are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from .voxel_cnn import VoxelCNNEncoder
 
 _VOXEL_ALIASES = {"VoxelCNNEncoder", "SparseCNNEncoder"}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+SCATTER_LAYOUTS = ("transpose", "lines", "hybrid")
 
 
 class TriCoLoNet(nn.Module):
@@ -28,7 +30,9 @@ class TriCoLoNet(nn.Module):
                  vocab_size: int = 3588, embed_dim: int = 256, gru_hidden_dim: int = 128,
                  num_views: int = 6, z_dim: int = 512, cnn_name: str = "resnet18",
                  voxel_size: int = 64, ef_dim: int = 32, voxel_z_dim: int = 512,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, tile_sparse: bool = False,
+                 tile_sparse_blocks: int = 2, tile_budget_frac: float = 0.5,
+                 explicit_dgrad: bool = False):
         super().__init__()
         if text_encoder != "BiGRUEncoder":
             raise NotImplementedError(f"text encoder {text_encoder!r} is not ported yet")
@@ -42,7 +46,9 @@ class TriCoLoNet(nn.Module):
         self.voxel_encoder = None
         if voxel_encoder in _VOXEL_ALIASES:
             self.voxel_encoder = VoxelCNNEncoder(
-                voxel_size, ef_dim, voxel_z_dim, out_dim, compute_dtype
+                voxel_size, ef_dim, voxel_z_dim, out_dim, compute_dtype,
+                tile_sparse=tile_sparse, tile_sparse_blocks=tile_sparse_blocks,
+                tile_budget_frac=tile_budget_frac, explicit_dgrad=explicit_dgrad,
             )
         elif voxel_encoder is not None:
             raise ValueError(f"unknown voxel encoder: {voxel_encoder}")
@@ -53,6 +59,11 @@ class TriCoLoNet(nn.Module):
         voxel = modules.VoxelCNNEncoder
         if cfg.model.voxel_encoder is not None and not voxel.get("masked_bn", False):
             raise NotImplementedError("the port runs the masked voxel encoder only")
+        # Every layout of the JAX package computes the same scatter, which K2
+        # does one way: the key is checked and has no other effect.
+        layout = voxel.get("scatter_layout", None)
+        if layout is not None and layout not in SCATTER_LAYOUTS:
+            raise ValueError(f"scatter_layout must be one of {SCATTER_LAYOUTS}, got {layout!r}")
         return cls(
             text_encoder=cfg.model.text_encoder or "BiGRUEncoder",
             image_encoder=cfg.model.image_encoder,
@@ -68,6 +79,10 @@ class TriCoLoNet(nn.Module):
             ef_dim=voxel.ef_dim,
             voxel_z_dim=voxel.get("z_dim", modules.MVCNNEncoder.z_dim),
             compute_dtype=DTYPES[cfg.precision.compute_dtype],
+            tile_sparse=bool(voxel.get("tile_sparse", False)),
+            tile_sparse_blocks=int(voxel.get("tile_sparse_blocks", 2)),
+            tile_budget_frac=float(voxel.get("tile_budget_frac", 0.5)),
+            explicit_dgrad=bool(voxel.get("explicit_dgrad", False)),
         )
 
     def set_compute_dtype(self, dtype) -> None:
@@ -76,13 +91,20 @@ class TriCoLoNet(nn.Module):
             self.voxel_encoder.compute_dtype = dtype
 
     def forward(self, batch: dict) -> dict:
-        """batch: tokens (B, T) int; images (B, V, H, W, 3) normalized
-        float; voxel_rows (B, k, s³) int32 + voxel_row_ids (B, k) int32."""
+        """batch (``data.device_prep.prepare_device_batch``): tokens (B, T)
+        int; images (B, V, H, W, 3) normalized float; and voxel_windows
+        (B·tg³, s³) int32 + voxel_tile_occ (B·tg³,), or voxel_rows (B, k, s³)
+        int32 + voxel_row_ids (B, k) int32, or voxels (B, D, D, D, 4) float."""
         out = {"text_features": self.text_encoder(batch["tokens"])}
         if self.image_encoder is not None:
             out["image_features"] = self.image_encoder(batch["images"])
-        if self.voxel_encoder is not None:
-            out["voxel_features"] = self.voxel_encoder(
-                batch["voxel_rows"], batch["voxel_row_ids"]
-            )
+        enc = self.voxel_encoder
+        if enc is not None:
+            if "voxel_windows" in batch:
+                features = enc(windows=batch["voxel_windows"], tile_occ=batch["voxel_tile_occ"])
+            elif "voxel_rows" in batch:
+                features = enc(batch["voxel_rows"], batch["voxel_row_ids"])
+            else:
+                features = enc(voxels=batch["voxels"])
+            out["voxel_features"] = features
         return out

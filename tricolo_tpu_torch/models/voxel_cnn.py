@@ -1,31 +1,45 @@
-"""Voxel encoder on host-windowed tile rows, channels-last.
+"""Voxel encoder, channels-last, under the masked (submanifold) semantics.
 
-Port of ``tricolo_tpu.models.voxel_cnn.VoxelCNNEncoder._windowed_forward``
-under the masked (submanifold) semantics, eval and train. Input is the
-``windowed_compact`` transfer: per-sample packed rows (B, k, s³) of each
-active 8³ tile's halo'd window (s = 8 + 2·halo) and their local tile ids
-(B, k).
+Port of ``tricolo_tpu.models.voxel_cnn.VoxelCNNEncoder`` with
+``masked_bn=true``, eval and train, on every input the JAX package takes:
 
-Halo 3 (the default, 14³ rows): blocks 1-2 run on the tile rows — VALID
-3³ conv, then K1 (``ops.bn_relu_pool``). Block 1 normalises with two
-masks: zero over the full-region occupancy ``m_full[1:-1]³`` and pool the
-centre occupancy ``pad(m_full[3:-3]³, 2)``; block 2's single mask is the
-pooled centre mask cropped by its VALID conv. K2 (``ops.scatter_tiles_ps``)
-then places the (B, k, 2³, 64) tiles and their mask on dense 16³ grids,
-blocks 3-5 run dense (SAME conv + K1), and the NDHWC flatten feeds the MLP
-head. Halo 1 (10³ rows) runs block 1 on the rows and blocks 2-5 dense.
+* **windowed_compact** (``rows`` (B, k, s³) + ``row_ids`` (B, k)): per-sample
+  packed rows of each active 8³ tile's halo'd window (s = 8 + 2·halo) and
+  their local tile ids. Halo 3 (14³ rows): blocks 1-2 run on the rows —
+  VALID 3³ conv, then K1 (``ops.bn_relu_pool``). Block 1 normalises with two
+  masks: zero over the full-region occupancy ``m_full[1:-1]³`` and pool the
+  centre occupancy ``pad(m_full[3:-3]³, 2)``; block 2's single mask is the
+  pooled centre mask cropped by its VALID conv. K2 (``ops.scatter_tiles_ps``)
+  then places the (B, k, 2³, 64) tiles and their mask on dense 16³ grids.
+  Halo 1 (10³ rows) runs block 1 on the rows.
+* **windowed** (``windows`` (B·tg³, s³) + ``tile_occ`` (B·tg³,)): every
+  tile's rows; the active ones are taken on the device
+  (``ops.tile_sparse.compact_ids`` under the static global budget), run as
+  above, and K2's global entry (``ops.scatter_tiles_global``) places them.
+* **dense** (``voxels`` (B, D, D, D, 4): RGB + the occupancy channel, or 3
+  channels with the nonzero-RGB mask): the dense-input plan. With
+  ``tile_sparse`` the first ``min(tile_sparse_blocks, 3)`` blocks run on the
+  active tiles of the input occupancy (``ops.active_tile_ids``): K7
+  (``ops.gather_tiles``) cuts halo-1 windows of x and halo-0 tiles of the
+  mask, a VALID conv and K1 run on them, and K2's global entry scatters
+  both onto the half-resolution grid.
+
+The remaining blocks run dense (SAME conv + K1), and the NDHWC flatten
+feeds the MLP head. Every path is exact against the dense masked path (the
+JAX package's tests), so checkpoints interchange; the parameter tree is one.
 
 In ``train()`` mode each block normalises with its masked batch statistics
 through ``ops.masked_bn_relu_pool_train`` (K1 forward with the argmax
 index, K3 backward) and updates ``running_mean``/``running_var`` by hand:
 flax momentum 0.9 and the *biased* masked variance, as the JAX package does
 (``nn.BatchNorm3d``'s own update would use the unbiased variance over all
-sites). K2 runs through its autograd Function (``ops.scatter_tiles``).
+sites). K2 and K7 run through their autograd Functions.
 
 Convolutions are ``F.conv3d`` on channels-last-3d views (cuDNN on the
-card), as the JAX package leaves them to XLA. ``use_kernels=False`` runs
-the same path through the kernels' plain PyTorch versions (the reference
-the kernels are held against on the card).
+card), as the JAX package leaves them to XLA; ``explicit_dgrad`` writes the
+VALID convs' input gradient as a forward conv (``ops.conv3d``).
+``use_kernels=False`` runs the same path through the kernels' plain
+PyTorch versions (the reference the kernels are held against on the card).
 """
 
 from __future__ import annotations
@@ -43,12 +57,13 @@ from ..ops.bn_relu_pool import (
     fold_bn,
     masked_bn_relu_pool_train,
 )
-from ..ops.tile_scatter import scatter_tiles
+from ..ops.conv3d import conv3d_valid_explicit_dgrad
+from ..ops.tile_gather import gather_tiles_autograd
+from ..ops.tile_scatter import scatter_tiles, scatter_tiles_global_autograd
+from ..ops.tile_sparse import active_tile_ids, compact_ids, tile_budget
 from .common import MLPHead, l2_normalize
 
 _TILE = 8
-
-
 _MOMENTUM = 0.9  # flax convention: running = 0.9·running + 0.1·batch
 
 
@@ -62,8 +77,12 @@ class ConvBlock(nn.Module):
         self.bn = nn.BatchNorm3d(features, eps=1e-5)
 
     def forward(self, x, zero_mask, stats_mask=None, padding: int = 0,
-                use_kernels: bool = True):
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.conv.weight, padding=padding)
+                use_kernels: bool = True, explicit_dgrad: bool = False):
+        x = x.permute(0, 4, 1, 2, 3)
+        if padding == 0 and explicit_dgrad:
+            y = conv3d_valid_explicit_dgrad(x, self.conv.weight)
+        else:
+            y = F.conv3d(x, self.conv.weight, padding=padding)
         y = y.permute(0, 2, 3, 4, 1).contiguous()
         bn = self.bn
         zero_mask = zero_mask.to(y.dtype).contiguous()
@@ -86,19 +105,25 @@ class ConvBlock(nn.Module):
 
 
 class VoxelCNNEncoder(nn.Module):
-    """rows (B, k, s³) int32 + row_ids (B, k) int32 → (B, out_dim) float32."""
+    """Packed rows, window rows or a dense grid → (B, out_dim) float32."""
 
     def __init__(self, voxel_size: int = 64, ef_dim: int = 32, z_dim: int = 512,
-                 out_dim: int = 512, compute_dtype=torch.float32):
+                 out_dim: int = 512, compute_dtype=torch.float32, tile_sparse: bool = False,
+                 tile_sparse_blocks: int = 2, tile_budget_frac: float = 0.5,
+                 explicit_dgrad: bool = False):
         super().__init__()
         if voxel_size % 32:
             raise ValueError(f"voxel_size must be a multiple of 32, got {voxel_size}")
         self.voxel_size = voxel_size
         self.compute_dtype = compute_dtype
         self.use_kernels = True
+        self.tile_sparse = tile_sparse
+        self.tile_sparse_blocks = int(tile_sparse_blocks)
+        self.tile_budget_frac = float(tile_budget_frac)
         channels = (ef_dim, ef_dim * 2, ef_dim * 4, ef_dim * 8, z_dim)
         cins = (4,) + channels[:-1]
         self.blocks = nn.ModuleList(ConvBlock(c, f) for c, f in zip(cins, channels))
+        self.explicit_dgrad = explicit_dgrad  # for the VALID (tile) convs
         flat = (voxel_size // 32) ** 3 * z_dim
         self.head = MLPHead(flat, out_dim, out_dim)
         with torch.no_grad():
@@ -108,12 +133,32 @@ class VoxelCNNEncoder(nn.Module):
             self.blocks[0].conv.weight.uniform_(-bound, bound)
             self.blocks[0].conv.weight[:, 3].zero_()
 
-    def forward(self, rows: torch.Tensor, row_ids: torch.Tensor) -> torch.Tensor:
-        if rows.ndim != 3 or row_ids.ndim != 2:
+    def forward(self, rows=None, row_ids=None, *, voxels=None, windows=None, tile_occ=None):
+        """One of: ``rows`` (B, k, s³) int32 + ``row_ids`` (B, k) int32
+        (windowed_compact); ``windows`` (B·tg³, s³) int32 + ``tile_occ``
+        (B·tg³,) (windowed); ``voxels`` (B, D, D, D, 3 or 4) float (dense)."""
+        if voxels is not None:
+            return self._dense_forward(voxels)
+        if windows is not None:
+            return self._full_windowed_forward(windows, tile_occ)
+        if rows is None or row_ids is None or rows.ndim != 3 or row_ids.ndim != 2:
             raise ValueError(
-                "compact windowed input must be per-sample: rows (B, k, s³) + "
-                f"ids (B, k); got {tuple(rows.shape)} / {tuple(row_ids.shape)}"
+                "compact windowed input must be per-sample: rows (B, k, s³) + ids (B, k); "
+                f"got {None if rows is None else tuple(rows.shape)} / "
+                f"{None if row_ids is None else tuple(row_ids.shape)}"
             )
+        batch, k = rows.shape[:2]
+        x_t, m_t, dense_from, grid = self._row_blocks(rows.reshape(batch * k, -1))
+        t = x_t.shape[1]
+        ids = row_ids.to(torch.int32).contiguous()
+        kernels = self.use_kernels
+        x = scatter_tiles(x_t.reshape(batch, k, t, t, t, -1), ids, grid, kernels)
+        mask = scatter_tiles(m_t.reshape(batch, k, t, t, t, 1), ids, grid, kernels)
+        return self._dense_tail(x, mask, dense_from)
+
+    def _row_blocks(self, rows):
+        """Blocks 1(-2) on packed window rows (R, s³) → (tiles, tile masks,
+        index of the first dense block, the tiles' grid)."""
         for halo in (1, 3):
             if (_TILE + 2 * halo) ** 3 == rows.shape[-1]:
                 break
@@ -122,26 +167,71 @@ class VoxelCNNEncoder(nn.Module):
                 f"windowed rows have {rows.shape[-1]} voxels; expected 10³ "
                 "(halo 1) or 14³ (halo 3)"
             )
-        kernels = self.use_kernels
-        batch, k = rows.shape[:2]
+        valid = dict(use_kernels=self.use_kernels, explicit_dgrad=self.explicit_dgrad)
         s = _TILE + 2 * halo
         x_t, m_full = unpack_windowed_rows(rows.reshape(-1, s, s, s), self.compute_dtype)
         if halo == 1:
             m_t = m_full[:, 1:-1, 1:-1, 1:-1]
-            x_t, m_t = self.blocks[0](x_t, m_t, use_kernels=kernels)
-            dense_from, grid = 1, self.voxel_size // 2
+            x_t, m_t = self.blocks[0](x_t, m_t, **valid)
+            return x_t, m_t, 1, self.voxel_size // 2
+        mz1 = m_full[:, 1:-1, 1:-1, 1:-1]
+        ms1 = F.pad(m_full[:, 3:-3, 3:-3, 3:-3], (0, 0, 2, 2, 2, 2, 2, 2))
+        x_t, m_p = self.blocks[0](x_t, mz1, ms1, **valid)
+        m2 = m_p[:, 1:-1, 1:-1, 1:-1]
+        x_t, m_t = self.blocks[1](x_t, m2, **valid)
+        return x_t, m_t, 2, self.voxel_size // 4
+
+    def _full_windowed_forward(self, windows, tile_occ):
+        """The ``windowed`` transfer: take the active rows under the static
+        budget, run them as the compact rows, scatter by global id."""
+        tg3 = (self.voxel_size // _TILE) ** 3
+        n_rows = windows.shape[0]
+        batch = n_rows // tg3
+        ids = compact_ids(tile_occ.reshape(-1) > 0,
+                          tile_budget(self.tile_budget_frac, batch, tg3))
+        valid = ids < n_rows
+        rows = torch.where(valid[:, None], windows[torch.where(valid, ids, 0).long()], 0)
+        x_t, m_t, dense_from, grid = self._row_blocks(rows)
+        kernels = self.use_kernels
+        x = scatter_tiles_global_autograd(x_t, ids, batch, grid, kernels)
+        mask = scatter_tiles_global_autograd(m_t, ids, batch, grid, kernels)
+        return self._dense_tail(x, mask, dense_from)
+
+    def _dense_forward(self, voxels):
+        """The dense-input plan: sparse blocks on the input's active tiles,
+        then dense masked blocks."""
+        D = self.voxel_size
+        if voxels.ndim != 5 or voxels.shape[1:4] != (D, D, D):
+            raise ValueError(f"expected {D}^3 grids, got {tuple(voxels.shape[1:4])}")
+        x = voxels.to(self.compute_dtype)
+        if x.shape[-1] == 4:
+            mask = x[..., 3:]
         else:
-            mz1 = m_full[:, 1:-1, 1:-1, 1:-1]
-            ms1 = F.pad(m_full[:, 3:-3, 3:-3, 3:-3], (0, 0, 2, 2, 2, 2, 2, 2))
-            x_t, m_p = self.blocks[0](x_t, mz1, ms1, use_kernels=kernels)
-            m2 = m_p[:, 1:-1, 1:-1, 1:-1]
-            x_t, m_t = self.blocks[1](x_t, m2, use_kernels=kernels)
-            dense_from, grid = 2, self.voxel_size // 4
-        t = x_t.shape[1]
-        ids = row_ids.to(torch.int32).contiguous()
-        x = scatter_tiles(x_t.reshape(batch, k, t, t, t, -1), ids, grid, kernels)
-        mask = scatter_tiles(m_t.reshape(batch, k, t, t, t, 1), ids, grid, kernels)
+            # No occupancy channel: any nonzero RGB (an occupied pure-black
+            # voxel reads as empty — feed 4-channel batches for exactness).
+            mask = (voxels[..., :3] != 0).any(dim=-1, keepdim=True).to(self.compute_dtype)
+        x = F.pad(x[..., :3], (0, 1)).contiguous()  # the zero pad channel
+        mask = mask.contiguous()
+        batch = x.shape[0]
+        n_sparse = min(self.tile_sparse_blocks, 3) if self.tile_sparse else 0
+        kernels = self.use_kernels
+        if n_sparse:
+            tg3 = (D // _TILE) ** 3
+            ids = active_tile_ids(mask, _TILE, tile_budget(self.tile_budget_frac, batch, tg3))
+        grid = D
+        for i in range(n_sparse):
+            tile = _TILE >> i  # the tile edge at this block's input grid
+            x_t = gather_tiles_autograd(x, ids, tile, 1, kernels)
+            m_t = gather_tiles_autograd(mask, ids, tile, 0, kernels)
+            x_t, m_t = self.blocks[i](x_t, m_t, use_kernels=kernels,
+                                      explicit_dgrad=self.explicit_dgrad)
+            grid //= 2
+            x = scatter_tiles_global_autograd(x_t, ids, batch, grid, kernels)
+            mask = scatter_tiles_global_autograd(m_t, ids, batch, grid, kernels)
+        return self._dense_tail(x, mask, n_sparse)
+
+    def _dense_tail(self, x, mask, dense_from: int):
         for block in self.blocks[dense_from:]:
-            x, mask = block(x, mask, padding=1, use_kernels=kernels)
-        x = self.head(x.reshape(batch, -1))
+            x, mask = block(x, mask, padding=1, use_kernels=self.use_kernels)
+        x = self.head(x.reshape(x.shape[0], -1))
         return l2_normalize(x.float())

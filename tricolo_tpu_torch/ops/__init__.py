@@ -3,14 +3,21 @@ PyTorch version and a launch counter.
 
 * ``bn_relu_pool`` (K1, ``csrc/bn_relu_pool.cu``) — masked BN → ReLU →
   zero → MaxPool(2³) + first argmax; replaces ``fused_bn_pool._fwd_kernel``.
-* ``scatter_tiles_ps`` (K2, ``csrc/tile_scatter.cu``) — per-sample tile →
-  grid scatter; replaces ``_graveyard/dma_tiles._scatter_kernel``.
+* ``scatter_tiles_ps`` / ``scatter_tiles_global`` (K2, ``csrc/tile_scatter.cu``)
+  — tile → grid scatter by per-sample or global tile id; replaces
+  ``_graveyard/dma_tiles._scatter_kernel``.
 * ``bn_relu_pool_bwd`` (K3, ``csrc/bn_relu_pool_bwd.cu``) — the
   full-resolution dy of the masked BN-ReLU-pool backward; replaces
   ``fused_bn_pool._dy_kernel``.
 * ``nt_xent_fwd`` / ``nt_xent_bwd_rows`` / ``nt_xent_bwd_cols`` (K4-K6,
   ``csrc/nt_xent.cu``) — the blocked online-softmax NT-Xent; replace
   ``nt_xent_pallas._fwd_kernel`` / ``_bwd_kernel`` / ``_bwd_cols_kernel``.
+* ``gather_tiles`` (K7, ``csrc/tile_gather.cu``) — halo'd tile gather from
+  a dense grid by global tile id; replaces ``_graveyard/dma_tiles._gather_kernel``.
+
+Beside them: ``conv3d_valid_explicit_dgrad`` (cuDNN convolutions with the
+input gradient written as a forward conv) and the tile-sparse helpers of
+``tile_sparse``.
 """
 
 from .bn_relu_pool import (
@@ -21,6 +28,7 @@ from .bn_relu_pool import (
     fold_bn,
     masked_bn_relu_pool_train,
 )
+from .conv3d import conv3d_valid_explicit_dgrad
 from .nt_xent import (
     blocked_nt_xent_loss,
     nt_xent_bwd_cols,
@@ -30,7 +38,17 @@ from .nt_xent import (
     nt_xent_fwd,
     nt_xent_fwd_plain,
 )
-from .tile_scatter import gather_tiles_ps, scatter_tiles, scatter_tiles_ps, scatter_tiles_ps_plain
+from .tile_gather import gather_tiles, gather_tiles_autograd, gather_tiles_plain
+from .tile_scatter import (
+    gather_tiles_global,
+    gather_tiles_ps,
+    scatter_tiles,
+    scatter_tiles_global,
+    scatter_tiles_global_autograd,
+    scatter_tiles_global_plain,
+    scatter_tiles_ps,
+    scatter_tiles_ps_plain,
+)
 
 KERNELS = (
     bn_relu_pool,
@@ -39,6 +57,8 @@ KERNELS = (
     nt_xent_fwd,
     nt_xent_bwd_rows,
     nt_xent_bwd_cols,
+    gather_tiles,
+    scatter_tiles_global,
 )
 
 
@@ -58,7 +78,12 @@ __all__ = [
     "bn_relu_pool_bwd",
     "bn_relu_pool_bwd_plain",
     "bn_relu_pool_plain",
+    "conv3d_valid_explicit_dgrad",
     "fold_bn",
+    "gather_tiles",
+    "gather_tiles_autograd",
+    "gather_tiles_global",
+    "gather_tiles_plain",
     "gather_tiles_ps",
     "launches",
     "masked_bn_relu_pool_train",
@@ -70,6 +95,9 @@ __all__ = [
     "nt_xent_fwd_plain",
     "reset_launches",
     "scatter_tiles",
+    "scatter_tiles_global",
+    "scatter_tiles_global_autograd",
+    "scatter_tiles_global_plain",
     "scatter_tiles_ps",
     "scatter_tiles_ps_plain",
 ]

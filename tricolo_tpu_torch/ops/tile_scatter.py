@@ -1,14 +1,20 @@
-"""Per-sample tile → grid scatter: kernel K2.
+"""Tile → grid scatter: kernel K2, per-sample and global.
 
 ``scatter_tiles_ps`` places each sample's compacted tiles at their grid
-positions on a zero background — the handoff from the voxel encoder's
-tile-sparse blocks 1-2 to its dense blocks 3-5. On a CUDA tensor it
-launches the hand-written kernel ``csrc/tile_scatter.cu`` (it replaces the
-TPU kernel ``tricolo_tpu/ops/_graveyard/dma_tiles.py::_scatter_kernel``) or
-raises; on a CPU tensor it runs ``scatter_tiles_ps_plain``, the torch form
-of ``tricolo_tpu.ops.tile_sparse._transpose_scatter_ps``. A pure copy, so
-kernel and plain version agree bit for bit. ``scatter_tiles`` wraps it in
-an autograd Function whose backward is the tile gather out of ``dy``.
+positions on a zero background — the windowed_compact handoff from the
+voxel encoder's tile-sparse blocks 1-2 to its dense blocks 3-5.
+``scatter_tiles_global`` does the same for tiles keyed by global ids
+(b·tg³ + local id) — the handoff after each sparse block of the dense-input
+plan and of the full ``windowed`` transfer. On a CUDA tensor each launches
+its entry of the hand-written kernel ``csrc/tile_scatter.cu`` (it replaces
+the TPU kernel ``tricolo_tpu/ops/_graveyard/dma_tiles.py::_scatter_kernel``)
+or raises; on a CPU tensor it runs its plain version
+(``scatter_tiles_ps_plain``, ``scatter_tiles_global_plain``), the torch
+forms of ``tricolo_tpu.ops.tile_sparse._transpose_scatter_ps`` and
+``scatter_tiles``. A pure copy, so kernel and plain version agree bit for
+bit, and every ``scatter_layout`` of the JAX package computes the same
+function. ``scatter_tiles`` and ``scatter_tiles_global_autograd`` wrap them
+in autograd Functions whose backward is the tile gather out of ``dy``.
 """
 
 from __future__ import annotations
@@ -136,3 +142,120 @@ def scatter_tiles(tiles, local_ids, grid: int, use_kernel: bool = True):
     backward); ``use_kernel=False`` runs the plain version on any device.
     The ids carry no gradient."""
     return _ScatterTiles.apply(tiles, local_ids, grid, use_kernel)
+
+
+# ------------------------------------------------------------ global ids
+
+
+def _check_global(tiles, ids, batch, grid):
+    if tiles.ndim != 5 or not (tiles.shape[1] == tiles.shape[2] == tiles.shape[3]):
+        raise ValueError(f"expected (T, t, t, t, C) tiles, got {tuple(tiles.shape)}")
+    if ids.shape != (tiles.shape[0],):
+        raise ValueError(f"ids must be ({tiles.shape[0]},), got {tuple(ids.shape)}")
+    if grid % tiles.shape[1]:
+        raise ValueError(f"grid {grid} is not a multiple of the tile edge {tiles.shape[1]}")
+    if batch < 0:
+        raise ValueError(f"batch must be >= 0, got {batch}")
+
+
+def scatter_tiles_global_plain(tiles, ids, batch: int, grid: int):
+    """Plain PyTorch version: rows into a tile-major (B·tg³ + T) buffer
+    (padding ids go to per-row trash rows), then a transpose to
+    (B, G, G, G, C)."""
+    _check_global(tiles, ids, batch, grid)
+    T, t = tiles.shape[:2]
+    C = tiles.shape[-1]
+    tg = grid // t
+    n = batch * tg**3
+    ids = ids.long()
+    safe = torch.where((ids >= 0) & (ids < n), ids, n + torch.arange(T, device=tiles.device))
+    buf = torch.zeros((n + T, t**3 * C), dtype=tiles.dtype, device=tiles.device)
+    buf[safe] = tiles.reshape(T, -1)
+    t8 = buf[:n].reshape(batch, tg, tg, tg, t, t, t, C)
+    return t8.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(batch, grid, grid, grid, C)
+
+
+def _lib_global():
+    lib = _build.load("tile_scatter")
+    lib.tile_scatter_global.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p
+    ]
+    lib.tile_scatter_global.restype = ctypes.c_int
+    return lib
+
+
+def scatter_tiles_global(tiles, ids, batch: int, grid: int):
+    """(T, t, t, t, C) tiles + (T,) int32 unique global ids (b·tg³ + (tz·tg
+    + ty)·tg + tx; ids outside [0, B·tg³) are padding and are dropped) →
+    (B, G, G, G, C), zeros where no tile lands. K2's global entry on CUDA."""
+    if tiles.device.type == "cpu":
+        return scatter_tiles_global_plain(tiles, ids, batch, grid)
+    if tiles.device.type != "cuda":
+        raise ValueError(f"scatter_tiles_global runs on cuda or cpu tensors, got {tiles.device}")
+    _check_global(tiles, ids, batch, grid)
+    if tiles.element_size() not in (2, 4):
+        raise TypeError(f"scatter_tiles_global copies 2- or 4-byte elements, got {tiles.dtype}")
+    if ids.dtype != torch.int32:
+        raise TypeError(f"ids must be int32, got {ids.dtype}")
+    if ids.device != tiles.device or not (tiles.is_contiguous() and ids.is_contiguous()):
+        raise ValueError("scatter_tiles_global needs contiguous inputs on one device")
+    T, t = tiles.shape[:2]
+    C = tiles.shape[-1]
+    tg = grid // t
+    if batch * tg**3 >= 2**31 or T >= 2**31:
+        raise ValueError("scatter_tiles_global takes fewer than 2^31 tiles")
+    inv = torch.empty(batch * tg**3, dtype=torch.int32, device=tiles.device)
+    out = torch.empty((batch, grid, grid, grid, C), dtype=tiles.dtype, device=tiles.device)
+    with torch.cuda.device(tiles.device):
+        status = _lib_global().tile_scatter_global(
+            tiles.data_ptr(), ids.data_ptr(), inv.data_ptr(), out.data_ptr(),
+            batch, T, t, tg, C, tiles.element_size(),
+            torch.cuda.current_stream(tiles.device).cuda_stream,
+        )
+    _build.check(status, "tile_scatter_global")
+    scatter_tiles_global.launches += 1
+    return out
+
+
+scatter_tiles_global.launches = 0
+
+
+def gather_tiles_global(dy, ids, tile: int):
+    """The global scatter's backward: row ``r`` = the (t, t, t, C) region of
+    ``dy`` at global tile id ``ids[r]``, zeros for padding ids (the autodiff
+    of ``tricolo_tpu.ops.tile_sparse.scatter_tiles``)."""
+    B, G = dy.shape[0], dy.shape[1]
+    C = dy.shape[-1]
+    tg = G // tile
+    n = B * tg**3
+    rows = (
+        dy.reshape(B, tg, tile, tg, tile, tg, tile, C)
+        .permute(0, 1, 3, 5, 2, 4, 6, 7)
+        .reshape(n, tile**3 * C)
+    )
+    ids = ids.long()
+    valid = (ids >= 0) & (ids < n)
+    out = rows[torch.where(valid, ids, 0)]
+    out = torch.where(valid[:, None], out, 0)
+    return out.reshape(ids.shape[0], tile, tile, tile, C)
+
+
+class _ScatterTilesGlobal(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tiles, ids, batch, grid, use_kernel):
+        ctx.save_for_backward(ids)
+        ctx.tile = tiles.shape[1]
+        op = scatter_tiles_global if use_kernel else scatter_tiles_global_plain
+        return op(tiles, ids, batch, grid)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (ids,) = ctx.saved_tensors
+        return gather_tiles_global(dy, ids, ctx.tile), None, None, None, None
+
+
+def scatter_tiles_global_autograd(tiles, ids, batch: int, grid: int, use_kernel: bool = True):
+    """Differentiable ``scatter_tiles_global`` (K2 forward, tile-gather
+    backward); ``use_kernel=False`` runs the plain version on any device.
+    The ids carry no gradient."""
+    return _ScatterTilesGlobal.apply(tiles, ids, batch, grid, use_kernel)

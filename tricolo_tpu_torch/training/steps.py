@@ -1,9 +1,10 @@
 """The train step.
 
-Port of ``tricolo_tpu.training.steps.make_train_step``: normalise the
-images, run the forward in train mode under the compute dtype (bf16
-autocast when ``precision.compute_dtype=bfloat16``, as ``inference.eval_step``
-does), compute the pairwise contrastive losses in f32 outside autocast,
+Port of ``tricolo_tpu.training.steps.make_train_step``: prepare the device
+batch (normalise the images, densify packed or dense voxels), run the
+forward in train mode under the compute dtype (bf16 autocast when
+``precision.compute_dtype=bfloat16``, as ``inference.eval_step`` does),
+compute the pairwise contrastive losses in f32 outside autocast,
 backpropagate, set the step's learning rate and take one Adam step. BN
 running statistics are updated by the forward (``models/voxel_cnn.py``,
 ``models/resnet.py``).
@@ -13,8 +14,7 @@ from __future__ import annotations
 
 from typing import Callable
 
-from ..data.device_prep import normalize_images
-from ..inference import autocast
+from ..inference import autocast, prepare_inputs
 from ..losses import make_loss_fn, pairwise_losses
 
 
@@ -27,9 +27,7 @@ def make_train_step(model, optimizer, cfg, use_kernels: bool = True) -> Callable
 
     def train_step(batch: dict, lr: float) -> dict:
         model.train()
-        inputs = dict(batch)
-        if "images" in inputs:
-            inputs["images"] = normalize_images(inputs["images"], model.compute_dtype)
+        inputs = prepare_inputs(model, batch)
         with autocast(model, batch["tokens"].device.type):
             output = model(inputs)
         output = {k: v.float() for k, v in output.items()}

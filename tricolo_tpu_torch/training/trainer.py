@@ -8,6 +8,11 @@ at the end one checkpoint: ``torch.save`` of the model's state_dict as
 ``{checkpoint_monitor.dirpath}/epoch={N}.pt``, the format
 ``RetrievalServer.from_checkpoint`` reads — so training feeds serving.
 
+Before the first epoch, ``_check_tile_budget`` warns when the first
+train batch holds more active tiles than the static tile budget of the
+device-side compactions (the dense-input plan, the full windowed transfer)
+— those batches lose their highest tiles.
+
 Not ported yet: top-k checkpoint retention, async saves, resume, the
 metrics logger and validation losses.
 """
@@ -16,6 +21,7 @@ from __future__ import annotations
 
 import os
 import time
+import warnings
 from collections import defaultdict
 
 import numpy as np
@@ -24,6 +30,7 @@ import torch
 from ..evaluation import compute_metrics
 from ..inference import collect_embeddings, resolve_device, to_device_batch
 from ..models.tricolo_net import TriCoLoNet
+from ..ops.tile_sparse import host_tile_count, tile_budget
 from .optim import lr_for_epoch, make_optimizer
 from .steps import make_train_step
 
@@ -52,6 +59,50 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _check_tile_budget(self, loader) -> None:
+        """Warn when the tile-sparse budget looks too small for the data.
+
+        The dense-input plan and the full windowed transfer keep at most
+        ``tile_budget(tile_budget_frac, B, tg³)`` active tiles a batch and
+        drop the highest-index ones past it; one real batch's exact tile
+        count is a cheap canary. windowed_compact is the loader's concern
+        (``tile_budget=auto`` cannot truncate; an explicit budget follows
+        ``data.tile_overflow``), and its batches fall through here."""
+        cfg = self.cfg
+        voxel_cfg = cfg.model.modules.VoxelCNNEncoder
+        transfer = str(cfg.data.get("voxel_transfer", "windowed_compact"))
+        windowed = transfer.startswith("windowed")
+        if cfg.model.voxel_encoder is None or not voxel_cfg.get("masked_bn", False):
+            return
+        if not (voxel_cfg.get("tile_sparse", False) or windowed) or transfer == "windowed_compact":
+            return
+        sample = loader.peek()
+        voxel_size = cfg.data.voxel_size
+        tg = voxel_size // 8
+        if "voxel_tile_occ" in sample:
+            batch = sample["voxel_tile_occ"].shape[0] // tg**3
+            need = int(np.asarray(sample["voxel_tile_occ"]).sum())
+        elif "voxel_flat" in sample:
+            batch = len(sample["voxel_flat"])
+            need = host_tile_count(sample["voxel_flat"], voxel_size)
+        elif "voxel_grid" in sample:
+            grid = np.asarray(sample["voxel_grid"])
+            batch = grid.shape[0]
+            tiled = grid.reshape(batch, tg, 8, tg, 8, tg, 8)
+            need = int(np.any(tiled != 0, axis=(2, 4, 6)).sum())
+        else:
+            return
+        frac = float(voxel_cfg.get("tile_budget_frac", 0.5))
+        budget = tile_budget(frac, batch, tg**3)
+        if need > budget:
+            warnings.warn(
+                f"tile_sparse budget {budget} (tile_budget_frac={frac}) is smaller "
+                f"than the {need} active tiles in the first batch — highest-index "
+                "tiles will be dropped. Raise model.modules.VoxelCNNEncoder."
+                "tile_budget_frac.",
+                stacklevel=2,
+            )
+
     def fit(self, data_module) -> str:
         cfg = self.cfg
         np.random.seed(cfg.train_seed)
@@ -60,6 +111,7 @@ class Trainer:
         self._timers["data_load"] += time.perf_counter() - tic
         train_loader = data_module.train_loader()
         val_loader = data_module.val_loader()
+        self._check_tile_budget(train_loader)
         val_every = cfg.trainer.check_val_every_n_epoch
         last = cfg.trainer.max_epochs - 1
         for epoch in range(cfg.trainer.max_epochs):

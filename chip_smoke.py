@@ -10,9 +10,12 @@ Phases (any failure exits non-zero and prints no result line):
    sources at once (K1-K7);
 3. kernels — each against its plain PyTorch version on the card, timed
    beside its bound: K1 (bn_relu_pool) at the five flagship voxel-block
-   shapes and K2 (scatter_tiles_ps) at the block-2 handoff, in f32 and bf16,
-   bit-exact; K3 (bn_relu_pool_bwd) at the same five shapes, in f32 and
-   bf16, on K1's argmax of inputs with ties and dead windows, bit-exact;
+   shapes and the dense plan's two tile-sparse blocks, idx off and on, in
+   f32 and bf16, bit-exact, timed in both forms (eval: idx off; train: idx
+   on), and K2 (scatter_tiles_ps) at the block-2 handoff, in f32 and bf16,
+   bit-exact (its bound reads only the rows with a valid id); K3
+   (bn_relu_pool_bwd) at the five flagship shapes, in f32 and bf16, on
+   K1's argmax of inputs with ties and dead windows, bit-exact;
    K4-K6 (nt_xent_fwd / _bwd_rows / _bwd_cols) at B = 128 and 8192, D = 512,
    f32, within ``NT_XENT_TOL``·max|plain|; K7 (gather_tiles) at the dense
    plan's four gathers and K2's global entry (scatter_tiles_global) at its
@@ -49,8 +52,10 @@ Phases (any failure exits non-zero and prints no result line):
     K2-global 4, K1 5, K3 5, K4-K6 6, per-sample K2 0), the f32 step
     kernel-vs-plain with phase 9's tolerances, a profiled step;
 10c. a diagnostic beside the main path: the windowed and dense-plan train
-    steps with ``VoxelCNNEncoder.explicit_dgrad`` off and on, and block 2's
-    input gradient alone both ways with the kernels that compute it;
+    steps with ``VoxelCNNEncoder.explicit_dgrad`` off and on, a profile of
+    one explicit-dgrad dense-plan step (top device kernels and operators,
+    idle share, the port kernels' share), and block 2's input gradient alone
+    both ways with the kernels that compute it;
 11. the kernels line (all eight wrappers), then the card line, then
     ``{"ok": true, ...}``.
 
@@ -189,11 +194,15 @@ def k1_inputs(torch, shape, dtype, two_masks, gen):
 
 
 def check_k1(torch, shapes, flush):
+    """K1 against its plain version, bit-exact in f32 and bf16 with idx off
+    and on; timed in bf16 in both forms: eval (idx off, serving) and train
+    (idx on, the train step's). Rows of ``plan`` windowed_compact in the
+    eval form are the kernels line's total, as in earlier runs."""
     from tricolo_tpu_torch.ops import bn_relu_pool, bn_relu_pool_plain
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     max_err, rows = 0.0, []
-    for name, shape, two in shapes:
+    for plan, name, shape, two in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             args = k1_inputs(torch, shape, dtype, two, gen)
             for want_idx in (False, True):
@@ -203,24 +212,31 @@ def check_k1(torch, shapes, flush):
                 for a, b in zip(got, ref):
                     err = (a.float() - b.float()).abs().max().item()
                     max_err = max(max_err, err)
-                    require(torch.equal(a, b), f"K1 {name} {dtype} idx={want_idx}: "
+                    require(torch.equal(a, b), f"K1 {plan} {name} {dtype} idx={want_idx}: "
                             f"kernel != plain (max err {err})")
                 del got, ref
-            if dtype == torch.bfloat16:  # the main path's dtype, idx off
-                y, mul, add, zmask, smask = args
-                pooled_shape = (shape[0], shape[1] // 2, shape[2] // 2, shape[3] // 2)
-                out_bytes = (
-                    (torch.Size(pooled_shape).numel() * (shape[4] + 1)) * y.element_size()
-                )
-                bound = (nbytes(y, zmask, smask) + out_bytes) / HBM_BYTES_PER_S * 1e3
-                ms = time_ms(lambda: bn_relu_pool(*args), torch, flush=flush)
-                plain = time_ms(lambda: bn_relu_pool_plain(*args), torch, repeats=5,
-                                flush=flush)
-                rows.append({"block": name, "shape": list(shape), "dtype": "bf16",
-                             "ms": ms, "plain_ms": plain, "bound_ms": bound})
-                log(f"  K1 {name:7s} {tuple(shape)} bf16: {ms:.4f} ms "
-                    f"(plain {plain:.4f} ms, bound {bound:.4f} ms)")
-            del args
+            if dtype != torch.bfloat16:  # the main path's dtype is timed
+                del args
+                torch.cuda.empty_cache()
+                continue
+            y, mul, add, zmask, smask = args
+            pooled = torch.Size((shape[0], shape[1] // 2, shape[2] // 2, shape[3] // 2)).numel()
+            out_bytes = pooled * (shape[4] + 1) * y.element_size()
+            for form, want_idx in (("eval", False), ("train", True)):
+                idx_bytes = pooled * shape[4] if want_idx else 0  # uint8
+                bound = ((nbytes(y, zmask, smask) + out_bytes + idx_bytes)
+                         / HBM_BYTES_PER_S * 1e3)
+                ms = time_ms(lambda: bn_relu_pool(*args, want_idx=want_idx), torch,
+                             flush=flush)
+                plain = time_ms(lambda: bn_relu_pool_plain(*args, want_idx=want_idx), torch,
+                                repeats=5, flush=flush)
+                rows.append({"plan": plan, "block": name, "form": form, "shape": list(shape),
+                             "masks": 2 if two else 1, "dtype": "bf16", "ms": ms,
+                             "plain_ms": plain, "bound_ms": bound,
+                             "main": plan == "windowed_compact" and form == "eval"})
+                log(f"  K1 {plan:16s} {name:6s} {form:5s} {tuple(shape)} bf16: {ms:.4f} ms "
+                    f"(plain {plain:.4f} ms, bound {bound:.4f} ms, {bound / ms:.0%} of bound)")
+            del args, y, mul, add, zmask, smask
             torch.cuda.empty_cache()
     return max_err, rows
 
@@ -230,6 +246,7 @@ def check_k2(torch, ids, grid, flush):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     B, k = ids.shape
+    n_valid = int(((ids >= 0) & (ids < (grid // 2) ** 3)).sum())
     max_err, rows = 0.0, []
     for C, name in ((64, "x"), (1, "mask")):
         for dtype in (torch.float32, torch.bfloat16):
@@ -241,15 +258,18 @@ def check_k2(torch, ids, grid, flush):
             max_err = max(max_err, err)
             require(torch.equal(got, ref), f"K2 C={C} {dtype}: kernel != plain ({err})")
             if dtype == torch.bfloat16:
-                bound = nbytes(tiles, ids, got) / HBM_BYTES_PER_S * 1e3
+                # Only the rows with a valid id are read (padding rows never).
+                read = n_valid * tiles[0, 0].numel() * tiles.element_size()
+                bound = (read + nbytes(ids, got)) / HBM_BYTES_PER_S * 1e3
                 ms = time_ms(lambda: scatter_tiles_ps(tiles, ids, grid), torch, flush=flush)
                 plain = time_ms(lambda: scatter_tiles_ps_plain(tiles, ids, grid), torch,
                                 repeats=5, flush=flush)
                 rows.append({"tensor": name, "shape": list(tiles.shape), "grid": grid,
-                             "dtype": "bf16", "ms": ms, "plain_ms": plain,
-                             "bound_ms": bound})
-                log(f"  K2 {name:4s} {tuple(tiles.shape)} -> {grid}^3 bf16: {ms:.4f} ms "
-                    f"(plain {plain:.4f} ms, bound {bound:.4f} ms)")
+                             "valid_rows": n_valid, "dtype": "bf16", "ms": ms,
+                             "plain_ms": plain, "bound_ms": bound})
+                log(f"  K2 {name:4s} {tuple(tiles.shape)} ({n_valid} valid rows) -> {grid}^3 "
+                    f"bf16: {ms:.4f} ms (plain {plain:.4f} ms, bound {bound:.4f} ms, "
+                    f"{bound / ms:.0%} of bound)")
     return max_err, rows
 
 
@@ -416,7 +436,7 @@ def check_k2_global(torch, cases, ids, n_active, batch, flush):
                 rows.append({"tensor": name, "shape": list(tiles.shape), "grid": grid,
                              "dtype": "bf16", "ms": ms, "plain_ms": plain, "bound_ms": bound})
                 log(f"  K2g {name:8s} {tuple(tiles.shape)} -> {grid}^3 bf16: {ms:.4f} ms "
-                    f"(plain {plain:.4f} ms, bound {bound:.4f} ms)")
+                    f"(plain {plain:.4f} ms, bound {bound:.4f} ms, {bound / ms:.0%} of bound)")
             del tiles, got, ref
             torch.cuda.empty_cache()
     return max_err, rows
@@ -595,7 +615,7 @@ def profile_step(torch, step, batch, lr) -> dict:
                 "port_kernels_ms": None, "top": []}
     # The port's kernels by their device function names (csrc/*.cu).
     names = {"K1": ("::bn_relu_pool_kernel",),
-             "K2": ("::gather_kernel", "::inverse_kernel", "::inverse_global_kernel"),
+             "K2": ("::scatter_pass_kernel", "::inverse_kernel", "::inverse_global_kernel"),
              "K3": ("::bn_relu_pool_bwd_kernel",), "K4": ("::nt_xent_fwd_kernel",),
              "K5-K6": ("::nt_xent_bwd_kernel",), "K7": ("::tile_gather_kernel",)}
     ours = dict.fromkeys(names, 0.0)
@@ -825,7 +845,8 @@ def explicit_dgrad_diagnostic(torch, trainer, step, batch, dense_trainer, dense_
                               dense_batch, rows, card):
     """Beside the main path: the windowed and the dense-plan train steps
     with ``VoxelCNNEncoder.explicit_dgrad`` off and on (CUDA-event medians,
-    in turns), and block 2's input gradient alone both ways."""
+    in turns), a profile of one explicit-dgrad dense-plan step, and block
+    2's input gradient alone both ways."""
     out = {}
     lr = trainer.cfg.optimizer.lr
     for label, tr, fn, b in (("windowed_compact", trainer, step, batch),
@@ -841,6 +862,23 @@ def explicit_dgrad_diagnostic(torch, trainer, step, batch, dense_trainer, dense_
                       "runs": {"default": times[False], "explicit": times[True]}}
         log(f"explicit_dgrad, {label} train step: default {out[label]['default_ms']:.3f} ms, "
             f"explicit {out[label]['explicit_ms']:.3f} ms [{card}]")
+    # Where an explicit-dgrad dense-plan step spends its device time.
+    enc = dense_trainer.model.voxel_encoder
+    enc.explicit_dgrad = True
+    dense_step(dense_batch, lr)  # warm
+    out["dense_plan"]["explicit_profile"] = prof = profile_step(torch, dense_step, dense_batch,
+                                                                lr)
+    enc.explicit_dgrad = False
+    if prof["device_busy_ms"]:
+        prof["port_kernels_share_of_busy"] = {
+            k: v / prof["device_busy_ms"] for k, v in prof["port_kernels_ms"].items()}
+    log(f"profiled explicit-dgrad dense-plan train step: device busy {prof['device_busy_ms']} "
+        f"ms of {prof['wall_ms']:.3f} ms wall, idle share {prof['device_idle_share']}, port "
+        f"kernels {prof['port_kernels_ms']} [{card}]")
+    for row in prof["top"][:15]:
+        log(f"    {row['device_ms']:9.3f} ms x{row['count']:<4d} {row['name'][:90]}")
+    for row in prof["top_ops"][:8]:
+        log(f"    {row['device_ms']:9.3f} ms x{row['count']:<4d} {row['op']} {row['shapes']}")
     flush = make_flush(torch)
     out["block2_dgrad"] = alone = block2_dgrad(torch, rows, flush)
     for name in ("transposed", "explicit"):
@@ -920,16 +958,22 @@ def main() -> int:
     tic = time.perf_counter()
     flush = make_flush(torch)
     k1_shapes = [
-        ("block1", (T, 12, 12, 12, 32), True),
-        ("block2", (T, 4, 4, 4, 64), False),
-        ("block3", (B, 16, 16, 16, 128), False),
-        ("block4", (B, 8, 8, 8, 256), False),
-        ("block5", (B, 4, 4, 4, 512), False),
+        ("windowed_compact", "block1", (T, 12, 12, 12, 32), True),
+        ("windowed_compact", "block2", (T, 4, 4, 4, 64), False),
+        ("windowed_compact", "block3", (B, 16, 16, 16, 128), False),
+        ("windowed_compact", "block4", (B, 8, 8, 8, 256), False),
+        ("windowed_compact", "block5", (B, 4, 4, 4, 512), False),
+        # The dense-input plan's tile-sparse blocks: VALID convs on the
+        # budget's rows, one mask (blocks 3-5 are the shapes above).
+        ("dense_plan", "block1", (budget, 8, 8, 8, 32), False),
+        ("dense_plan", "block2", (budget, 4, 4, 4, 64), False),
     ]
     k1_err, k1_rows = check_k1(torch, k1_shapes, flush)
     ids = torch.from_numpy(first["voxel_row_ids"]).cuda()
     k2_err, k2_rows = check_k2(torch, ids, cfg.data.voxel_size // 4, flush)
-    k3_err, k3_rows = check_k3(torch, k1_shapes, flush)
+    k3_shapes = [(name, shape, two) for plan, name, shape, two in k1_shapes
+                 if plan == "windowed_compact"]
+    k3_err, k3_rows = check_k3(torch, k3_shapes, flush)
     nt_errs, nt_rows = check_nt_xent(torch, [(B, cfg.model.out_dim), (8192, cfg.model.out_dim)],
                                      flush)
     # K7 and K2's global entry at the dense-input plan's shapes, on the active
@@ -1191,14 +1235,15 @@ def main() -> int:
     def on_paths(name):
         return sum(both(name).values())
 
+    k1_main = [r for r in k1_rows if r["main"]]
     kernels = [
         {"name": "bn_relu_pool", "route": "cuda",
          "source": "tricolo_tpu_torch/csrc/bn_relu_pool.cu",
          "replaces": "tricolo_tpu/ops/fused_bn_pool.py:99",
          "launches": on_paths("bn_relu_pool"),
          "launches_by_path": both("bn_relu_pool"), "max_abs_err": k1_err,
-         "ms": total(k1_rows, "ms"), "plain_ms": total(k1_rows, "plain_ms"),
-         "bound_ms": total(k1_rows, "bound_ms"), "bound_by": "bytes",
+         "ms": total(k1_main, "ms"), "plain_ms": total(k1_main, "plain_ms"),
+         "bound_ms": total(k1_main, "bound_ms"), "bound_by": "bytes",
          "library_ms": None, "shapes": k1_rows},
         {"name": "scatter_tiles_ps", "route": "cuda",
          "source": "tricolo_tpu_torch/csrc/tile_scatter.cu",

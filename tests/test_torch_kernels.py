@@ -1,7 +1,9 @@
 """The port's CUDA kernels and their wrappers, without JAX.
 
-On the CPU: the plain versions' edge cases and the wrappers' dispatch
-(CPU tensors take the plain version and launch nothing). On a card
+On the CPU: the plain versions' edge cases, the wrappers' dispatch (CPU
+tensors take the plain version and launch nothing) and the launch plans of
+K1 and K2 (vector width from shapes and addresses, the guards of their
+32-bit index math). On a card
 (``-m cuda``): each kernel against its plain version — K1-K3, K7 and both
 K2 entries bit-exact in f32 and bf16, K4-K6 (f32 sums in another order)
 within ``NT_XENT_TOL · max|plain|`` — and the wrappers' refusals: a CUDA
@@ -87,14 +89,14 @@ def _nt_inputs(B, D, seed, device):
     return zi, zj, lse, scale
 
 
-def _k2_inputs(B, k, C, grid, seed, dtype, device):
+def _k2_inputs(B, k, C, grid, seed, dtype, device, t=2):
     rng = np.random.default_rng(seed)
-    tg3 = (grid // 2) ** 3
+    tg3 = (grid // t) ** 3
     ids = np.full((B, k), tg3, np.int32)
     for b in range(B - 1):  # the last sample has no tile
-        n = int(rng.integers(1, k + 1))
+        n = int(rng.integers(1, min(k, tg3) + 1))
         ids[b, :n] = np.sort(rng.choice(tg3, n, replace=False))
-    tiles = torch.tensor(rng.normal(size=(B, k, 2, 2, 2, C)), dtype=dtype, device=device)
+    tiles = torch.tensor(rng.normal(size=(B, k, t, t, t, C)), dtype=dtype, device=device)
     return tiles, torch.tensor(ids, device=device)
 
 
@@ -235,6 +237,72 @@ def test_wrappers_reject_other_devices():
         nt_xent_bwd_cols(zj, zi, lse, scale, INV_TAU)
 
 
+def _shifted(t, elems):
+    """A contiguous copy of ``t`` that starts ``elems`` elements past an
+    aligned address."""
+    flat = torch.zeros(t.numel() + elems, dtype=t.dtype, device=t.device)
+    view = flat[elems:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize(
+    "t,C,dtype,shift,want",
+    [(2, 64, "bfloat16", 0, 16), (4, 32, "bfloat16", 0, 16), (1, 128, "float32", 0, 16),
+     (4, 1, "bfloat16", 0, 8), (2, 1, "bfloat16", 0, 4), (2, 1, "float32", 0, 8),
+     (1, 1, "bfloat16", 0, 2), (1, 3, "float32", 0, 4), (2, 3, "bfloat16", 0, 4),
+     (2, 64, "bfloat16", 1, 2), (2, 64, "bfloat16", 4, 8), (2, 64, "float32", 1, 4),
+     (2, 64, "float32", 2, 8)],
+)
+def test_scatter_launch_plan_vector_width(t, C, dtype, shift, want):
+    """K2's copy width: the widest of 16/8/4/2 bytes dividing the tile's
+    x-run (t·C·elem) and the tiles' address."""
+    from tricolo_tpu_torch.ops.tile_scatter import launch_plan
+
+    tiles = _shifted(torch.zeros(3, t, t, t, C, dtype=getattr(torch, dtype)), shift)
+    assert launch_plan(2, 3, t, 4 * t, C, tiles.element_size(), tiles) == want
+
+
+@pytest.mark.parametrize(
+    "C,dtype,shift,want",
+    [(32, "bfloat16", 0, 8), (64, "bfloat16", 0, 8), (512, "float32", 0, 4),
+     (8, "float32", 0, 4), (3, "bfloat16", 0, 1), (3, "float32", 0, 1), (4, "bfloat16", 0, 4),
+     (2, "float32", 0, 2), (6, "bfloat16", 0, 2), (32, "bfloat16", 1, 1),
+     (32, "bfloat16", 2, 2), (32, "float32", 2, 2)],
+)
+def test_pool_launch_plan_channels_a_thread(C, dtype, shift, want):
+    """K1's channels a thread: 8 bf16 or 4 f32 (16 bytes) where C and the
+    addresses of y, mul and add allow, narrower down to one channel."""
+    from tricolo_tpu_torch.ops.bn_relu_pool import launch_plan
+
+    y = _shifted(torch.zeros(1, 2, 2, 2, C, dtype=getattr(torch, dtype)), shift)
+    mul = torch.ones(C, dtype=y.dtype)
+    assert launch_plan(y.shape, y.element_size(), y, mul, mul) == want
+
+
+@pytest.mark.parametrize(
+    "plan,over,under",
+    [("pool", ((2**28, 2, 2, 2, 32), 2), ((2**27, 2, 2, 2, 32), 2)),  # 2^31 sites
+     # 2^27 sites: 2^31 threads of 4 f32 channels
+     ("pool", ((2**21, 4, 4, 4, 512), 4), ((2**20, 4, 4, 4, 512), 4)),
+     # per-sample or global: 2^22·8³ tiles
+     ("scatter", (2**22, 1, 4, 32, 32, 2), (2**21, 1, 4, 32, 32, 2)),
+     ("scatter", (128, 2**31, 2, 16, 64, 2), (128, 2**31 - 1, 2, 16, 64, 2)),  # rows
+     # a 4-plane slab of a 2048² × 128 f32 grid holds 2^33 bytes
+     ("scatter", (1, 1, 4, 2048, 128, 4), (1, 1, 4, 512, 128, 4))],
+)
+def test_launch_plans_refuse_32bit_overflow(plan, over, under):
+    """Each kernel's 32-bit index math has a guard in its wrapper's launch
+    plan; just below it the plan passes."""
+    from tricolo_tpu_torch.ops.bn_relu_pool import launch_plan as pool_plan
+    from tricolo_tpu_torch.ops.tile_scatter import launch_plan as scatter_plan
+
+    fn = pool_plan if plan == "pool" else scatter_plan
+    with pytest.raises(ValueError, match="2\\^31"):
+        fn(*over)
+    assert fn(*under) >= 1
+
+
 # ---------------------------------------------------------------- card
 
 
@@ -242,7 +310,8 @@ def test_wrappers_reject_other_devices():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
     "shape,two", [((64, 12, 12, 12, 32), True), ((64, 4, 4, 4, 64), False),
-                  ((8, 16, 16, 16, 128), False), ((8, 4, 4, 4, 512), False)]
+                  ((8, 16, 16, 16, 128), False), ((8, 4, 4, 4, 512), False),
+                  ((64, 8, 8, 8, 32), False)]
 )
 def test_cuda_bn_relu_pool_matches_plain(dtype, shape, two):
     _need_cuda()
@@ -253,6 +322,40 @@ def test_cuda_bn_relu_pool_matches_plain(dtype, shape, two):
         torch.cuda.synchronize()
         assert bn_relu_pool.launches == before + 1
         for a, b in zip(got, bn_relu_pool_plain(*args, want_idx=want_idx)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("C", [3, 8, 32, 64, 512])
+def test_cuda_bn_relu_pool_every_channel_plan(C, two, dtype):
+    """K1 at channel counts that take 16-byte, narrower and one-channel
+    plans, one and two masks, idx off and on; quantized inputs hold ties,
+    the masks all-zero windows."""
+    _need_cuda()
+    args = _k1_inputs((3, 4, 6, 4, C), C, getattr(torch, dtype), "cuda", two)
+    for want_idx in (False, True):
+        got = bn_relu_pool(*args, want_idx=want_idx)
+        torch.cuda.synchronize()
+        for a, b in zip(got, bn_relu_pool_plain(*args, want_idx=want_idx)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shift", [1, 2])
+def test_cuda_bn_relu_pool_unaligned_view(dtype, shift):
+    """Activations and mul starting 1 or 2 elements past an aligned
+    address take a narrower plan and stay exact."""
+    _need_cuda()
+    y, mul, add, zmask, smask = _k1_inputs((2, 4, 4, 4, 32), 6, getattr(torch, dtype), "cuda",
+                                           True)
+    view, mul_view = _shifted(y, shift), _shifted(mul, shift)
+    assert view.data_ptr() % 16
+    for want_idx in (False, True):
+        got = bn_relu_pool(view, mul_view, add, zmask, smask, want_idx=want_idx)
+        for a, b in zip(got, bn_relu_pool_plain(y, mul, add, zmask, smask, want_idx=want_idx)):
             assert torch.equal(a, b)
 
 
@@ -351,6 +454,75 @@ def test_cuda_scatter_tiles_global_matches_plain(dtype, B, G, C, t):
     torch.cuda.synchronize()
     assert scatter_tiles_global.launches == before + 1
     assert torch.equal(got, scatter_tiles_global_plain(tiles, ids, B, G))
+
+
+def _scatter_case(entry, C, t, seed, dtype):
+    """(kernel, plain, inputs) of one K2 entry on a 4t-edge grid of 3
+    samples: 10 rows a sample (per-sample) or 40 global ids + 3 padding."""
+    if entry == "per_sample":
+        tiles, ids = _k2_inputs(3, 10, C, 4 * t, seed, dtype, "cuda", t)
+        return scatter_tiles_ps, scatter_tiles_ps_plain, (tiles, ids, 4 * t)
+    tiles, ids = _k2g_inputs(3, 4 * t, C, t, seed, dtype, "cuda")
+    return scatter_tiles_global, scatter_tiles_global_plain, (tiles, ids, 3, 4 * t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [1, 2, 4])
+@pytest.mark.parametrize("C", [1, 3, 32, 64, 128])
+@pytest.mark.parametrize("entry", ["per_sample", "global"])
+def test_cuda_scatter_tiles_every_vector_plan(entry, C, t, dtype):
+    """Both K2 entries at every channel count and tile edge the voxel plans
+    hand over (t = 1 is the third sparse block's): x-runs of 2 to 1024
+    bytes, copies of 2 to 16 bytes."""
+    _need_cuda()
+    kernel, plain, args = _scatter_case(entry, C, t, 100 * t + C, getattr(torch, dtype))
+    before = kernel.launches
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = plain(*args)
+    assert torch.equal(got, ref)
+    assert (ref == 0).any() and (ref != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("entry", ["per_sample", "global"])
+def test_cuda_scatter_tiles_unaligned_view(entry, dtype):
+    """Tiles starting one element past an aligned address take the
+    narrowest copy and stay exact."""
+    _need_cuda()
+    kernel, plain, args = _scatter_case(entry, 64, 2, 3, getattr(torch, dtype))
+    view = _shifted(args[0], 1)
+    assert view.data_ptr() % 16
+    assert torch.equal(kernel(view, *args[1:]), plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_scatter_tiles_empty_cases(dtype):
+    """All-padding ids (past the grid and negative), no rows (k = 0,
+    T = 0) and no samples (B = 0): zero grids of the right shape."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    tiles = torch.ones((2, 3, 2, 2, 2, 32), dtype=dt, device="cuda")
+    ids = torch.tensor([[64, -1, 70], [-5, 64, 99]], dtype=torch.int32, device="cuda")
+    out = scatter_tiles_ps(tiles, ids, 8)
+    assert torch.equal(out, scatter_tiles_ps_plain(tiles, ids, 8))
+    assert out.shape == (2, 8, 8, 8, 32) and not out.any()
+    out = scatter_tiles_ps(tiles[:, :0].contiguous(), ids[:, :0].contiguous(), 8)
+    assert out.shape == (2, 8, 8, 8, 32) and not out.any()
+    assert scatter_tiles_ps(tiles[:0], ids[:0], 8).shape == (0, 8, 8, 8, 32)
+    gtiles = tiles.reshape(6, 2, 2, 2, 32)
+    gids = torch.tensor([128, -1, 200, 128, -7, 1000], dtype=torch.int32, device="cuda")
+    out = scatter_tiles_global(gtiles, gids, 2, 8)
+    assert torch.equal(out, scatter_tiles_global_plain(gtiles, gids, 2, 8))
+    assert out.shape == (2, 8, 8, 8, 32) and not out.any()
+    out = scatter_tiles_global(gtiles[:0], gids[:0], 2, 8)
+    assert out.shape == (2, 8, 8, 8, 32) and not out.any()
+    assert scatter_tiles_global(gtiles, gids, 0, 8).shape == (0, 8, 8, 8, 32)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -14,110 +14,217 @@
 // Bound: memory. Per pooled element it reads 8 activations and writes one;
 // there are ~4 flops per activation, far below the ~295 flop/byte where the
 // H100 stops being bandwidth-bound. The least time is
-// (bytes of y + masks + pooled + pooled mask [+ idx]) / 3.35 TB/s.
+// (bytes of y + masks + pooled + pooled mask [+ idx]) / 3.35 TB/s (H100 SXM
+// data sheet).
 //
-// Design: one thread per pooled (n, d2, h2, w2, c), neighbouring threads on
-// neighbouring channels, so each of the 8 window reads of a warp is one
-// contiguous segment (C >= 32 on every voxel block) and each y byte is read
-// once. The mask of a site is the same for all channels: a warp's mask reads
-// are broadcasts, and only the c == 0 lane writes the pooled mask. A
-// grid-stride loop covers any size. No shared memory, no atomics: every
-// output is written exactly once, so the result is deterministic.
+// Design: one thread per (pooled site, group of VE channels), neighbouring
+// threads on neighbouring groups, then neighbouring sites. VE (8 bf16 or
+// 4 f32 for a 16-byte vector; 4/2/1 or 2/1 for narrower ones) is the widest
+// that divides C and the alignment of y, mul, add and pooled; the wrapper
+// picks it, and VE = 1 is the scalar plan for any C. Each thread decomposes
+// its pooled site once in 32-bit math (the wrapper keeps site and item
+// counts below 2^31; element offsets are 64-bit), keeps its VE mul/add
+// values in registers, and for each of the 8 window sites issues one
+// VE-wide load of y and one load of the site's zero mask. It writes the
+// pooled values as one VE-wide store and, when asked, the VE argmax bytes as
+// one store. The group-0 thread of each site writes the pooled mask after the
+// channel work, from the zero-mask values it holds (one mask) or 8 loads of
+// the stats mask (two masks). No shared memory, no atomics: every output is
+// written exactly once, so the result is deterministic.
 //
 // Rounding mirrors the plain PyTorch version op for op: in bf16 the product
 // and the sum are each rounded to bf16 (__fmul_rn / __fadd_rn keep nvcc from
-// contracting them into one FMA), so the kernel is bit-exact against
-// tricolo_tpu_torch.ops.bn_relu_pool.bn_relu_pool_plain in f32 and bf16.
+// contracting them into one FMA), then ReLU, then the mask product, rounded
+// again; the argmax is the strict > first max in r order. So the kernel is
+// bit-exact against tricolo_tpu_torch.ops.bn_relu_pool.bn_relu_pool_plain in
+// f32 and bf16. Values move as raw bits (bf16 widens by a 16-bit shift).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
-template <typename T>
-struct Num;
+// 128 threads a block: in a trial of 32 to 512 on an H100 80GB HBM3 at
+// 700 W, 64 and 128 were the fastest at every flagship shape (PERF.md).
+constexpr int kThreads = 128;
 
+template <int BYTES>
+struct Raw;
 template <>
-struct Num<float> {
-  __device__ static float load(float v) { return v; }
+struct Raw<16> { using type = uint4; };
+template <>
+struct Raw<8> { using type = uint2; };
+template <>
+struct Raw<4> { using type = uint32_t; };
+template <>
+struct Raw<2> { using type = uint16_t; };
+template <>
+struct Raw<1> { using type = uint8_t; };
+
+struct F32 {
+  using Bits = uint32_t;
+  __device__ static float load(Bits v) { return __uint_as_float(v); }
   __device__ static float round(float v) { return v; }
-  __device__ static float store(float v) { return v; }
+  __device__ static Bits store(float v) { return __float_as_uint(v); }
 };
 
-template <>
-struct Num<__nv_bfloat16> {
-  __device__ static float load(__nv_bfloat16 v) { return __bfloat162float(v); }
+struct BF16 {
+  using Bits = uint16_t;
+  __device__ static float load(Bits v) { return __uint_as_float((uint32_t)v << 16); }
   __device__ static float round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
-  __device__ static __nv_bfloat16 store(float v) { return __float2bfloat16_rn(v); }
+  __device__ static Bits store(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
 };
 
-template <typename T>
-__global__ void bn_relu_pool_kernel(const T* __restrict__ y,
-                                    const T* __restrict__ mul,
-                                    const T* __restrict__ add,
-                                    const T* __restrict__ zero_mask,
-                                    const T* __restrict__ stats_mask,
-                                    T* __restrict__ pooled,
-                                    T* __restrict__ pooled_mask,
-                                    uint8_t* __restrict__ idx,
-                                    int64_t total, int D2, int H2, int W2,
-                                    int C) {
-  const int64_t H = 2 * (int64_t)H2, W = 2 * (int64_t)W2, D = 2 * (int64_t)D2;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < total;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const int c = (int)(i % C);
-    const int64_t p = i / C;  // pooled site
-    const int64_t w2 = p % W2;
-    int64_t q = p / W2;
-    const int64_t h2 = q % H2;
-    q /= H2;
-    const int64_t d2 = q % D2;
-    const int64_t n = q / D2;
-    const float m = Num<T>::load(mul[c]);
-    const float b = Num<T>::load(add[c]);
-    float best = 0.f, mbest = 0.f;
-    int arg = 0;
+// VE consecutive elements at p, as one vector load.
+template <typename Bits, int VE>
+__device__ inline void load_vec(const Bits* __restrict__ p, Bits (&out)[VE]) {
+  using Vec = typename Raw<sizeof(Bits) * VE>::type;
+  const Vec raw = *reinterpret_cast<const Vec*>(p);
+  memcpy(out, &raw, sizeof(raw));
+}
+
+template <typename Bits, int VE>
+__device__ inline void store_vec(Bits* __restrict__ p, const Bits (&in)[VE]) {
+  using Vec = typename Raw<sizeof(Bits) * VE>::type;
+  Vec raw;
+  memcpy(&raw, in, sizeof(raw));
+  *reinterpret_cast<Vec*>(p) = raw;
+}
+
+template <typename Num, int VE>
+__global__ void __launch_bounds__(kThreads)
+    bn_relu_pool_kernel(const typename Num::Bits* __restrict__ y,
+                        const typename Num::Bits* __restrict__ mul,
+                        const typename Num::Bits* __restrict__ add,
+                        const typename Num::Bits* zero_mask,
+                        const typename Num::Bits* stats_mask,
+                        typename Num::Bits* __restrict__ pooled,
+                        typename Num::Bits* __restrict__ pooled_mask,
+                        uint8_t* __restrict__ idx, int items, int groups,
+                        int H2, int W2, int C) {
+  using Bits = typename Num::Bits;
+  const int W = 2 * W2, HW = 4 * H2 * W2;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < items;
+       i += gridDim.x * blockDim.x) {
+    const int p = i / groups;  // pooled site
+    const int c0 = (i - p * groups) * VE;
+    const int w2 = p % W2;
+    const int q = p / W2;
+    const int h2 = q % H2;
+    const int nd = q / H2;  // n*D2 + d2: the window's first plane is 2*nd
+    const int site0 = 2 * nd * HW + 2 * h2 * W + 2 * w2;
+    Bits raw_m[VE], raw_b[VE];
+    load_vec<Bits, VE>(mul + c0, raw_m);
+    load_vec<Bits, VE>(add + c0, raw_b);
+    float m[VE], b[VE], best[VE];
+    uint8_t arg[VE];
+#pragma unroll
+    for (int e = 0; e < VE; ++e) {
+      m[e] = Num::load(raw_m[e]);
+      b[e] = Num::load(raw_b[e]);
+      best[e] = 0.f;
+      arg[e] = 0;
+    }
+    float zm[8];
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
-      const int64_t site =
-          ((n * D + 2 * d2 + (r >> 2)) * H + 2 * h2 + ((r >> 1) & 1)) * W +
-          2 * w2 + (r & 1);
-      float t = Num<T>::round(__fmul_rn(Num<T>::load(y[site * C + c]), m));
-      t = Num<T>::round(__fadd_rn(t, b));
-      t = t > 0.f ? t : 0.f;
-      t = Num<T>::round(__fmul_rn(t, Num<T>::load(zero_mask[site])));
-      if (r == 0 || t > best) {  // strict >: the first max wins
-        best = t;
-        arg = r;
-      }
-      if (c == 0) {
-        const float s = Num<T>::load(stats_mask[site]);
-        mbest = (r == 0 || s > mbest) ? s : mbest;
+      const int site = site0 + (r >> 2) * HW + ((r >> 1) & 1) * W + (r & 1);
+      zm[r] = Num::load(zero_mask[site]);
+      Bits v[VE];
+      load_vec<Bits, VE>(y + (int64_t)site * C + c0, v);
+#pragma unroll
+      for (int e = 0; e < VE; ++e) {
+        float t = Num::round(__fmul_rn(Num::load(v[e]), m[e]));
+        t = Num::round(__fadd_rn(t, b[e]));
+        t = t > 0.f ? t : 0.f;
+        t = Num::round(__fmul_rn(t, zm[r]));
+        if (r == 0 || t > best[e]) {  // strict >: the first max wins
+          best[e] = t;
+          arg[e] = (uint8_t)r;
+        }
       }
     }
-    pooled[i] = Num<T>::store(best);
-    if (idx != nullptr) idx[i] = (uint8_t)arg;
-    if (c == 0) pooled_mask[p] = Num<T>::store(mbest);
+    Bits out[VE];
+#pragma unroll
+    for (int e = 0; e < VE; ++e) out[e] = Num::store(best[e]);
+    const int64_t o = (int64_t)p * C + c0;
+    store_vec<Bits, VE>(pooled + o, out);
+    if (idx != nullptr) {
+      using IdxVec = typename Raw<VE>::type;
+      IdxVec packed;
+      memcpy(&packed, arg, sizeof(packed));
+      *reinterpret_cast<IdxVec*>(idx + o) = packed;
+    }
+    if (c0 == 0) {  // one thread a site: the pooled mask
+      float mbest = 0.f;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        float s = zm[r];
+        if (stats_mask != zero_mask) {
+          s = Num::load(stats_mask[site0 + (r >> 2) * HW + ((r >> 1) & 1) * W +
+                                   (r & 1)]);
+        }
+        mbest = (r == 0 || s > mbest) ? s : mbest;
+      }
+      pooled_mask[p] = Num::store(mbest);
+    }
   }
 }
 
-template <typename T>
+template <typename Num, int VE>
+int launch_ve(const void* y, const void* mul, const void* add,
+              const void* zero_mask, const void* stats_mask, void* pooled,
+              void* pooled_mask, void* idx, int items, int H2, int W2, int C,
+              cudaStream_t stream) {
+  using Bits = typename Num::Bits;
+  const int want = (items + kThreads - 1) / kThreads;
+  const int blocks = want < (1 << 30) ? want : (1 << 30);
+  bn_relu_pool_kernel<Num, VE><<<blocks, kThreads, 0, stream>>>(
+      (const Bits*)y, (const Bits*)mul, (const Bits*)add,
+      (const Bits*)zero_mask, (const Bits*)stats_mask, (Bits*)pooled,
+      (Bits*)pooled_mask, (uint8_t*)idx, items, C / VE, H2, W2, C);
+  return (int)cudaGetLastError();
+}
+
+// vec_elems: channels a thread handles (VE): 8, 4, 2 or 1 in bf16, 4, 2 or
+// 1 in f32, a divisor of C whose VE * elem bytes divide the alignment of y,
+// mul, add, pooled and idx.
+template <typename Num>
 int launch(const void* y, const void* mul, const void* add,
            const void* zero_mask, const void* stats_mask, void* pooled,
            void* pooled_mask, void* idx, long long N, int D2, int H2, int W2,
-           int C, void* stream) {
-  const int64_t total = (int64_t)N * D2 * H2 * W2 * C;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const int64_t want = (total + threads - 1) / threads;
-  const int blocks = (int)(want < (1 << 30) ? want : (1 << 30));
-  bn_relu_pool_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const T*)y, (const T*)mul, (const T*)add, (const T*)zero_mask,
-      (const T*)stats_mask, (T*)pooled, (T*)pooled_mask, (uint8_t*)idx, total,
-      D2, H2, W2, C);
-  return (int)cudaGetLastError();
+           int C, int vec_elems, void* stream) {
+  if (vec_elems <= 0 || C % vec_elems != 0) return (int)cudaErrorInvalidValue;
+  const int64_t pooled_sites = (int64_t)N * D2 * H2 * W2;
+  const int64_t items = pooled_sites * (C / vec_elems);
+  if (8 * pooled_sites >= (1LL << 31) || items >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;  // the 32-bit site math would wrap
+  if (items == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n = (int)items;
+  constexpr bool kF32 = sizeof(typename Num::Bits) == 4;
+  switch (vec_elems) {
+    case 8:
+      if constexpr (!kF32)
+        return launch_ve<Num, 8>(y, mul, add, zero_mask, stats_mask, pooled,
+                                 pooled_mask, idx, n, H2, W2, C, st);
+      break;
+    case 4:
+      return launch_ve<Num, 4>(y, mul, add, zero_mask, stats_mask, pooled,
+                               pooled_mask, idx, n, H2, W2, C, st);
+    case 2:
+      return launch_ve<Num, 2>(y, mul, add, zero_mask, stats_mask, pooled,
+                               pooled_mask, idx, n, H2, W2, C, st);
+    case 1:
+      return launch_ve<Num, 1>(y, mul, add, zero_mask, stats_mask, pooled,
+                               pooled_mask, idx, n, H2, W2, C, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -126,16 +233,18 @@ extern "C" int bn_relu_pool_f32(const void* y, const void* mul,
                                 const void* add, const void* zero_mask,
                                 const void* stats_mask, void* pooled,
                                 void* pooled_mask, void* idx, long long N,
-                                int D2, int H2, int W2, int C, void* stream) {
-  return launch<float>(y, mul, add, zero_mask, stats_mask, pooled, pooled_mask,
-                       idx, N, D2, H2, W2, C, stream);
+                                int D2, int H2, int W2, int C, int vec_elems,
+                                void* stream) {
+  return launch<F32>(y, mul, add, zero_mask, stats_mask, pooled, pooled_mask,
+                     idx, N, D2, H2, W2, C, vec_elems, stream);
 }
 
 extern "C" int bn_relu_pool_bf16(const void* y, const void* mul,
                                  const void* add, const void* zero_mask,
                                  const void* stats_mask, void* pooled,
                                  void* pooled_mask, void* idx, long long N,
-                                 int D2, int H2, int W2, int C, void* stream) {
-  return launch<__nv_bfloat16>(y, mul, add, zero_mask, stats_mask, pooled,
-                               pooled_mask, idx, N, D2, H2, W2, C, stream);
+                                 int D2, int H2, int W2, int C, int vec_elems,
+                                 void* stream) {
+  return launch<BF16>(y, mul, add, zero_mask, stats_mask, pooled, pooled_mask,
+                      idx, N, D2, H2, W2, C, vec_elems, stream);
 }

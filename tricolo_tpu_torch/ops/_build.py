@@ -1,4 +1,5 @@
-"""Build the hand-written CUDA kernels (``csrc/*.cu``) and load them.
+"""Build the hand-written CUDA kernels (``csrc/*.cu``), load them, and the
+helpers their wrappers share at launch.
 
 Each source compiles on its own with
 
@@ -106,6 +107,16 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, _start(name))
             lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def vector_bytes(row_bytes: int, *tensors) -> int:
+    """The widest copy (16, 8, 4 or 2 bytes) that divides ``row_bytes`` and
+    every tensor's address: the vector width of a kernel that moves rows of
+    ``row_bytes`` contiguous bytes."""
+    for v in (16, 8, 4, 2):
+        if row_bytes % v == 0 and all(t.data_ptr() % v == 0 for t in tensors):
+            return v
+    raise ValueError(f"no 2-byte-aligned copy for {row_bytes}-byte rows")
 
 
 def check(status: int, kernel: str) -> None:

@@ -29,6 +29,7 @@ dtype.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -82,15 +83,31 @@ def bn_relu_pool_plain(y, mul, add, zero_mask, stats_mask=None, want_idx=False):
     return pooled, pooled_mask, idx.to(torch.uint8)
 
 
+@functools.cache
 def _lib():
     lib = _build.load("bn_relu_pool")
     for suffix in _DTYPES.values():
         fn = getattr(lib, f"bn_relu_pool_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch_plan(shape, elem_bytes: int, *tensors) -> int:
+    """K1's channels a thread: the widest vector (16, 8, 4 or 2 bytes) that
+    divides a site's C·elem bytes and the addresses of ``tensors`` (y, mul,
+    add; the outputs are fresh allocations, aligned), in elements. Raises
+    where the kernel's 32-bit site and thread math would wrap."""
+    N, D, H, W, C = shape
+    vec = _build.vector_bytes(C * elem_bytes, *tensors) // elem_bytes
+    sites = N * D * H * W
+    if sites >= 2**31 or sites // 8 * (C // vec) >= 2**31:
+        raise ValueError(
+            f"bn_relu_pool takes fewer than 2^31 sites and threads, got {tuple(shape)}"
+        )
+    return vec
 
 
 def bn_relu_pool(y, mul, add, zero_mask, stats_mask=None, want_idx=False):
@@ -114,6 +131,7 @@ def bn_relu_pool(y, mul, add, zero_mask, stats_mask=None, want_idx=False):
                 "bn_relu_pool needs contiguous inputs of y's dtype on y's device"
             )
     N, D, H, W, C = y.shape
+    vec = launch_plan(y.shape, y.element_size(), y, mul, add)
     pooled = torch.empty((N, D // 2, H // 2, W // 2, C), dtype=y.dtype, device=y.device)
     pooled_mask = torch.empty((N, D // 2, H // 2, W // 2, 1), dtype=y.dtype, device=y.device)
     idx = (
@@ -125,7 +143,7 @@ def bn_relu_pool(y, mul, add, zero_mask, stats_mask=None, want_idx=False):
             y.data_ptr(), mul.data_ptr(), add.data_ptr(), zero_mask.data_ptr(),
             stats_mask.data_ptr(), pooled.data_ptr(), pooled_mask.data_ptr(),
             idx.data_ptr() if want_idx else None,
-            N, D // 2, H // 2, W // 2, C,
+            N, D // 2, H // 2, W // 2, C, vec,
             torch.cuda.current_stream(y.device).cuda_stream,
         )
     _build.check(status, "bn_relu_pool")

@@ -76,15 +76,6 @@ def _lib():
     return lib
 
 
-def _vector_bytes(site_bytes: int, *tensors) -> int:
-    """The widest copy (16, 8, 4 or 2 bytes) dividing a site's bytes and
-    every pointer's alignment."""
-    for v in (16, 8, 4, 2):
-        if site_bytes % v == 0 and all(t.data_ptr() % v == 0 for t in tensors):
-            return v
-    raise ValueError(f"no 2-byte-aligned copy for {site_bytes}-byte sites")
-
-
 def gather_tiles(x, ids, tile: int, halo: int = 0):
     """(T, s, s, s, C) windows, s = tile + 2·halo, of the tiles ``ids`` (T,)
     int32 global ids (b·tg³ + (tz·tg + ty)·tg + tx; ids outside [0, B·tg³)
@@ -106,7 +97,7 @@ def gather_tiles(x, ids, tile: int, halo: int = 0):
         raise ValueError("gather_tiles takes fewer than 2^31 tiles in the grid")
     T, s = ids.shape[0], tile + 2 * halo
     out = torch.empty((T, s, s, s, C), dtype=x.dtype, device=x.device)
-    vec = _vector_bytes(C * x.element_size(), x, out)
+    vec = _build.vector_bytes(C * x.element_size(), x, out)
     with torch.cuda.device(x.device):
         status = _lib().tile_gather(
             x.data_ptr(), ids.data_ptr(), out.data_ptr(), T, B, D, C, tile, halo,

@@ -20,6 +20,7 @@ in autograd Functions whose backward is the tile gather out of ``dy``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -55,13 +56,29 @@ def scatter_tiles_ps_plain(tiles, local_ids, grid: int):
     return t8.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(B, grid, grid, grid, C)
 
 
+@functools.cache
 def _lib():
     lib = _build.load("tile_scatter")
-    lib.tile_scatter.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p
-    ]
-    lib.tile_scatter.restype = ctypes.c_int
+    for fn in (lib.tile_scatter, lib.tile_scatter_global):
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
+
+
+def launch_plan(batch: int, rows: int, tile: int, grid: int, channels: int,
+                elem_bytes: int, *tensors) -> int:
+    """K2's copy width in bytes: the widest vector that divides a tile's
+    x-run (tile·C·elem bytes) and the addresses of ``tensors`` (the tiles;
+    the grid is a fresh allocation, aligned). Raises where the kernel's
+    32-bit tile, row and z-plane math would wrap."""
+    tg = grid // tile
+    if (batch * tg**3 >= 2**31 or rows >= 2**31 or batch * grid >= 2**31
+            or tile * grid * grid * channels * elem_bytes >= 2**31):
+        raise ValueError(
+            f"the tile scatter takes fewer than 2^31 tiles, rows and z-plane bytes; got "
+            f"{batch}·{tg}³ tiles, {rows} rows, a {grid}² × {channels} grid"
+        )
+    return _build.vector_bytes(tile * channels * elem_bytes, *tensors)
 
 
 def scatter_tiles_ps(tiles, local_ids, grid: int):
@@ -84,12 +101,13 @@ def scatter_tiles_ps(tiles, local_ids, grid: int):
     B, k, t = tiles.shape[:3]
     C = tiles.shape[-1]
     tg = grid // t
-    inv = torch.empty(B * tg**3, dtype=torch.int32, device=tiles.device)
+    vec = launch_plan(B, B * k, t, grid, C, tiles.element_size(), tiles)
     out = torch.empty((B, grid, grid, grid, C), dtype=tiles.dtype, device=tiles.device)
+    inv = torch.empty(B * tg**3, dtype=torch.int32, device=tiles.device)
     with torch.cuda.device(tiles.device):
         status = _lib().tile_scatter(
             tiles.data_ptr(), local_ids.data_ptr(), inv.data_ptr(), out.data_ptr(),
-            B, k, t, tg, C, tiles.element_size(),
+            B, k, t, tg, C, tiles.element_size(), vec,
             torch.cuda.current_stream(tiles.device).cuda_stream,
         )
     _build.check(status, "tile_scatter")
@@ -175,15 +193,6 @@ def scatter_tiles_global_plain(tiles, ids, batch: int, grid: int):
     return t8.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(batch, grid, grid, grid, C)
 
 
-def _lib_global():
-    lib = _build.load("tile_scatter")
-    lib.tile_scatter_global.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p
-    ]
-    lib.tile_scatter_global.restype = ctypes.c_int
-    return lib
-
-
 def scatter_tiles_global(tiles, ids, batch: int, grid: int):
     """(T, t, t, t, C) tiles + (T,) int32 unique global ids (b·tg³ + (tz·tg
     + ty)·tg + tx; ids outside [0, B·tg³) are padding and are dropped) →
@@ -202,14 +211,13 @@ def scatter_tiles_global(tiles, ids, batch: int, grid: int):
     T, t = tiles.shape[:2]
     C = tiles.shape[-1]
     tg = grid // t
-    if batch * tg**3 >= 2**31 or T >= 2**31:
-        raise ValueError("scatter_tiles_global takes fewer than 2^31 tiles")
-    inv = torch.empty(batch * tg**3, dtype=torch.int32, device=tiles.device)
+    vec = launch_plan(batch, T, t, grid, C, tiles.element_size(), tiles)
     out = torch.empty((batch, grid, grid, grid, C), dtype=tiles.dtype, device=tiles.device)
+    inv = torch.empty(batch * tg**3, dtype=torch.int32, device=tiles.device)
     with torch.cuda.device(tiles.device):
-        status = _lib_global().tile_scatter_global(
+        status = _lib().tile_scatter_global(
             tiles.data_ptr(), ids.data_ptr(), inv.data_ptr(), out.data_ptr(),
-            batch, T, t, tg, C, tiles.element_size(),
+            batch, T, t, tg, C, tiles.element_size(), vec,
             torch.cuda.current_stream(tiles.device).cuda_stream,
         )
     _build.check(status, "tile_scatter_global")

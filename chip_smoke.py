@@ -16,8 +16,10 @@ Phases (any failure exits non-zero and prints no result line):
    bit-exact (its bound reads only the rows with a valid id); K3
    (bn_relu_pool_bwd) at the five flagship shapes, in f32 and bf16, on
    K1's argmax of inputs with ties and dead windows, bit-exact;
-   K4-K6 (nt_xent_fwd / _bwd_rows / _bwd_cols) at B = 128 and 8192, D = 512,
-   f32, within ``NT_XENT_TOL``·max|plain|; K7 (gather_tiles) at the dense
+   K4-K6 (nt_xent_fwd / _bwd_rows / _bwd_cols) and the two-term backward
+   (nt_xent_bwd, K5's and K6's terms of one operand in one launch: the
+   loss's backward) at B = 128 and 8192, D = 512, f32, within
+   ``NT_XENT_TOL``·max|plain|; K7 (gather_tiles) at the dense
    plan's four gathers and K2's global entry (scatter_tiles_global) at its
    four handoffs, on the active tiles of a real packed batch (budget 32,768
    rows), in f32 and bf16, bit-exact;
@@ -38,7 +40,8 @@ Phases (any failure exits non-zero and prints no result line):
 7. training — ``Trainer.fit`` for one epoch of the 256-model synthetic
    train split (768 captions: 6 steps of 128) at the flagship widths, bf16,
    ``use_pallas=true``; per-step losses (finite), CUDA-event step times and
-   launches (K1 5, K2 2, K3 5, K4-K6 6 each a step), peak memory; the
+   launches (K1 5, K2 2, K3 5, K4 6, two-term backward 6, K5/K6 alone 0
+   a step), peak memory; the
    launch counts are reset just before ``fit`` and read just after it;
 8. the trained checkpoint serves: ``RetrievalServer.from_checkpoint`` builds
    an index and answers a query;
@@ -49,14 +52,17 @@ Phases (any failure exits non-zero and prints no result line):
     and a ``torch.profiler`` breakdown of one such step;
 10b. dense-plan training — ``Trainer.fit`` for one epoch on the packed
     transfer with tile-sparse blocks 1-2 (launches a step exactly K7 4,
-    K2-global 4, K1 5, K3 5, K4-K6 6, per-sample K2 0), the f32 step
+    K2-global 4, K1 5, K3 5, K4 6, two-term backward 6, per-sample K2 and
+    K5/K6 alone 0), the f32 step
     kernel-vs-plain with phase 9's tolerances, a profiled step;
 10c. a diagnostic beside the main path: the windowed and dense-plan train
     steps with ``VoxelCNNEncoder.explicit_dgrad`` off and on, a profile of
     one explicit-dgrad dense-plan step (top device kernels and operators,
     idle share, the port kernels' share), and block 2's input gradient alone
     both ways with the kernels that compute it;
-11. the kernels line (all eight wrappers), then the card line, then
+11. the kernels line (a row per TPU kernel, eight wrappers; the rows of
+    K5 and K6 count the two-term launches, each of which computes both, and
+    carry the two-term entry's times), then the card line, then
     ``{"ok": true, ...}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. The script imports nothing
@@ -319,25 +325,32 @@ def check_k3(torch, shapes, flush):
 
 
 def check_nt_xent(torch, sizes, flush):
-    """K4-K6 against their plain versions on L2-normalised f32 (B, D)
-    embeddings; bound = flops / 67 TFLOP/s (2B²D forward, 4B²D each
-    backward), the bytes being far smaller."""
+    """K4-K6 and the two-term backward against their plain versions on
+    L2-normalised f32 (B, D) embeddings; bound = flops / 67 TFLOP/s (2B²D
+    forward; 4B²D each backward, the two-term one included: one logits and
+    one coefficient product), the bytes being far smaller. The two-term
+    entry's plain version is K5's plus K6's (the logits twice)."""
     from tricolo_tpu_torch import ops
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    errs = {"nt_xent_fwd": 0.0, "nt_xent_bwd_rows": 0.0, "nt_xent_bwd_cols": 0.0}
+    errs = dict.fromkeys(("nt_xent_fwd", "nt_xent_bwd_rows", "nt_xent_bwd_cols",
+                          "nt_xent_bwd"), 0.0)
     rows = {name: [] for name in errs}
     for B, D in sizes:
         zi, zj = (torch.nn.functional.normalize(
             torch.randn((B, D), generator=gen, device="cuda"), dim=-1) for _ in range(2))
         lse = ops.nt_xent_fwd_plain(zi, zj, INV_TAU)[:, 1].contiguous()
+        lse_b = ops.nt_xent_fwd_plain(zj, zi, INV_TAU)[:, 1].contiguous()
         scale = torch.tensor([0.25 * INV_TAU / B], device="cuda")
+        scales = torch.tensor([0.25 * INV_TAU / B, 0.75 * INV_TAU / B], device="cuda")
         cases = [
             ("nt_xent_fwd", ops.nt_xent_fwd, ops.nt_xent_fwd_plain, (zi, zj, INV_TAU), 2),
             ("nt_xent_bwd_rows", ops.nt_xent_bwd_rows, ops.nt_xent_bwd_rows_plain,
              (zi, zj, lse, scale, INV_TAU), 4),
             ("nt_xent_bwd_cols", ops.nt_xent_bwd_cols, ops.nt_xent_bwd_cols_plain,
              (zj, zi, lse, scale, INV_TAU), 4),
+            ("nt_xent_bwd", ops.nt_xent_bwd, ops.nt_xent_bwd_plain,
+             (zi, zj, lse, lse_b, scales, INV_TAU), 4),
         ]
         for name, kernel, plain, args, flops_per in cases:
             got = kernel(*args)
@@ -355,7 +368,8 @@ def check_nt_xent(torch, sizes, flush):
             rows[name].append({"shape": [B, D], "dtype": "f32", "ms": ms, "plain_ms": plain_ms,
                                "bound_ms": bound, "max_abs_err": err})
             log(f"  {name:16s} ({B}, {D}) f32: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-                f"bound {bound:.4f} ms), max |d| {err:.3g} (limit {limit:.3g})")
+                f"bound {bound:.4f} ms, {bound / ms:.1%} of bound), max |d| {err:.3g} "
+                f"(limit {limit:.3g})")
     return errs, rows
 
 
@@ -515,16 +529,18 @@ def ellipsoid_batch(cfg, n_points=8192, packed=False):
 
 # ------------------------------------------------------------ phases 7-10
 
+# A train step: 3 pairwise losses, each 2 K4 and 2 two-term backward launches
+# (d_zis and d_zjs); K5 and K6 alone are not on the path.
 TRAIN_LAUNCHES = {"bn_relu_pool": 5, "scatter_tiles_ps": 2, "bn_relu_pool_bwd": 5,
-                  "nt_xent_fwd": 6, "nt_xent_bwd_rows": 6, "nt_xent_bwd_cols": 6,
-                  "gather_tiles": 0, "scatter_tiles_global": 0}
+                  "nt_xent_fwd": 6, "nt_xent_bwd_rows": 0, "nt_xent_bwd_cols": 0,
+                  "nt_xent_bwd": 6, "gather_tiles": 0, "scatter_tiles_global": 0}
 # The dense-input plan, 2 sparse blocks: K7 for x and the mask of each, K2's
 # global entry for each handoff, K1 in all five blocks; no per-sample K2.
 DENSE_EVAL_LAUNCHES = {"bn_relu_pool": 5, "scatter_tiles_ps": 0, "bn_relu_pool_bwd": 0,
                        "nt_xent_fwd": 0, "nt_xent_bwd_rows": 0, "nt_xent_bwd_cols": 0,
-                       "gather_tiles": 4, "scatter_tiles_global": 4}
+                       "nt_xent_bwd": 0, "gather_tiles": 4, "scatter_tiles_global": 4}
 DENSE_TRAIN_LAUNCHES = dict(DENSE_EVAL_LAUNCHES, bn_relu_pool_bwd=5, nt_xent_fwd=6,
-                            nt_xent_bwd_rows=6, nt_xent_bwd_cols=6)
+                            nt_xent_bwd=6)
 
 
 def timed_step(torch, step, rows):
@@ -617,7 +633,7 @@ def profile_step(torch, step, batch, lr) -> dict:
     names = {"K1": ("::bn_relu_pool_kernel",),
              "K2": ("::scatter_pass_kernel", "::inverse_kernel", "::inverse_global_kernel"),
              "K3": ("::bn_relu_pool_bwd_kernel",), "K4": ("::nt_xent_fwd_kernel",),
-             "K5-K6": ("::nt_xent_bwd_kernel",), "K7": ("::tile_gather_kernel",)}
+             "K5-K6": ("::nt_xent_bwd_cluster_kernel",), "K7": ("::tile_gather_kernel",)}
     ours = dict.fromkeys(names, 0.0)
     for e in events:
         for label, keys in names.items():
@@ -998,7 +1014,7 @@ def main() -> int:
     report["dense_plan_tiles"] = {"budget": budget, "active": n_active}
     log(f"kernels: K1 max err {k1_err}, K2 max err {k2_err}, K3 max err {k3_err}, "
         f"K7 max err {k7_err}, K2-global max err {k2g_err} (bit-exact required); "
-        f"K4-K6 max err {nt_errs} (limit {NT_XENT_TOL}·max|plain|); dense plan: "
+        f"K4-K6 and two-term max err {nt_errs} (limit {NT_XENT_TOL}·max|plain|); dense plan: "
         f"{n_active} active tiles of a {budget}-row budget")
 
     # 4. serving path at flagship widths, bf16, through the kernels
@@ -1262,15 +1278,26 @@ def main() -> int:
          "bound_ms": total(k3_rows, "bound_ms"), "bound_by": "bytes",
          "library_ms": None, "shapes": k3_rows},
     ]
+    # K5's and K6's rows count the two-term launches (each computes both
+    # functions) and carry the two-term entry's numbers beside their own.
+    two = nt_rows["nt_xent_bwd"]
+    two_term = {"name": "nt_xent_bwd", "launches": on_paths("nt_xent_bwd"),
+                "launches_by_path": both("nt_xent_bwd"), "max_abs_err": nt_errs["nt_xent_bwd"],
+                "ms": total(two, "ms"), "plain_ms": total(two, "plain_ms"),
+                "bound_ms": total(two, "bound_ms"), "shapes": two}
     for name, line in (("nt_xent_fwd", 43), ("nt_xent_bwd_rows", 92), ("nt_xent_bwd_cols", 208)):
         rows = nt_rows[name]
-        kernels.append(
-            {"name": name, "route": "cuda", "source": "tricolo_tpu_torch/csrc/nt_xent.cu",
-             "replaces": f"tricolo_tpu/ops/nt_xent_pallas.py:{line}",
-             "launches": on_paths(name), "launches_by_path": both(name),
-             "max_abs_err": nt_errs[name], "ms": total(rows, "ms"),
-             "plain_ms": total(rows, "plain_ms"), "bound_ms": total(rows, "bound_ms"),
-             "bound_by": "operations", "library_ms": None, "shapes": rows})
+        row = {"name": name, "route": "cuda", "source": "tricolo_tpu_torch/csrc/nt_xent.cu",
+               "replaces": f"tricolo_tpu/ops/nt_xent_pallas.py:{line}",
+               "launches": on_paths(name), "launches_by_path": both(name),
+               "max_abs_err": nt_errs[name], "ms": total(rows, "ms"),
+               "plain_ms": total(rows, "plain_ms"), "bound_ms": total(rows, "bound_ms"),
+               "bound_by": "operations", "library_ms": None, "shapes": rows}
+        if name != "nt_xent_fwd":
+            row["launches_alone"] = row["launches"]
+            row["launches"] += two_term["launches"]
+            row["two_term"] = two_term
+        kernels.append(row)
     kernels += [
         {"name": "gather_tiles", "route": "cuda",
          "source": "tricolo_tpu_torch/csrc/tile_gather.cu",

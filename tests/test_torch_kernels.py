@@ -3,11 +3,12 @@
 On the CPU: the plain versions' edge cases, the wrappers' dispatch (CPU
 tensors take the plain version and launch nothing) and the launch plans of
 K1 and K2 (vector width from shapes and addresses, the guards of their
-32-bit index math). On a card
-(``-m cuda``): each kernel against its plain version — K1-K3, K7 and both
-K2 entries bit-exact in f32 and bf16, K4-K6 (f32 sums in another order)
-within ``NT_XENT_TOL · max|plain|`` — and the wrappers' refusals: a CUDA
-tensor never falls back to the plain version. Run the card tests with
+32-bit index math) and of the NT-Xent backward (row tile and D slice). On
+a card (``-m cuda``): each kernel against its plain version — K1-K3, K7 and
+both K2 entries bit-exact in f32 and bf16, K4-K6 and the two-term backward
+(f32 sums in another order) within ``NT_XENT_TOL · max|plain|`` — and the
+wrappers' refusals: a CUDA tensor never falls back to the plain version.
+Run the card tests with
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 """
@@ -25,8 +26,10 @@ from tricolo_tpu_torch.ops import (  # noqa: E402
     fold_bn,
     gather_tiles,
     gather_tiles_plain,
+    nt_xent_bwd,
     nt_xent_bwd_cols,
     nt_xent_bwd_cols_plain,
+    nt_xent_bwd_plain,
     nt_xent_bwd_rows,
     nt_xent_bwd_rows_plain,
     nt_xent_fwd,
@@ -87,6 +90,19 @@ def _nt_inputs(B, D, seed, device):
     lse = nt_xent_fwd_plain(zi, zj, INV_TAU)[:, 1].contiguous()
     scale = torch.tensor([0.75 * INV_TAU / B], dtype=torch.float32, device=device)
     return zi, zj, lse, scale
+
+
+def _nt_bwd_inputs(B, D, seed, device):
+    """Unit-norm operands and both directions' logsumexps shifted by
+    N(0, 0.1) noise, so that even B = 1 has non-zero coefficients."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(2, B, D))
+    z /= np.linalg.norm(z, axis=-1, keepdims=True)
+    zi, zj = (torch.tensor(a, dtype=torch.float32, device=device) for a in z)
+    noise = torch.tensor(rng.normal(0, 0.1, (2, B)), dtype=torch.float32, device=device)
+    lse_a = (nt_xent_fwd_plain(zi, zj, INV_TAU)[:, 1] + noise[0]).contiguous()
+    lse_b = (nt_xent_fwd_plain(zj, zi, INV_TAU)[:, 1] + noise[1]).contiguous()
+    return zi, zj, lse_a, lse_b
 
 
 def _k2_inputs(B, k, C, grid, seed, dtype, device, t=2):
@@ -157,12 +173,15 @@ def test_cpu_tensors_take_the_plain_version():
                        nt_xent_bwd_rows_plain(zi, zj, lse, scale, INV_TAU))
     assert torch.equal(nt_xent_bwd_cols(zj, zi, lse, scale, INV_TAU),
                        nt_xent_bwd_cols_plain(zj, zi, lse, scale, INV_TAU))
+    scales = torch.cat([scale, -scale])
+    assert torch.equal(nt_xent_bwd(zi, zj, lse, lse, scales, INV_TAU),
+                       nt_xent_bwd_plain(zi, zj, lse, lse, scales, INV_TAU))
     x, gids = _k7_inputs(2, 16, 4, 8, 0, torch.float32, "cpu")
     assert torch.equal(gather_tiles(x, gids, 8, 1), gather_tiles_plain(x, gids, 8, 1))
     tiles, gids = _k2g_inputs(2, 16, 4, 2, 0, torch.float32, "cpu")
     assert torch.equal(scatter_tiles_global(tiles, gids, 2, 16),
                        scatter_tiles_global_plain(tiles, gids, 2, 16))
-    assert set(ops.launches().values()) == {0} and len(ops.launches()) == 8
+    assert set(ops.launches().values()) == {0} and len(ops.launches()) == 9
 
 
 def test_bwd_plain_routes_to_the_argmax_member():
@@ -235,6 +254,8 @@ def test_wrappers_reject_other_devices():
         nt_xent_bwd_rows(zi, zj, lse, scale, INV_TAU)
     with pytest.raises(ValueError, match="cuda or cpu"):
         nt_xent_bwd_cols(zj, zi, lse, scale, INV_TAU)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        nt_xent_bwd(zi, zj, lse, lse, torch.cat([scale, scale]), INV_TAU)
 
 
 def _shifted(t, elems):
@@ -301,6 +322,30 @@ def test_launch_plans_refuse_32bit_overflow(plan, over, under):
     with pytest.raises(ValueError, match="2\\^31"):
         fn(*over)
     assert fn(*under) >= 1
+
+
+@pytest.mark.parametrize(
+    "B,D,want",
+    [(128, 512, (128, 1)), (2000, 512, (128, 1)), (2500, 512, (128, 4)),
+     (8192, 512, (128, 4)), (8192, 128, (128, 1)), (8192, 64, (64, 1)),
+     (100, 192, (64, 1)), (8192, 192, (64, 4)), (4 * 2**20 + 1, 64, None)],
+)
+def test_nt_xent_bwd_launch_plan(B, D, want):
+    """The backward's D slice (128 where it divides D, else 64) and row
+    tile (64 rows once the blocks fill 132 SMs, else 16): B = 128, D = 512
+    spreads over 32 blocks; past 65535 row tiles the plan raises."""
+    from tricolo_tpu_torch.ops.nt_xent import bwd_launch_plan
+
+    if want is None:
+        with pytest.raises(ValueError, match="65535"):
+            bwd_launch_plan(B, D)
+        return
+    ds, wm = bwd_launch_plan(B, D)
+    assert (ds, wm) == want
+    blocks = (D // ds) * -(-B // (16 * wm))
+    assert blocks >= 32 or B < 128
+    if wm == 4:
+        assert -(-B // 64) * (D // ds) >= 132
 
 
 # ---------------------------------------------------------------- card
@@ -406,6 +451,41 @@ def test_cuda_nt_xent_matches_plain(B, D):
         ref = plain(*args)
         err = (got - ref).abs().max().item()
         assert err <= NT_XENT_TOL * ref.abs().max().item(), (kernel.__name__, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 192, 512])
+@pytest.mark.parametrize("B", [1, 20, 100, 128, 2500, 8192])
+def test_cuda_nt_xent_bwd_matches_plain(B, D):
+    """The two-term backward against its plain version at every launch
+    plan (16- and 64-row tiles, clusters of 1-4 blocks on 64- or 128-wide D
+    slices, ragged B): both terms, each alone (a zero scale), negative
+    scales, the operands swapped (d_zjs); then K5 and K6 on the same
+    inputs. Each launch steps its own counter by one."""
+    _need_cuda()
+    zi, zj, lse_a, lse_b = _nt_bwd_inputs(B, D, B + D, "cuda")
+    s = INV_TAU / B
+
+    def scales(*values):
+        return torch.tensor(values, dtype=torch.float32, device="cuda")
+
+    cases = [(nt_xent_bwd, nt_xent_bwd_plain, (zi, zj, lse_a, lse_b, sc, INV_TAU))
+             for sc in (scales(0.25 * s, 0.75 * s), scales(0.25 * s, 0.0),
+                        scales(0.0, 0.75 * s), scales(-0.7 * s, -0.3 * s))]
+    cases += [
+        (nt_xent_bwd, nt_xent_bwd_plain, (zj, zi, lse_b, lse_a, scales(0.75 * s, 0.25 * s),
+                                          INV_TAU)),
+        (nt_xent_bwd_rows, nt_xent_bwd_rows_plain, (zi, zj, lse_a, scales(0.25 * s), INV_TAU)),
+        (nt_xent_bwd_cols, nt_xent_bwd_cols_plain, (zj, zi, lse_a, scales(-0.5 * s), INV_TAU)),
+    ]
+    for kernel, plain, args in cases:
+        before = kernel.launches
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        ref = plain(*args)
+        err = (got - ref).abs().max().item()
+        assert err <= NT_XENT_TOL * ref.abs().max().item(), (kernel.__name__, args[-2], err)
 
 
 @pytest.mark.cuda
@@ -557,3 +637,18 @@ def test_cuda_wrappers_refuse_instead_of_falling_back():
     zi, zj, lse, scale = _nt_inputs(64, 128, 1, "cuda")
     with pytest.raises(TypeError, match="float32"):
         nt_xent_bwd_rows(zi.double(), zj.double(), lse, scale, INV_TAU)
+    scales = torch.cat([scale, scale])
+    with pytest.raises(TypeError, match="float32"):
+        nt_xent_bwd(zi.double(), zj.double(), lse, lse, scales, INV_TAU)
+    with pytest.raises(ValueError, match="contiguous"):
+        nt_xent_bwd(zi.t().contiguous().t(), zj, lse, lse, scales, INV_TAU)
+    with pytest.raises(ValueError, match="aligned"):
+        nt_xent_bwd(_shifted(zi, 1), zj, lse, lse, scales, INV_TAU)
+    with pytest.raises(ValueError, match="one scale per lse"):
+        nt_xent_bwd(zi, zj, lse, lse, scale, INV_TAU)
+    for D in (96, 576):
+        zi, zj, lse, scale = _nt_inputs(64, D, 1, "cuda")
+        with pytest.raises(ValueError, match="multiple of 64"):
+            nt_xent_bwd(zi, zj, lse, lse, torch.cat([scale, scale]), INV_TAU)
+        with pytest.raises(ValueError, match="multiple of 64"):
+            nt_xent_bwd_cols(zj, zi, lse, scale, INV_TAU)

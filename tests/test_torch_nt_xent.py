@@ -1,10 +1,11 @@
 """The blocked NT-Xent (K4-K6) against the JAX package: the kernels' plain
 versions against the Pallas ``_direction_fwd`` / ``_direction_bwd`` /
-``_direction_bwd_cols`` in interpret mode, and the autograd loss against
-``pallas_nt_xent_loss(..., interpret=True)`` with ``jax.grad`` and against
-the plain ``nt_xent_loss``. On the CPU the wrappers run the plain versions;
-the CUDA kernels are held against those in ``test_torch_kernels.py`` and by
-``chip_smoke.py``.
+``_direction_bwd_cols`` in interpret mode (the two-term backward against
+the sum of the last two, as the JAX ``_bwd`` forms it), and the autograd
+loss against ``pallas_nt_xent_loss(..., interpret=True)`` with
+``jax.grad`` and against the plain ``nt_xent_loss``. On the CPU the
+wrappers run the plain versions; the CUDA kernels are held against those
+in ``test_torch_kernels.py`` and by ``chip_smoke.py``.
 
 Tolerance: rtol 1e-5 (f32; the logits' dot products and the logsumexp sums
 run in another order in the Pallas kernels, XLA and PyTorch).
@@ -72,6 +73,75 @@ def test_plain_bwd_rows_and_cols_match_pallas(ct):
     zi_t, zj_t = torch.from_numpy(zi), torch.from_numpy(zj)
     _close(ours.nt_xent_bwd_rows(zi_t, zj_t, lse_t, scale, 1 / TAU).numpy(), rows_ref)
     _close(ours.nt_xent_bwd_cols(zj_t, zi_t, lse_t, scale, 1 / TAU).numpy(), cols_ref)
+
+
+@pytest.mark.parametrize("ct", [1.0, -0.7])
+@pytest.mark.parametrize("operand", ["zis", "zjs"])
+def test_plain_two_term_bwd_matches_pallas_composition(operand, ct):
+    """``nt_xent_bwd_plain`` (and the CPU wrapper) equal the JAX ``_bwd``'s
+    two terms of one operand: ``_direction_bwd`` of its own direction plus
+    ``_direction_bwd_cols`` of the other, for d_zis and for d_zjs."""
+    from tricolo_tpu.ops.nt_xent_pallas import (
+        _direction_bwd,
+        _direction_bwd_cols,
+        _direction_fwd,
+    )
+
+    zis, zjs = _embeddings(16, 128, 5)
+    B = zis.shape[0]
+    _, lse_a = _direction_fwd(zis, zjs, 1 / TAU, 8, True)
+    _, lse_b = _direction_fwd(zjs, zis, 1 / TAU, 8, True)
+    ct_a, ct_b = ct * ALPHA, ct * (1 - ALPHA)
+    if operand == "zis":
+        own, oth, lse_row, lse_col, ct_row, ct_col = zis, zjs, lse_a, lse_b, ct_a, ct_b
+    else:
+        own, oth, lse_row, lse_col, ct_row, ct_col = zjs, zis, lse_b, lse_a, ct_b, ct_a
+    ref = (_direction_bwd(own, oth, lse_row, ct_row, 1 / TAU, 8, True)
+           + _direction_bwd_cols(own, oth, lse_col, ct_col, 1 / TAU, 8, True))
+    args = (torch.from_numpy(own), torch.from_numpy(oth),
+            torch.from_numpy(np.asarray(lse_row)[:, 0].copy()),
+            torch.from_numpy(np.asarray(lse_col)[:, 0].copy()),
+            torch.tensor([ct_row / TAU / B, ct_col / TAU / B], dtype=torch.float32), 1 / TAU)
+    _close(ours.nt_xent_bwd_plain(*args).numpy(), ref)
+    assert torch.equal(ours.nt_xent_bwd(*args), ours.nt_xent_bwd_plain(*args))
+
+
+@pytest.mark.parametrize("term", ["rows", "cols"])
+def test_zero_scale_reduces_two_term_bwd_to_one(term):
+    """A zero scale switches a term off: the two-term backward is then K5's
+    or K6's plain version alone, exactly."""
+    zi, zj = (torch.from_numpy(z) for z in _embeddings(12, 64, 6))
+    lse_row = ours.nt_xent_fwd_plain(zi, zj, 1 / TAU)[:, 1].contiguous()
+    lse_col = ours.nt_xent_fwd_plain(zj, zi, 1 / TAU)[:, 1].contiguous()
+    s = torch.tensor([0.3], dtype=torch.float32)
+    zero = torch.zeros(1)
+    if term == "rows":
+        got = ours.nt_xent_bwd_plain(zi, zj, lse_row, lse_col, torch.cat([s, zero]), 1 / TAU)
+        want = ours.nt_xent_bwd_rows_plain(zi, zj, lse_row, s, 1 / TAU)
+    else:
+        got = ours.nt_xent_bwd_plain(zi, zj, lse_row, lse_col, torch.cat([zero, s]), 1 / TAU)
+        want = ours.nt_xent_bwd_cols_plain(zi, zj, lse_col, s, 1 / TAU)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_cpu_backward_is_the_four_term_composition(use_kernels):
+    """On the CPU the loss's backward (two two-term calls) gives bit for bit
+    the four single-term plain calls it replaced: d_zis = rows(zis, zjs,
+    lse_a) + cols(zis, zjs, lse_b), d_zjs = cols(zjs, zis, lse_a) +
+    rows(zjs, zis, lse_b)."""
+    zis, zjs = (torch.from_numpy(z) for z in _embeddings(20, 64, 7))
+    a, b = zis.clone().requires_grad_(), zjs.clone().requires_grad_()
+    ours.blocked_nt_xent_loss(a, b, TAU, ALPHA, norm=False, use_kernels=use_kernels).backward()
+    lse_a = ours.nt_xent_fwd_plain(zis, zjs, 1 / TAU)[:, 1].contiguous()
+    lse_b = ours.nt_xent_fwd_plain(zjs, zis, 1 / TAU)[:, 1].contiguous()
+    ct = torch.ones(1)
+    s_a, s_b = ct * ALPHA * (1 / TAU) / 20, ct * (1.0 - ALPHA) * (1 / TAU) / 20
+    d_zis = (ours.nt_xent_bwd_rows_plain(zis, zjs, lse_a, s_a, 1 / TAU)
+             + ours.nt_xent_bwd_cols_plain(zis, zjs, lse_b, s_b, 1 / TAU))
+    d_zjs = (ours.nt_xent_bwd_cols_plain(zjs, zis, lse_a, s_a, 1 / TAU)
+             + ours.nt_xent_bwd_rows_plain(zjs, zis, lse_b, s_b, 1 / TAU))
+    assert torch.equal(a.grad, d_zis) and torch.equal(b.grad, d_zjs)
 
 
 @pytest.mark.parametrize("B,D", [(16, 128), (32, 64)])

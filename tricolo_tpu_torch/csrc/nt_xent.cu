@@ -1,43 +1,93 @@
-// Blocked online-softmax NT-Xent: forward and the two backward products,
-// f32 on the CUDA cores.
+// Blocked online-softmax NT-Xent: the forward and one two-term backward
+// kernel behind three entries, f32 on the CUDA cores.
 //
 // Replaces the three Pallas TPU kernels of tricolo_tpu/ops/nt_xent_pallas.py:
 //
-//   nt_xent_fwd       <- _fwd_kernel:       per row i of zi, the diagonal logit
-//                        l_ii and logsumexp_j l_ij, l = zi zj^T / tau -> (B, 2)
-//   nt_xent_bwd_rows  <- _bwd_kernel:       dzi = (P - I) zj * s
-//   nt_xent_bwd_cols  <- _bwd_cols_kernel:  dzj = (P - I)^T zi * s
+//   nt_xent_fwd       <- _fwd_kernel (l.43):       per row i of zi, the
+//                        diagonal logit l_ii and logsumexp_j l_ij,
+//                        l = zi zj^T / tau -> (B, 2)
+//   nt_xent_bwd_rows  <- _bwd_kernel (l.92):       dzi = (P - I) zj * s
+//   nt_xent_bwd_cols  <- _bwd_cols_kernel (l.208): dzj = (P - I)^T zi * s
+//   nt_xent_bwd       <- both at once, as the JAX _bwd (l.186) adds them for
+//                        one operand: out_r = sum_c coeff_rc oth_c with
+//                          coeff_rc = s_row (exp(l_rc - lse_row[r]) - d_rc)
+//                                   + s_col (exp(l_rc - lse_col[c]) - d_rc)
+//                        and l = own oth^T / tau computed once for both.
 //
-// with P_ij = exp(l_ij - lse_i) recomputed from the saved logsumexps and
-// s = ct * alpha-or-(1-alpha) / (tau * B) read from device memory (no host
-// sync). Nothing O(B^2) reaches device memory: that is the kernels' purpose.
+// P is recomputed from the saved logsumexps and the scales (the loss
+// cotangent times a direction's weight over tau B) are read from device
+// memory (no host sync). Nothing O(B^2) reaches device memory: that is the
+// kernels' purpose. dzi of the loss is nt_xent_bwd(zi, zj, lse_a, lse_b,
+// [s_a, s_b]) and dzj is nt_xent_bwd(zj, zi, lse_b, lse_a, [s_b, s_a]); the
+// single-term entries are the two-term kernel with one term compiled out
+// (rows: own = zi, lse by row; cols: own = zj, oth = zi, lse by column).
 //
-// Bound: operations. The forward does 2*B^2*D flops, each backward about
-// twice that, at 67 TFLOP/s (H100 SXM f32 outside the tensor cores); the
-// bytes (the two (B, D) operands, read once) are small beside that. At the
-// flagship B = 128 all three are launch-bound.
+// Bound: operations. The forward does 2 B^2 D flops, each backward 4 B^2 D
+// (one logits product, one coefficient product) at 67 TFLOP/s (H100 SXM f32
+// outside the tensor cores): 2.05 ms at (8192, 512), 0.5 us at (128, 512),
+// where the launch floor of a few us is the practical limit. The operands
+// are read once from device memory, small beside that.
 //
-// Design: one block (8 warps) per 32-row tile of its own operand, kept in
-// shared memory; the other operand streams through shared memory in 32-row
-// tiles. Rows are padded to D + 4 floats, so the float4 reads of 8 lanes
-// at a time hit distinct banks. Warp w computes the logits of its own rows
-// w, w+8, w+16, w+24 against column `lane`, so a row's 32 logits of a tile
-// live in one warp:
-//   * forward: warp shuffles give the tile's row max and sum, and each row
-//     keeps its running max and sum in registers (online logsumexp);
-//   * backward: the (P - I) tile goes to shared memory, and each thread
-//     accumulates an 8-row x (D/64)-column slice of the (32, D) output in
-//     registers from it and the streamed tile.
-// Ragged edges (B not a multiple of 32) are masked: rows past B are zero,
-// columns past B take no part. D must be a multiple of 64 and at most 512
-// (the accumulator slice is a compile-time size). f32 FMA throughout, as
-// the JAX kernels compute in f32; the sums run in another order than the
-// plain version's matrix products, so the two agree to rounding, not bit
-// for bit.
+// The backward's design, against the three limits of the one-block-a-32-row
+// tile kernel it replaces (4 blocks at B = 128; one logit a thread a row and
+// no register blocking; the smem attribute set on every launch):
+//
+// * Parallelism at B = 128. A cluster of D/DS blocks (DS = 128, or 64 when
+//   128 does not divide D) shares a row tile; each block owns a DS-wide slice
+//   of D. Each computes the partial logits of the tile over its slice, the
+//   blocks exchange the partial tiles through distributed shared memory and
+//   sum them in rank order (every block holds the same full-D logits, and
+//   no block recomputes another's slice), then each multiplies the
+//   coefficient tile by its own slice of oth. With 16-row tiles (64 threads)
+//   B = 128, D = 512 runs 8 row tiles x 4 = 32 blocks instead of 4.
+// * Throughput at B = 8192. 64-row tiles (256 threads) once the row tiles
+//   fill the card. Both products are register-blocked: in the logits each
+//   thread owns a 4 x 4 block (its warp a 16 x 32 block), so each float4
+//   read of shared memory (rows padded to DS + 4 floats: conflict-free)
+//   feeds 16 FMAs; in the coefficient product each thread owns an 8 x 8 (or
+//   8 x 4) block of the output over half of the tile's columns, the two
+//   halves added once at the end. The streamed oth tile (64 rows) is
+//   prefetched with cp.async a tile ahead into one of three buffers, and
+//   the loop is software-pipelined: tile t - 1's coefficient product runs
+//   between the arrive and the wait of the cluster barrier that guards tile
+//   t's exchange, so the blocks' wait for each other is spent on arithmetic.
+//   198 KB of shared memory a block at DS = 128 (227 KB allowed), one block
+//   an SM. What bounds it still: the logits product's shared-memory reads
+//   and the exchange on the critical path of every tile (PERF.md).
+// * Host. cudaFuncSetAttribute runs once per instantiation and device, not
+//   on every launch; the launch plan (DS, row tile) comes from the wrapper.
+//
+// Ragged edges (B not a multiple of the tiles) are masked: rows past B load
+// as zeros and are not stored, columns past B get a zero coefficient. D is
+// a multiple of 64, at most 512. f32 fmaf and expf throughout, no atomics:
+// the result does not depend on scheduling. The sums run in another order
+// than the plain version's matrix products, so the two agree to rounding,
+// not bit for bit.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <atomic>
+
+namespace cg = cooperative_groups;
+
 namespace {
+
+// Sets a kernel's dynamic shared memory limit once per device (`done` holds
+// one bit per device ordinal).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, std::atomic<unsigned long long>& done) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (device & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// ------------------------------------------------------------- forward (K4)
 
 constexpr int TILE = 32;     // rows of the own tile and of each streamed tile
 constexpr int THREADS = 256;  // 8 warps
@@ -132,140 +182,361 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// out[r] = s * sum_c (exp(own_r . oth_c / tau - lse) - [r == c]) oth_c, with
-// lse = lse[r] (rows: dzi) or lse[c] (cols: dzj, the other operand's rows
-// are the logits' rows).
-template <bool LSE_BY_COL, int KC>
-__global__ void __launch_bounds__(THREADS)
-    nt_xent_bwd_kernel(const float* __restrict__ own, const float* __restrict__ oth,
-                       const float* __restrict__ lse, const float* __restrict__ scale,
-                       float* __restrict__ out, int B, int D, float inv_tau) {
+size_t fwd_smem(int D) { return (size_t)2 * TILE * (D + 4) * sizeof(float); }
+
+// ----------------------------------------------------- backward (K5, K6, both)
+
+constexpr int BN = 64;  // oth rows a streamed tile (logits columns)
+
+// A block of WM x 2 warps: BM = 16 WM own rows, a DS-wide slice of D.
+template <int WM, int DS>
+struct Plan {
+  static constexpr int BM = 16 * WM;
+  static constexpr int THREADS = 64 * WM;
+  static constexpr int LD = DS + 4;   // operand row stride (floats)
+  static constexpr int LDC = BM + 4;  // transposed coefficient row stride
+  static constexpr int NV = DS / 64;  // output float4s a thread a row
+  static constexpr size_t SMEM =
+      sizeof(float) * (BM * LD + 3 * BN * LD + 2 * 16 * THREADS + 2 * BN * LDC);
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The cluster barrier in two halves: arrive publishes this block's shared
+// memory writes, wait returns once every block of the cluster has arrived.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Columns [d0, d0 + DS) of rows [row0, row0 + ROWS) of a (B, D) matrix into
+// shared memory with row stride DS + 4, by cp.async; zeros past B.
+template <int ROWS, int DS, int THREADS_>
+__device__ __forceinline__ void load_slice(const float* __restrict__ src, float* dst, int row0,
+                                           int B, int D, int d0) {
+  constexpr int C4 = DS / 4;
+  for (int q = threadIdx.x; q < ROWS * C4; q += THREADS_) {
+    const int r = q / C4, k = q % C4;
+    const int g = row0 + r;
+    const bool valid = g < B;
+    cp_async16(dst + r * (DS + 4) + 4 * k, src + (size_t)(valid ? g : 0) * D + d0 + 4 * k,
+               valid);
+  }
+}
+
+// s[i][j] = own row (ar + 4 i) . tile row (ac + 8 j) over the DS-wide slice.
+template <int DS>
+__device__ __forceinline__ void slice_logits(const float* own_s, const float* tile, int ar,
+                                             int ac, float s[4][4]) {
+  constexpr int LD = DS + 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+  const float* a = own_s + ar * LD;
+  const float* b = tile + ac * LD;
+#pragma unroll 8
+  for (int k = 0; k < DS; k += 4) {
+    float4 av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(a + 4 * i * LD + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(b + 8 * j * LD + k);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(av[i].x, bv[j].x, s[i][j]);
+        s[i][j] = fmaf(av[i].y, bv[j].y, s[i][j]);
+        s[i][j] = fmaf(av[i].z, bv[j].z, s[i][j]);
+        s[i][j] = fmaf(av[i].w, bv[j].w, s[i][j]);
+      }
+  }
+}
+
+// acc[i][v][e] += sum_c coeff[8 rg + i][c] tile[c][4 dg + 64 v + e] over
+// the half c in [32 h, 32 h + 32) of the tile, coeff stored transposed (row
+// stride LDC).
+template <int LDC, int DS>
+__device__ __forceinline__ void coef_product(const float* coef, const float* tile, int h,
+                                             int rg, int dg, float acc[8][DS / 64][4]) {
+  constexpr int LD = DS + 4;
+  const float* cb = coef + 32 * h * LDC + 8 * rg;
+  const float* ob = tile + 32 * h * LD + 4 * dg;
+#pragma unroll 4
+  for (int c = 0; c < BN / 2; ++c) {
+    const float4 c0 = *reinterpret_cast<const float4*>(cb + c * LDC);
+    const float4 c1 = *reinterpret_cast<const float4*>(cb + c * LDC + 4);
+    const float cr[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+    for (int v = 0; v < DS / 64; ++v) {
+      const float4 o = *reinterpret_cast<const float4*>(ob + c * LD + 64 * v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        acc[i][v][0] = fmaf(cr[i], o.x, acc[i][v][0]);
+        acc[i][v][1] = fmaf(cr[i], o.y, acc[i][v][1]);
+        acc[i][v][2] = fmaf(cr[i], o.z, acc[i][v][2]);
+        acc[i][v][3] = fmaf(cr[i], o.w, acc[i][v][3]);
+      }
+    }
+  }
+}
+
+template <int WM, int DS, bool ROW, bool COL>
+__global__ void __launch_bounds__(64 * WM)
+    nt_xent_bwd_cluster_kernel(const float* __restrict__ own, const float* __restrict__ oth,
+                               const float* __restrict__ lse_row,
+                               const float* __restrict__ lse_col,
+                               const float* __restrict__ scales, float* __restrict__ out,
+                               int B, int D, float inv_tau) {
+  using P = Plan<WM, DS>;
+  constexpr int BM = P::BM, T = P::THREADS, LD = P::LD, LDC = P::LDC, NV = P::NV;
   extern __shared__ float4 smem4[];
-  float* own_s = reinterpret_cast<float*>(smem4);
-  float* oth_s = own_s + TILE * (D + 4);
-  float* p_s = oth_s + TILE * (D + 4);  // TILE x (TILE + 1)
-  const int row0 = blockIdx.x * TILE;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int rg = threadIdx.x >> 6, cl = threadIdx.x & 63;  // output slice
-  float lse_row[4];
+  float* own_s = reinterpret_cast<float*>(smem4);  // BM x LD
+  float* oth_s = own_s + BM * LD;                  // 3 x BN x LD: tiles t - 1, t, t + 1
+  float* part_s = oth_s + 3 * BN * LD;             // 2 x 16 T, read by the cluster
+  float* coef_s = part_s + 2 * 16 * T;             // 2 x BN x LDC, coeff transposed
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = gridDim.x;  // the cluster spans the grid's x extent
+  const int d0 = blockIdx.x * DS, row0 = blockIdx.y * BM;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // Logits: warp (warp / 2, warp % 2) owns a 16 x 32 block, lane (lane / 8,
+  // lane % 8) its rows ar + 4 i and columns ac + 8 j.
+  const int ar = (warp >> 1) * 16 + (lane >> 3), ac = (warp & 1) * 32 + (lane & 7);
+  // Output: thread half h sums the tile's columns [32 h, 32 h + 32) into
+  // rows 8 rg + i, columns d0 + 4 dg + 64 v; the halves add up at the end.
+  const int h = tid / (T / 2), rg = (tid % (T / 2)) >> 4, dg = tid & 15;
+
+  const float s_row = ROW ? scales[0] : 0.f;
+  const float s_col = COL ? scales[ROW ? 1 : 0] : 0.f;
+  float lr[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int gi = row0 + warp + 8 * i;
-    lse_row[i] = (!LSE_BY_COL && gi < B) ? lse[gi] : 0.f;
+    const int r = row0 + ar + 4 * i;
+    lr[i] = (ROW && r < B) ? lse_row[r] : 0.f;
   }
-  float acc[8][KC];
+
+  load_slice<BM, DS, T>(own, own_s, row0, B, D, d0);
+  load_slice<BN, DS, T>(oth, oth_s, 0, B, D, d0);
+  cp_async_commit();
+
+  float acc[8][NV][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int k = 0; k < KC; ++k) acc[i][k] = 0.f;
-  load_tile(own, own_s, row0, B, D);
-  for (int col0 = 0; col0 < B; col0 += TILE) {
-    __syncthreads();  // the previous tile and its (P - I) are no longer read
-    load_tile(oth, oth_s, col0, B, D);
-    __syncthreads();
-    float s[4];
-    tile_dots(own_s, oth_s, D, s);
-    const int gj = col0 + lane;
-    const float lse_col = (LSE_BY_COL && gj < B) ? lse[gj] : 0.f;
+    for (int v = 0; v < NV; ++v)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gi = row0 + warp + 8 * i;
-      float p = 0.f;
-      if (gi < B && gj < B) {
-        p = expf(s[i] * inv_tau - (LSE_BY_COL ? lse_col : lse_row[i]));
-        if (gi == gj) p -= 1.f;
-      }
-      p_s[(warp + 8 * i) * (TILE + 1) + lane] = p;
+      for (int e = 0; e < 4; ++e) acc[i][v][e] = 0.f;
+
+  // Iteration t computes tile t's logits and coefficients and adds tile
+  // t - 1's product to the output. That product runs between the two halves
+  // of the cluster barrier which separates writing this block's partial
+  // logits from reading the other blocks' ones, so it hides the barrier.
+  const int n_tiles = (B + BN - 1) / BN;
+  for (int t = 0; t <= n_tiles; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t has landed; tile t - 2's buffers are no longer read
+    if (t + 1 < n_tiles)
+      load_slice<BN, DS, T>(oth, oth_s + (t + 1) % 3 * BN * LD, (t + 1) * BN, B, D, d0);
+    cp_async_commit();
+
+    // 1. This block's partial logits of tile t over its D slice.
+    float s[4][4];
+    // A warp's 16 partials e = 4 i + j at [warp][e][lane]: every block maps
+    // threads to logits alike, so a thread finds its logits at the same
+    // place in every block, and a warp reads 128 contiguous bytes at a time.
+    float* part = part_s + (t & 1) * 16 * T + warp * 16 * 32 + lane;
+    if (t < n_tiles) {
+      slice_logits<DS>(own_s, oth_s + t % 3 * BN * LD, ar, ac, s);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) part[(4 * i + j) * 32] = s[i][j];
     }
-    __syncthreads();
-    for (int j = 0; j < TILE; ++j) {
-      float o[KC];
+    cluster_arrive();
+
+    // 2. out[rows, slice] += coeff . oth[tile t - 1, slice].
+    if (t > 0)
+      coef_product<LDC, DS>(coef_s + ((t - 1) & 1) * BN * LDC, oth_s + (t - 1) % 3 * BN * LD,
+                            h, rg, dg, acc);
+    // Every block's partials of tile t are written; the last iteration's
+    // wait also keeps each block alive while the others read its partials.
+    cluster_wait();
+    if (t == n_tiles) break;
+
+    // 3. The full-D logits of tile t: the partials summed in rank order,
+    // the same sum in every block of the cluster.
+    for (int q = 0; q < ranks; ++q) {
+      const float* p = cluster.map_shared_rank(part, q);
+      float v[4][4];
 #pragma unroll
-      for (int k = 0; k < KC; ++k) o[k] = oth_s[j * (D + 4) + cl + 64 * k];
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float pv = p_s[(rg * 8 + i) * (TILE + 1) + j];
+        for (int j = 0; j < 4; ++j) v[i][j] = p[(4 * i + j) * 32];
 #pragma unroll
-        for (int k = 0; k < KC; ++k) acc[i][k] = fmaf(pv, o[k], acc[i][k]);
-      }
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = q ? s[i][j] + v[i][j] : v[i][j];
     }
+
+    // 4. Tile t's coefficients, transposed into shared memory.
+    const int col0 = t * BN;
+    float lc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = col0 + ac + 8 * j;
+      lc[j] = (COL && c < B) ? lse_col[c] : 0.f;
+    }
+    float* coef = coef_s + (t & 1) * BN * LDC;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = row0 + ar + 4 * i, c = col0 + ac + 8 * j;
+        float v = 0.f;
+        if (r < B && c < B) {
+          const float l = s[i][j] * inv_tau, eye = r == c ? 1.f : 0.f;
+          if (ROW) v = s_row * (expf(l - lr[i]) - eye);
+          if (COL) v = fmaf(s_col, expf(l - lc[j]) - eye, v);
+        }
+        coef[(ac + 8 * j) * LDC + ar + 4 * i] = v;
+      }
   }
-  const float sc = *scale;
+
+  // The second half's sums through shared memory (the operand tiles' room),
+  // added to the first half's: out = first + second.
+  float4* red = reinterpret_cast<float4*>(oth_s) + (8 * rg) * (DS / 4) + dg;
+  __syncthreads();  // the last tile's product has read the operand tiles
+  if (h == 1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        red[i * (DS / 4) + 16 * v] =
+            make_float4(acc[i][v][0], acc[i][v][1], acc[i][v][2], acc[i][v][3]);
+  }
+  __syncthreads();
+  if (h == 1) return;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int gi = row0 + rg * 8 + i;
-    if (gi < B) {
+    const int r = row0 + 8 * rg + i;
+    if (r >= B) continue;
 #pragma unroll
-      for (int k = 0; k < KC; ++k) out[(size_t)gi * D + cl + 64 * k] = acc[i][k] * sc;
+    for (int v = 0; v < NV; ++v) {
+      const float4 o = red[i * (DS / 4) + 16 * v];
+      *reinterpret_cast<float4*>(out + (size_t)r * D + d0 + 4 * dg + 64 * v) =
+          make_float4(acc[i][v][0] + o.x, acc[i][v][1] + o.y, acc[i][v][2] + o.z,
+                      acc[i][v][3] + o.w);
     }
   }
 }
 
-size_t fwd_smem(int D) { return (size_t)2 * TILE * (D + 4) * sizeof(float); }
-
-size_t bwd_smem(int D) {
-  return fwd_smem(D) + (size_t)TILE * (TILE + 1) * sizeof(float);
-}
-
-template <bool LSE_BY_COL, int KC>
-int launch_bwd_kc(const void* own, const void* oth, const void* lse, const void* scale,
-                  void* out, int B, int D, float inv_tau, cudaStream_t stream) {
-  auto kernel = nt_xent_bwd_kernel<LSE_BY_COL, KC>;
-  const size_t smem = bwd_smem(D);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int WM, int DS, bool ROW, bool COL>
+int launch_bwd(const float* own, const float* oth, const float* lse_row, const float* lse_col,
+               const float* scales, float* out, int B, int D, float inv_tau,
+               cudaStream_t stream) {
+  using P = Plan<WM, DS>;
+  auto kernel = nt_xent_bwd_cluster_kernel<WM, DS, ROW, COL>;
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = allow_smem(kernel, P::SMEM, smem_set);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(B + TILE - 1) / TILE, THREADS, smem, stream>>>(
-      (const float*)own, (const float*)oth, (const float*)lse, (const float*)scale,
-      (float*)out, B, D, inv_tau);
+  const unsigned ranks = (unsigned)(D / DS);
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = ranks;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(ranks, (unsigned)((B + P::BM - 1) / P::BM), 1);
+  config.blockDim = dim3(P::THREADS, 1, 1);
+  config.dynamicSmemBytes = P::SMEM;
+  config.stream = stream;
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, own, oth, lse_row, lse_col, scales, out, B, D,
+                           inv_tau);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <bool LSE_BY_COL>
-int launch_bwd(const void* own, const void* oth, const void* lse, const void* scale,
-               void* out, int B, int D, float inv_tau, void* stream) {
+// ds: the D slice of a block (128 or 64, dividing D; D / ds blocks a
+// cluster); wm: warps along the rows (4: 64-row tiles, 256 threads; 1:
+// 16-row tiles, 64 threads). The wrapper's launch plan picks both.
+template <bool ROW, bool COL>
+int launch_bwd_plan(const void* own, const void* oth, const void* lse_row, const void* lse_col,
+                    const void* scales, void* out, int B, int D, float inv_tau, int ds, int wm,
+                    void* stream) {
   if (B == 0) return 0;
-  if (D % 64 != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (D / 64) {
-    case 1: return launch_bwd_kc<LSE_BY_COL, 1>(own, oth, lse, scale, out, B, D, inv_tau, s);
-    case 2: return launch_bwd_kc<LSE_BY_COL, 2>(own, oth, lse, scale, out, B, D, inv_tau, s);
-    case 3: return launch_bwd_kc<LSE_BY_COL, 3>(own, oth, lse, scale, out, B, D, inv_tau, s);
-    case 4: return launch_bwd_kc<LSE_BY_COL, 4>(own, oth, lse, scale, out, B, D, inv_tau, s);
-    case 5: return launch_bwd_kc<LSE_BY_COL, 5>(own, oth, lse, scale, out, B, D, inv_tau, s);
-    case 6: return launch_bwd_kc<LSE_BY_COL, 6>(own, oth, lse, scale, out, B, D, inv_tau, s);
-    case 7: return launch_bwd_kc<LSE_BY_COL, 7>(own, oth, lse, scale, out, B, D, inv_tau, s);
-    case 8: return launch_bwd_kc<LSE_BY_COL, 8>(own, oth, lse, scale, out, B, D, inv_tau, s);
-    default: return (int)cudaErrorInvalidValue;  // D > 512
-  }
+  if (D % 64 != 0 || D > 512 || (ds != 64 && ds != 128) || D % ds != 0)
+    return (int)cudaErrorInvalidValue;
+  const float *o = (const float*)own, *t = (const float*)oth;
+  const float *lr = (const float*)lse_row, *lc = (const float*)lse_col;
+  const float* s = (const float*)scales;
+  float* y = (float*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (wm == 4 && ds == 128)
+    return launch_bwd<4, 128, ROW, COL>(o, t, lr, lc, s, y, B, D, inv_tau, st);
+  if (wm == 4 && ds == 64)
+    return launch_bwd<4, 64, ROW, COL>(o, t, lr, lc, s, y, B, D, inv_tau, st);
+  if (wm == 1 && ds == 128)
+    return launch_bwd<1, 128, ROW, COL>(o, t, lr, lc, s, y, B, D, inv_tau, st);
+  if (wm == 1 && ds == 64)
+    return launch_bwd<1, 64, ROW, COL>(o, t, lr, lc, s, y, B, D, inv_tau, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// All pointers are contiguous f32 on one device: zi, zj (B, D); out (B, 2)
-// for the forward and (B, D) for the backwards; lse (B,); scale one float.
-// D is a multiple of 64, at most 512.
+// All pointers are contiguous, 16-byte-aligned f32 on one device: zi, zj,
+// own, oth (B, D); out (B, 2) for the forward and (B, D) for the
+// backwards; lse* (B,); scale one float, scales two (s_row, s_col). D is a
+// multiple of 64, at most 512.
 extern "C" int nt_xent_fwd(const void* zi, const void* zj, void* out, int B, int D,
                            float inv_tau, void* stream) {
   if (B == 0) return 0;
   if (D % 64 != 0 || D > 512) return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_smem(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      nt_xent_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = allow_smem(nt_xent_fwd_kernel, fwd_smem(512), smem_set);
   if (err != cudaSuccess) return (int)err;
-  nt_xent_fwd_kernel<<<(B + TILE - 1) / TILE, THREADS, smem, (cudaStream_t)stream>>>(
+  nt_xent_fwd_kernel<<<(B + TILE - 1) / TILE, THREADS, fwd_smem(D), (cudaStream_t)stream>>>(
       (const float*)zi, (const float*)zj, (float*)out, B, D, inv_tau);
   return (int)cudaGetLastError();
 }
 
+extern "C" int nt_xent_bwd(const void* own, const void* oth, const void* lse_row,
+                           const void* lse_col, const void* scales, void* out, int B, int D,
+                           float inv_tau, int ds, int wm, void* stream) {
+  return launch_bwd_plan<true, true>(own, oth, lse_row, lse_col, scales, out, B, D, inv_tau,
+                                     ds, wm, stream);
+}
+
 extern "C" int nt_xent_bwd_rows(const void* zi, const void* zj, const void* lse,
-                                const void* scale, void* out, int B, int D,
-                                float inv_tau, void* stream) {
-  return launch_bwd<false>(zi, zj, lse, scale, out, B, D, inv_tau, stream);
+                                const void* scale, void* out, int B, int D, float inv_tau,
+                                int ds, int wm, void* stream) {
+  return launch_bwd_plan<true, false>(zi, zj, lse, nullptr, scale, out, B, D, inv_tau, ds, wm,
+                                      stream);
 }
 
 extern "C" int nt_xent_bwd_cols(const void* zj, const void* zi, const void* lse,
-                                const void* scale, void* out, int B, int D,
-                                float inv_tau, void* stream) {
-  return launch_bwd<true>(zj, zi, lse, scale, out, B, D, inv_tau, stream);
+                                const void* scale, void* out, int B, int D, float inv_tau,
+                                int ds, int wm, void* stream) {
+  return launch_bwd_plan<false, true>(zj, zi, nullptr, lse, scale, out, B, D, inv_tau, ds, wm,
+                                      stream);
 }

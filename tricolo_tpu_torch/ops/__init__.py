@@ -11,7 +11,9 @@ PyTorch version and a launch counter.
   ``fused_bn_pool._dy_kernel``.
 * ``nt_xent_fwd`` / ``nt_xent_bwd_rows`` / ``nt_xent_bwd_cols`` (K4-K6,
   ``csrc/nt_xent.cu``) — the blocked online-softmax NT-Xent; replace
-  ``nt_xent_pallas._fwd_kernel`` / ``_bwd_kernel`` / ``_bwd_cols_kernel``.
+  ``nt_xent_pallas._fwd_kernel`` / ``_bwd_kernel`` / ``_bwd_cols_kernel``;
+  ``nt_xent_bwd`` computes K5's and K6's terms of one operand in one launch
+  (the loss's backward).
 * ``gather_tiles`` (K7, ``csrc/tile_gather.cu``) — halo'd tile gather from
   a dense grid by global tile id; replaces ``_graveyard/dma_tiles._gather_kernel``.
 
@@ -31,8 +33,10 @@ from .bn_relu_pool import (
 from .conv3d import conv3d_valid_explicit_dgrad
 from .nt_xent import (
     blocked_nt_xent_loss,
+    nt_xent_bwd,
     nt_xent_bwd_cols,
     nt_xent_bwd_cols_plain,
+    nt_xent_bwd_plain,
     nt_xent_bwd_rows,
     nt_xent_bwd_rows_plain,
     nt_xent_fwd,
@@ -57,6 +61,7 @@ KERNELS = (
     nt_xent_fwd,
     nt_xent_bwd_rows,
     nt_xent_bwd_cols,
+    nt_xent_bwd,
     gather_tiles,
     scatter_tiles_global,
 )
@@ -87,8 +92,10 @@ __all__ = [
     "gather_tiles_ps",
     "launches",
     "masked_bn_relu_pool_train",
+    "nt_xent_bwd",
     "nt_xent_bwd_cols",
     "nt_xent_bwd_cols_plain",
+    "nt_xent_bwd_plain",
     "nt_xent_bwd_rows",
     "nt_xent_bwd_rows_plain",
     "nt_xent_fwd",

@@ -9,23 +9,26 @@ nothing O(B²) reaches device memory. They replace the Pallas TPU kernels of
   and the logsumexp of ``zi·zjᵀ/τ`` → (B, 2);
 * ``nt_xent_bwd_rows`` (K5, ``_bwd_kernel``) — ``(P − I)·zj·s``;
 * ``nt_xent_bwd_cols`` (K6, ``_bwd_cols_kernel``) — ``(P − I)ᵀ·zi·s``;
+* ``nt_xent_bwd`` (K5 + K6 in one launch) — both terms of one operand's
+  gradient from one pass over its logits, as the JAX ``_bwd`` adds them;
 
 with ``P = exp(logits − lse)`` recomputed from the saved logsumexps and
-``s`` a one-element f32 tensor (the loss cotangent times the direction's
-weight over τ·B). On a CUDA tensor each wrapper launches its kernel or
-raises; on a CPU tensor it runs its ``*_plain`` version, explicit torch
-formulas over the materialised logits. The sums run in another order, so
-kernel and plain version agree to f32 rounding, not bit for bit.
+``s`` f32 device tensors (the loss cotangent times the direction's weight
+over τ·B). On a CUDA tensor each wrapper launches its kernel or raises; on
+a CPU tensor it runs its ``*_plain`` version, explicit torch formulas over
+the materialised logits. The sums run in another order, so kernel and
+plain version agree to f32 rounding, not bit for bit.
 
 ``blocked_nt_xent_loss`` is the counterpart of ``pallas_nt_xent_loss``: L2
 normalisation in torch, then an autograd Function with the JAX
-``_fwd``/``_bwd`` composition (two K4 launches forward; two K5 and two K6
-backward).
+``_fwd``/``_bwd`` composition (two K4 launches forward, two two-term
+launches backward).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -59,6 +62,33 @@ def nt_xent_bwd_cols_plain(zj, zi, lse, scale, inv_tau: float):
     return (_coeff(zi, zj, lse, inv_tau).T @ zi) * scale
 
 
+def nt_xent_bwd_plain(own, oth, lse_row, lse_col, scales, inv_tau: float):
+    """Both terms of one operand's gradient: ``nt_xent_bwd_rows_plain(own,
+    oth, lse_row, scales[0]) + nt_xent_bwd_cols_plain(own, oth, lse_col,
+    scales[1])``, i.e. Σ_c [s_row·(exp(l_rc − lse_row[r]) − δ_rc) +
+    s_col·(exp(l_rc − lse_col[c]) − δ_rc)]·oth_c with l = own·othᵀ/τ."""
+    return (nt_xent_bwd_rows_plain(own, oth, lse_row, scales[0:1], inv_tau)
+            + nt_xent_bwd_cols_plain(own, oth, lse_col, scales[1:2], inv_tau))
+
+
+# An H100's SMs: the backward takes 64-row tiles once they fill the card.
+_SMS = 132
+
+
+def bwd_launch_plan(B: int, D: int) -> tuple[int, int]:
+    """(ds, wm) of the backward kernel on (B, D) operands. A cluster of
+    D/ds blocks shares each row tile, a block a ds-wide slice of D (128
+    where it divides D, else 64); the row tile is 64 rows (wm = 4 warps
+    deep, 256 threads) once ⌈B/64⌉·D/ds blocks fill the card, else 16 rows
+    (wm = 1, 64 threads) so that a small batch still spreads over the SMs
+    (B = 128, D = 512: 8 row tiles × 4 = 32 blocks)."""
+    ds = 128 if D % 128 == 0 else 64
+    wm = 4 if -(-B // 64) * (D // ds) >= _SMS else 1
+    if -(-B // (16 * wm)) > 65535:
+        raise ValueError(f"the NT-Xent backward takes at most 65535 row tiles, got B = {B}")
+    return ds, wm
+
+
 def _check(zi, zj, *rest):
     if zi.ndim != 2 or zi.shape != zj.shape:
         raise ValueError(f"expected two (B, D) operands, got {tuple(zi.shape)}/{tuple(zj.shape)}")
@@ -70,16 +100,21 @@ def _check(zi, zj, *rest):
             raise TypeError(f"the NT-Xent kernels take float32, got {t.dtype}")
         if t.device != zi.device or not t.is_contiguous():
             raise ValueError("the NT-Xent kernels need contiguous inputs on one device")
+    if zi.data_ptr() % 16 or zj.data_ptr() % 16:
+        raise ValueError("the NT-Xent kernels read the (B, D) operands 16 bytes at a time: "
+                         "they must start 16-byte aligned")
     return B, D
 
 
+@functools.cache
 def _lib():
     lib = _build.load("nt_xent")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.nt_xent_fwd.argtypes = [ptr] * 3 + [i32, i32, ctypes.c_float, ptr]
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.nt_xent_fwd.argtypes = [ptr] * 3 + [i32, i32, f32, ptr]
+    lib.nt_xent_bwd.argtypes = [ptr] * 6 + [i32, i32, f32, i32, i32, ptr]
     for name in ("nt_xent_bwd_rows", "nt_xent_bwd_cols"):
-        getattr(lib, name).argtypes = [ptr] * 5 + [i32, i32, ctypes.c_float, ptr]
-    for name in ("nt_xent_fwd", "nt_xent_bwd_rows", "nt_xent_bwd_cols"):
+        getattr(lib, name).argtypes = [ptr] * 5 + [i32, i32, f32, i32, i32, ptr]
+    for name in ("nt_xent_fwd", "nt_xent_bwd", "nt_xent_bwd_rows", "nt_xent_bwd_cols"):
         getattr(lib, name).restype = ctypes.c_int
     return lib
 
@@ -107,16 +142,18 @@ def nt_xent_fwd(zi, zj, inv_tau: float):
     return out
 
 
-def _bwd(name, wrapper, own, oth, lse, scale, inv_tau):
+def _bwd(wrapper, own, oth, lses, scales, inv_tau):
+    name = wrapper.__name__
     _device(own, name)
-    B, D = _check(own, oth, lse, scale)
-    if lse.shape != (B,) or scale.numel() != 1:
-        raise ValueError(f"lse must be ({B},) and scale one element")
+    B, D = _check(own, oth, *lses, scales)
+    if any(t.shape != (B,) for t in lses) or scales.numel() != len(lses):
+        raise ValueError(f"{name}: each lse must be ({B},), with one scale per lse")
+    ds, wm = bwd_launch_plan(B, D)
     out = torch.empty_like(own)
     with torch.cuda.device(own.device):
         status = getattr(_lib(), name)(
-            own.data_ptr(), oth.data_ptr(), lse.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), B, D, float(inv_tau),
+            own.data_ptr(), oth.data_ptr(), *(t.data_ptr() for t in lses), scales.data_ptr(),
+            out.data_ptr(), B, D, float(inv_tau), ds, wm,
             torch.cuda.current_stream(own.device).cuda_stream,
         )
     _build.check(status, name)
@@ -124,23 +161,35 @@ def _bwd(name, wrapper, own, oth, lse, scale, inv_tau):
     return out
 
 
+def nt_xent_bwd(own, oth, lse_row, lse_col, scales, inv_tau: float):
+    """Both backward terms of one operand (``nt_xent_bwd_plain``) in one
+    launch, the logits computed once. own, oth (B, D) f32; lse_row,
+    lse_col (B,) f32; scales a two-element f32 tensor (s_row, s_col)."""
+    if own.device.type == "cpu":
+        return nt_xent_bwd_plain(own, oth, lse_row, lse_col, scales, inv_tau)
+    return _bwd(nt_xent_bwd, own, oth, (lse_row, lse_col), scales, inv_tau)
+
+
 def nt_xent_bwd_rows(zi, zj, lse, scale, inv_tau: float):
     """dzi = (P − I)·zj·scale with P = exp(zi·zjᵀ/τ − lse[:, None]); K5 on
-    CUDA. lse (B,) f32; scale a one-element f32 tensor."""
+    CUDA (the backward kernel with its row term alone). lse (B,) f32;
+    scale a one-element f32 tensor."""
     if zi.device.type == "cpu":
         return nt_xent_bwd_rows_plain(zi, zj, lse, scale, inv_tau)
-    return _bwd("nt_xent_bwd_rows", nt_xent_bwd_rows, zi, zj, lse, scale, inv_tau)
+    return _bwd(nt_xent_bwd_rows, zi, zj, (lse,), scale, inv_tau)
 
 
 def nt_xent_bwd_cols(zj, zi, lse, scale, inv_tau: float):
     """dzj = (P − I)ᵀ·zi·scale with P = exp(zi·zjᵀ/τ − lse[:, None]); K6 on
-    CUDA. lse (B,) f32 per row of zi; scale a one-element f32 tensor."""
+    CUDA (the backward kernel with its column term alone). lse (B,) f32 per
+    row of zi; scale a one-element f32 tensor."""
     if zj.device.type == "cpu":
         return nt_xent_bwd_cols_plain(zj, zi, lse, scale, inv_tau)
-    return _bwd("nt_xent_bwd_cols", nt_xent_bwd_cols, zj, zi, lse, scale, inv_tau)
+    return _bwd(nt_xent_bwd_cols, zj, zi, (lse,), scale, inv_tau)
 
 
 nt_xent_fwd.launches = 0
+nt_xent_bwd.launches = 0
 nt_xent_bwd_rows.launches = 0
 nt_xent_bwd_cols.launches = 0
 
@@ -164,13 +213,12 @@ class _BlockedNTXent(torch.autograd.Function):
     def backward(ctx, ct):
         zis, zjs, lse_a, lse_b = ctx.saved_tensors
         inv_tau, alpha, batch = ctx.inv_tau, ctx.alpha, zis.shape[0]
-        rows = nt_xent_bwd_rows if ctx.use_kernels else nt_xent_bwd_rows_plain
-        cols = nt_xent_bwd_cols if ctx.use_kernels else nt_xent_bwd_cols_plain
+        bwd = nt_xent_bwd if ctx.use_kernels else nt_xent_bwd_plain
         ct = ct.float().reshape(1)
-        scale_a = (ct * alpha * inv_tau / batch).contiguous()
-        scale_b = (ct * (1.0 - alpha) * inv_tau / batch).contiguous()
-        d_zis = rows(zis, zjs, lse_a, scale_a, inv_tau) + cols(zis, zjs, lse_b, scale_b, inv_tau)
-        d_zjs = cols(zjs, zis, lse_a, scale_a, inv_tau) + rows(zjs, zis, lse_b, scale_b, inv_tau)
+        scale_a = ct * alpha * inv_tau / batch
+        scale_b = ct * (1.0 - alpha) * inv_tau / batch
+        d_zis = bwd(zis, zjs, lse_a, lse_b, torch.cat([scale_a, scale_b]), inv_tau)
+        d_zjs = bwd(zjs, zis, lse_b, lse_a, torch.cat([scale_b, scale_a]), inv_tau)
         return d_zis, d_zjs, None, None, None
 
 
@@ -178,7 +226,8 @@ def blocked_nt_xent_loss(zis, zjs, temperature: float = 0.1, alpha_weight: float
                          norm: bool = True, use_kernels: bool = True):
     """Twin of ``losses.nt_xent_loss`` on the blocked kernels (the port of
     ``pallas_nt_xent_loss``): f32, L2 normalisation in torch, the O(B²)
-    work in K4-K6. ``use_kernels=False`` runs their plain versions."""
+    work in K4 and the two-term backward. ``use_kernels=False`` runs their
+    plain versions."""
     zis, zjs = zis.float(), zjs.float()
     if norm:
         zis, zjs = l2_normalize(zis), l2_normalize(zjs)

@@ -15,10 +15,13 @@ Phases (any failure exits non-zero and prints no result line):
    on), and K2 (scatter_tiles_ps) at the block-2 handoff, in f32 and bf16,
    bit-exact (its bound reads only the rows with a valid id); K3
    (bn_relu_pool_bwd) at the five flagship shapes, in f32 and bf16, on
-   K1's argmax of inputs with ties and dead windows, bit-exact;
-   K4-K6 (nt_xent_fwd / _bwd_rows / _bwd_cols) and the two-term backward
-   (nt_xent_bwd, K5's and K6's terms of one operand in one launch: the
-   loss's backward) at B = 128 and 8192, D = 512, f32, within
+   K1's argmax of inputs with ties and dead windows, bit-exact, also at the
+   dense plan's two tile-sparse blocks;
+   K4-K6 (nt_xent_fwd / _bwd_rows / _bwd_cols), the pair forward
+   (nt_xent_fwd_pair, both directions' logsumexps from one pass over the
+   logits: the loss's forward) and the two-term backward (nt_xent_bwd,
+   K5's and K6's terms of one operand in one launch: the loss's backward)
+   at B = 128 and 8192, D = 512, f32, within
    ``NT_XENT_TOL``·max|plain|; K7 (gather_tiles) at the dense
    plan's four gathers and K2's global entry (scatter_tiles_global) at its
    four handoffs, on the active tiles of a real packed batch (budget 32,768
@@ -40,8 +43,8 @@ Phases (any failure exits non-zero and prints no result line):
 7. training — ``Trainer.fit`` for one epoch of the 256-model synthetic
    train split (768 captions: 6 steps of 128) at the flagship widths, bf16,
    ``use_pallas=true``; per-step losses (finite), CUDA-event step times and
-   launches (K1 5, K2 2, K3 5, K4 6, two-term backward 6, K5/K6 alone 0
-   a step), peak memory; the
+   launches (K1 5, K2 2, K3 5, pair forward 3, two-term backward 6, K4/K5/K6
+   alone 0 a step), peak memory; the
    launch counts are reset just before ``fit`` and read just after it;
 8. the trained checkpoint serves: ``RetrievalServer.from_checkpoint`` builds
    an index and answers a query;
@@ -52,17 +55,18 @@ Phases (any failure exits non-zero and prints no result line):
     and a ``torch.profiler`` breakdown of one such step;
 10b. dense-plan training — ``Trainer.fit`` for one epoch on the packed
     transfer with tile-sparse blocks 1-2 (launches a step exactly K7 4,
-    K2-global 4, K1 5, K3 5, K4 6, two-term backward 6, per-sample K2 and
-    K5/K6 alone 0), the f32 step
+    K2-global 4, K1 5, K3 5, pair forward 3, two-term backward 6, per-sample
+    K2 and K4/K5/K6 alone 0), the f32 step
     kernel-vs-plain with phase 9's tolerances, a profiled step;
 10c. a diagnostic beside the main path: the windowed and dense-plan train
     steps with ``VoxelCNNEncoder.explicit_dgrad`` off and on, a profile of
     one explicit-dgrad dense-plan step (top device kernels and operators,
     idle share, the port kernels' share), and block 2's input gradient alone
     both ways with the kernels that compute it;
-11. the kernels line (a row per TPU kernel, eight wrappers; the rows of
-    K5 and K6 count the two-term launches, each of which computes both, and
-    carry the two-term entry's times), then the card line, then
+11. the kernels line (a row per TPU kernel, ten wrappers; the row of K4
+    counts the pair launches, each of which computes K4 twice, and carries
+    the pair entry's times, the rows of K5 and K6 likewise the two-term
+    launches and times), then the card line, then
     ``{"ok": true, ...}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. The script imports nothing
@@ -83,13 +87,15 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 F32_TOL = 1e-5
-# K4-K6 against their plain versions: the logits' 512-term dot products and
+# K4-K6 (and the pair forward, the two-term backward) against their plain
+# versions: the logits' 512-term dot products and
 # the B-term sums run in another order (errors ~1e-6 relative per logit,
 # carried through exp by at most |logit| <= 1/τ = 10).
 NT_XENT_TOL = 1e-4
 INV_TAU = 10.0
 # One f32 train step, kernel path vs plain path from the same state. Only
-# K4-K6 differ from their plain versions (K1-K3 are bit-exact): the losses
+# the NT-Xent kernels differ from their plain versions (K1-K3 are
+# bit-exact): the losses
 # to f32 rounding of the logsumexps; the gradients by that relative error
 # carried back through the encoders (per tensor, of its largest magnitude);
 # the running variances come from the bit-identical forward.
@@ -295,11 +301,13 @@ def k3_inputs(torch, shape, dtype, two_masks, gen):
 
 
 def check_k3(torch, shapes, flush):
+    """K3 against its plain version, bit-exact in f32 and bf16, timed in
+    bf16; rows of ``plan`` windowed_compact are the kernels line's total."""
     from tricolo_tpu_torch.ops import bn_relu_pool_bwd, bn_relu_pool_bwd_plain
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     max_err, rows = 0.0, []
-    for name, shape, two in shapes:
+    for plan, name, shape, two in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             args = k3_inputs(torch, shape, dtype, two, gen)
             got = bn_relu_pool_bwd(*args)
@@ -307,7 +315,7 @@ def check_k3(torch, shapes, flush):
             ref = bn_relu_pool_bwd_plain(*args)
             err = (got.float() - ref.float()).abs().max().item()
             max_err = max(max_err, err)
-            require(torch.equal(got, ref), f"K3 {name} {dtype}: kernel != plain ({err})")
+            require(torch.equal(got, ref), f"K3 {plan} {name} {dtype}: kernel != plain ({err})")
             del got, ref
             if dtype == torch.bfloat16:  # the main path's dtype
                 y, ga, idx, stats = args[:4]
@@ -315,26 +323,30 @@ def check_k3(torch, shapes, flush):
                 ms = time_ms(lambda: bn_relu_pool_bwd(*args), torch, flush=flush)
                 plain = time_ms(lambda: bn_relu_pool_bwd_plain(*args), torch, repeats=5,
                                 flush=flush)
-                rows.append({"block": name, "shape": list(shape), "dtype": "bf16",
-                             "ms": ms, "plain_ms": plain, "bound_ms": bound})
-                log(f"  K3 {name:7s} {tuple(shape)} bf16: {ms:.4f} ms "
-                    f"(plain {plain:.4f} ms, bound {bound:.4f} ms)")
+                rows.append({"plan": plan, "block": name, "shape": list(shape), "dtype": "bf16",
+                             "ms": ms, "plain_ms": plain, "bound_ms": bound,
+                             "main": plan == "windowed_compact"})
+                log(f"  K3 {plan:16s} {name:7s} {tuple(shape)} bf16: {ms:.4f} ms "
+                    f"(plain {plain:.4f} ms, bound {bound:.4f} ms, {bound / ms:.0%} of bound)")
             del args
             torch.cuda.empty_cache()
     return max_err, rows
 
 
 def check_nt_xent(torch, sizes, flush):
-    """K4-K6 and the two-term backward against their plain versions on
-    L2-normalised f32 (B, D) embeddings; bound = flops / 67 TFLOP/s (2B²D
-    forward; 4B²D each backward, the two-term one included: one logits and
-    one coefficient product), the bytes being far smaller. The two-term
-    entry's plain version is K5's plus K6's (the logits twice)."""
+    """K4-K6, the pair forward and the two-term backward against their
+    plain versions on L2-normalised f32 (B, D) embeddings; bound = flops /
+    67 TFLOP/s (2B²D each forward, the pair included: its column
+    statistics reuse the logits; 4B²D each backward, the two-term one
+    included: one logits and one coefficient product), the bytes being far
+    smaller. The pair's plain version materialises the logits once and
+    reduces them both ways; the two-term entry's is K5's plus K6's (the
+    logits twice)."""
     from tricolo_tpu_torch import ops
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    errs = dict.fromkeys(("nt_xent_fwd", "nt_xent_bwd_rows", "nt_xent_bwd_cols",
-                          "nt_xent_bwd"), 0.0)
+    errs = dict.fromkeys(("nt_xent_fwd", "nt_xent_fwd_pair", "nt_xent_bwd_rows",
+                          "nt_xent_bwd_cols", "nt_xent_bwd"), 0.0)
     rows = {name: [] for name in errs}
     for B, D in sizes:
         zi, zj = (torch.nn.functional.normalize(
@@ -345,6 +357,8 @@ def check_nt_xent(torch, sizes, flush):
         scales = torch.tensor([0.25 * INV_TAU / B, 0.75 * INV_TAU / B], device="cuda")
         cases = [
             ("nt_xent_fwd", ops.nt_xent_fwd, ops.nt_xent_fwd_plain, (zi, zj, INV_TAU), 2),
+            ("nt_xent_fwd_pair", ops.nt_xent_fwd_pair, ops.nt_xent_fwd_pair_plain,
+             (zi, zj, INV_TAU), 2),
             ("nt_xent_bwd_rows", ops.nt_xent_bwd_rows, ops.nt_xent_bwd_rows_plain,
              (zi, zj, lse, scale, INV_TAU), 4),
             ("nt_xent_bwd_cols", ops.nt_xent_bwd_cols, ops.nt_xent_bwd_cols_plain,
@@ -529,17 +543,20 @@ def ellipsoid_batch(cfg, n_points=8192, packed=False):
 
 # ------------------------------------------------------------ phases 7-10
 
-# A train step: 3 pairwise losses, each 2 K4 and 2 two-term backward launches
-# (d_zis and d_zjs); K5 and K6 alone are not on the path.
+# A train step: 3 pairwise losses, each 1 pair-forward and 2 two-term
+# backward launches (d_zis and d_zjs); K4, K5 and K6 alone are not on the
+# path.
 TRAIN_LAUNCHES = {"bn_relu_pool": 5, "scatter_tiles_ps": 2, "bn_relu_pool_bwd": 5,
-                  "nt_xent_fwd": 6, "nt_xent_bwd_rows": 0, "nt_xent_bwd_cols": 0,
-                  "nt_xent_bwd": 6, "gather_tiles": 0, "scatter_tiles_global": 0}
+                  "nt_xent_fwd": 0, "nt_xent_fwd_pair": 3, "nt_xent_bwd_rows": 0,
+                  "nt_xent_bwd_cols": 0, "nt_xent_bwd": 6, "gather_tiles": 0,
+                  "scatter_tiles_global": 0}
 # The dense-input plan, 2 sparse blocks: K7 for x and the mask of each, K2's
 # global entry for each handoff, K1 in all five blocks; no per-sample K2.
 DENSE_EVAL_LAUNCHES = {"bn_relu_pool": 5, "scatter_tiles_ps": 0, "bn_relu_pool_bwd": 0,
-                       "nt_xent_fwd": 0, "nt_xent_bwd_rows": 0, "nt_xent_bwd_cols": 0,
-                       "nt_xent_bwd": 0, "gather_tiles": 4, "scatter_tiles_global": 4}
-DENSE_TRAIN_LAUNCHES = dict(DENSE_EVAL_LAUNCHES, bn_relu_pool_bwd=5, nt_xent_fwd=6,
+                       "nt_xent_fwd": 0, "nt_xent_fwd_pair": 0, "nt_xent_bwd_rows": 0,
+                       "nt_xent_bwd_cols": 0, "nt_xent_bwd": 0, "gather_tiles": 4,
+                       "scatter_tiles_global": 4}
+DENSE_TRAIN_LAUNCHES = dict(DENSE_EVAL_LAUNCHES, bn_relu_pool_bwd=5, nt_xent_fwd_pair=3,
                             nt_xent_bwd=6)
 
 
@@ -632,7 +649,8 @@ def profile_step(torch, step, batch, lr) -> dict:
     # The port's kernels by their device function names (csrc/*.cu).
     names = {"K1": ("::bn_relu_pool_kernel",),
              "K2": ("::scatter_pass_kernel", "::inverse_kernel", "::inverse_global_kernel"),
-             "K3": ("::bn_relu_pool_bwd_kernel",), "K4": ("::nt_xent_fwd_kernel",),
+             "K3": ("::bn_relu_pool_bwd_kernel",),
+             "K4": ("::nt_xent_fwd_tile_kernel", "::nt_xent_fwd_combine_kernel"),
              "K5-K6": ("::nt_xent_bwd_cluster_kernel",), "K7": ("::tile_gather_kernel",)}
     ours = dict.fromkeys(names, 0.0)
     for e in events:
@@ -987,9 +1005,7 @@ def main() -> int:
     k1_err, k1_rows = check_k1(torch, k1_shapes, flush)
     ids = torch.from_numpy(first["voxel_row_ids"]).cuda()
     k2_err, k2_rows = check_k2(torch, ids, cfg.data.voxel_size // 4, flush)
-    k3_shapes = [(name, shape, two) for plan, name, shape, two in k1_shapes
-                 if plan == "windowed_compact"]
-    k3_err, k3_rows = check_k3(torch, k3_shapes, flush)
+    k3_err, k3_rows = check_k3(torch, k1_shapes, flush)
     nt_errs, nt_rows = check_nt_xent(torch, [(B, cfg.model.out_dim), (8192, cfg.model.out_dim)],
                                      flush)
     # K7 and K2's global entry at the dense-input plan's shapes, on the active
@@ -1014,7 +1030,8 @@ def main() -> int:
     report["dense_plan_tiles"] = {"budget": budget, "active": n_active}
     log(f"kernels: K1 max err {k1_err}, K2 max err {k2_err}, K3 max err {k3_err}, "
         f"K7 max err {k7_err}, K2-global max err {k2g_err} (bit-exact required); "
-        f"K4-K6 and two-term max err {nt_errs} (limit {NT_XENT_TOL}·max|plain|); dense plan: "
+        f"K4-K6, pair and two-term max err {nt_errs} (limit {NT_XENT_TOL}·max|plain|); dense "
+        f"plan: "
         f"{n_active} active tiles of a {budget}-row budget")
 
     # 4. serving path at flagship widths, bf16, through the kernels
@@ -1252,6 +1269,7 @@ def main() -> int:
         return sum(both(name).values())
 
     k1_main = [r for r in k1_rows if r["main"]]
+    k3_main = [r for r in k3_rows if r["main"]]
     kernels = [
         {"name": "bn_relu_pool", "route": "cuda",
          "source": "tricolo_tpu_torch/csrc/bn_relu_pool.cu",
@@ -1274,17 +1292,24 @@ def main() -> int:
          "replaces": "tricolo_tpu/ops/fused_bn_pool.py:134",
          "launches": on_paths("bn_relu_pool_bwd"),
          "launches_by_path": both("bn_relu_pool_bwd"), "max_abs_err": k3_err,
-         "ms": total(k3_rows, "ms"), "plain_ms": total(k3_rows, "plain_ms"),
-         "bound_ms": total(k3_rows, "bound_ms"), "bound_by": "bytes",
+         "ms": total(k3_main, "ms"), "plain_ms": total(k3_main, "plain_ms"),
+         "bound_ms": total(k3_main, "bound_ms"), "bound_by": "bytes",
          "library_ms": None, "shapes": k3_rows},
     ]
-    # K5's and K6's rows count the two-term launches (each computes both
-    # functions) and carry the two-term entry's numbers beside their own.
-    two = nt_rows["nt_xent_bwd"]
-    two_term = {"name": "nt_xent_bwd", "launches": on_paths("nt_xent_bwd"),
-                "launches_by_path": both("nt_xent_bwd"), "max_abs_err": nt_errs["nt_xent_bwd"],
-                "ms": total(two, "ms"), "plain_ms": total(two, "plain_ms"),
-                "bound_ms": total(two, "bound_ms"), "shapes": two}
+    # K4's row counts the pair launches (each computes K4 for both
+    # directions) and carries the pair entry's numbers beside its own; K5's
+    # and K6's rows count the two-term launches (each computes both
+    # functions) and carry the two-term entry's numbers.
+    def entry(name):
+        rows = nt_rows[name]
+        return {"name": name, "launches": on_paths(name), "launches_by_path": both(name),
+                "max_abs_err": nt_errs[name], "ms": total(rows, "ms"),
+                "plain_ms": total(rows, "plain_ms"), "bound_ms": total(rows, "bound_ms"),
+                "shapes": rows}
+
+    merged = {"nt_xent_fwd": ("pair", entry("nt_xent_fwd_pair")),
+              "nt_xent_bwd_rows": ("two_term", entry("nt_xent_bwd")),
+              "nt_xent_bwd_cols": ("two_term", entry("nt_xent_bwd"))}
     for name, line in (("nt_xent_fwd", 43), ("nt_xent_bwd_rows", 92), ("nt_xent_bwd_cols", 208)):
         rows = nt_rows[name]
         row = {"name": name, "route": "cuda", "source": "tricolo_tpu_torch/csrc/nt_xent.cu",
@@ -1293,10 +1318,10 @@ def main() -> int:
                "max_abs_err": nt_errs[name], "ms": total(rows, "ms"),
                "plain_ms": total(rows, "plain_ms"), "bound_ms": total(rows, "bound_ms"),
                "bound_by": "operations", "library_ms": None, "shapes": rows}
-        if name != "nt_xent_fwd":
-            row["launches_alone"] = row["launches"]
-            row["launches"] += two_term["launches"]
-            row["two_term"] = two_term
+        key, on_path = merged[name]
+        row["launches_alone"] = row["launches"]
+        row["launches"] += on_path["launches"]
+        row[key] = on_path
         kernels.append(row)
     kernels += [
         {"name": "gather_tiles", "route": "cuda",

@@ -77,5 +77,5 @@ def test_counters_stay_zero_on_cpu():
     assert all(torch.isfinite(v) for v in losses.values())
     assert ops.launches() == {name: 0 for name in (
         "bn_relu_pool", "scatter_tiles_ps", "bn_relu_pool_bwd", "nt_xent_fwd",
-        "nt_xent_bwd_rows", "nt_xent_bwd_cols", "nt_xent_bwd", "gather_tiles",
+        "nt_xent_fwd_pair", "nt_xent_bwd_rows", "nt_xent_bwd_cols", "nt_xent_bwd", "gather_tiles",
         "scatter_tiles_global")}

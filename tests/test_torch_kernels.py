@@ -3,11 +3,13 @@
 On the CPU: the plain versions' edge cases, the wrappers' dispatch (CPU
 tensors take the plain version and launch nothing) and the launch plans of
 K1 and K2 (vector width from shapes and addresses, the guards of their
-32-bit index math) and of the NT-Xent backward (row tile and D slice). On
-a card (``-m cuda``): each kernel against its plain version — K1-K3, K7 and
-both K2 entries bit-exact in f32 and bf16, K4-K6 and the two-term backward
-(f32 sums in another order) within ``NT_XENT_TOL · max|plain|`` — and the
-wrappers' refusals: a CUDA tensor never falls back to the plain version.
+32-bit index math) and of the NT-Xent forward (logits tile, grid, scratch)
+and backward (row tile and D slice). On a card (``-m cuda``): each kernel
+against its plain version — K1-K3, K7 and both K2 entries bit-exact in f32
+and bf16, K4-K6, the pair forward and the two-term backward (f32 sums in
+another order) within ``NT_XENT_TOL · max|plain|``, the forward also
+bit-identical from launch to launch — and the wrappers' refusals: a CUDA
+tensor never falls back to the plain version.
 Run the card tests with
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
@@ -33,6 +35,8 @@ from tricolo_tpu_torch.ops import (  # noqa: E402
     nt_xent_bwd_rows,
     nt_xent_bwd_rows_plain,
     nt_xent_fwd,
+    nt_xent_fwd_pair,
+    nt_xent_fwd_pair_plain,
     nt_xent_fwd_plain,
     scatter_tiles_global,
     scatter_tiles_global_plain,
@@ -169,6 +173,8 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(bn_relu_pool_bwd(*args), bn_relu_pool_bwd_plain(*args))
     zi, zj, lse, scale = _nt_inputs(40, 64, 0, "cpu")
     assert torch.equal(nt_xent_fwd(zi, zj, INV_TAU), nt_xent_fwd_plain(zi, zj, INV_TAU))
+    assert torch.equal(nt_xent_fwd_pair(zi, zj, INV_TAU),
+                       nt_xent_fwd_pair_plain(zi, zj, INV_TAU))
     assert torch.equal(nt_xent_bwd_rows(zi, zj, lse, scale, INV_TAU),
                        nt_xent_bwd_rows_plain(zi, zj, lse, scale, INV_TAU))
     assert torch.equal(nt_xent_bwd_cols(zj, zi, lse, scale, INV_TAU),
@@ -181,7 +187,7 @@ def test_cpu_tensors_take_the_plain_version():
     tiles, gids = _k2g_inputs(2, 16, 4, 2, 0, torch.float32, "cpu")
     assert torch.equal(scatter_tiles_global(tiles, gids, 2, 16),
                        scatter_tiles_global_plain(tiles, gids, 2, 16))
-    assert set(ops.launches().values()) == {0} and len(ops.launches()) == 9
+    assert set(ops.launches().values()) == {0} and len(ops.launches()) == 10
 
 
 def test_bwd_plain_routes_to_the_argmax_member():
@@ -250,6 +256,8 @@ def test_wrappers_reject_other_devices():
     zi, zj, lse, scale = (t.to("meta") for t in _nt_inputs(8, 64, 0, "cpu"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         nt_xent_fwd(zi, zj, INV_TAU)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        nt_xent_fwd_pair(zi, zj, INV_TAU)
     with pytest.raises(ValueError, match="cuda or cpu"):
         nt_xent_bwd_rows(zi, zj, lse, scale, INV_TAU)
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -348,6 +356,38 @@ def test_nt_xent_bwd_launch_plan(B, D, want):
         assert -(-B // 64) * (D // ds) >= 132
 
 
+@pytest.mark.parametrize(
+    "B,want",
+    [(1, (16, 32, 1, 1)), (17, (16, 32, 1, 2)), (128, (16, 32, 4, 8)), (512, (16, 32, 16, 32)),
+     (1000, (64, 64, 16, 16)), (1500, (128, 128, 12, 12)), (8192, (128, 128, 64, 64)),
+     (128 * 65535, (128, 128, 65535, 65535)), (128 * 65535 + 1, None)],
+)
+@pytest.mark.parametrize("pair", [True, False])
+def test_nt_xent_fwd_launch_plan(B, pair, want):
+    """The forward's logits tile: 128 × 128 once its grid fills the 132 SMs,
+    else 64 × 64 if that fills them, else 16 × 32 (B = 128: 32 blocks). The
+    scratch holds a (max, sum) per row for each column tile and, for the
+    pair, per column for each row tile: 8 MB at B = 8192. Past 65535 row
+    tiles (the grid's y limit) the plan raises."""
+    from tricolo_tpu_torch.ops.nt_xent import fwd_launch_plan
+
+    if want is None:
+        with pytest.raises(ValueError, match="65535"):
+            fwd_launch_plan(B, pair)
+        return
+    plan = fwd_launch_plan(B, pair)
+    assert (plan.bm, plan.bn, plan.col_tiles, plan.row_tiles) == want
+    assert plan.col_tiles * plan.bn >= B > (plan.col_tiles - 1) * plan.bn
+    assert plan.row_tiles * plan.bm >= B > (plan.row_tiles - 1) * plan.bm
+    assert plan.scratch == 2 * B * (plan.col_tiles + (plan.row_tiles if pair else 0))
+    blocks = plan.col_tiles * plan.row_tiles
+    assert blocks >= 32 or B < 128
+    if plan.bm > 16:
+        assert blocks >= 132
+    if B == 8192 and pair:
+        assert plan.scratch * 4 == 8 * 2**20
+
+
 # ---------------------------------------------------------------- card
 
 
@@ -440,6 +480,7 @@ def test_cuda_nt_xent_matches_plain(B, D):
     zi, zj, lse, scale = _nt_inputs(B, D, B, "cuda")
     pairs = [
         (nt_xent_fwd, nt_xent_fwd_plain, (zi, zj, INV_TAU)),
+        (nt_xent_fwd_pair, nt_xent_fwd_pair_plain, (zi, zj, INV_TAU)),
         (nt_xent_bwd_rows, nt_xent_bwd_rows_plain, (zi, zj, lse, scale, INV_TAU)),
         (nt_xent_bwd_cols, nt_xent_bwd_cols_plain, (zj, zi, lse, scale, INV_TAU)),
     ]
@@ -451,6 +492,32 @@ def test_cuda_nt_xent_matches_plain(B, D):
         ref = plain(*args)
         err = (got - ref).abs().max().item()
         assert err <= NT_XENT_TOL * ref.abs().max().item(), (kernel.__name__, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 192, 512])
+@pytest.mark.parametrize("B", [1, 17, 129, 1000, 2500])
+def test_cuda_nt_xent_fwd_pair_matches_plain(B, D):
+    """The pair forward and K4 alone against their plain versions at every
+    logits tile (16 × 32, 64 × 64, 128 × 128) and ragged B. Two launches
+    give bit-identical outputs (fixed-order merges, no atomics), K4 alone
+    is bit for bit the pair's first two columns (the same kernel without
+    the column statistics), and each launch steps its own counter by one."""
+    _need_cuda()
+    zi, zj, _, _ = _nt_inputs(B, D, B + D, "cuda")
+    outs = {}
+    for kernel, plain in ((nt_xent_fwd_pair, nt_xent_fwd_pair_plain),
+                          (nt_xent_fwd, nt_xent_fwd_plain)):
+        before = kernel.launches
+        got, again = kernel(zi, zj, INV_TAU), kernel(zi, zj, INV_TAU)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2
+        assert torch.equal(got, again), kernel.__name__
+        ref = plain(zi, zj, INV_TAU)
+        err = (got - ref).abs().max().item()
+        assert err <= NT_XENT_TOL * ref.abs().max().item(), (kernel.__name__, err)
+        outs[kernel.__name__] = got
+    assert torch.equal(outs["nt_xent_fwd"], outs["nt_xent_fwd_pair"][:, :2])
 
 
 @pytest.mark.cuda
@@ -634,6 +701,8 @@ def test_cuda_wrappers_refuse_instead_of_falling_back():
     zi, zj, lse, scale = _nt_inputs(64, 96, 1, "cuda")
     with pytest.raises(ValueError, match="multiple of 64"):
         nt_xent_fwd(zi, zj, INV_TAU)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        nt_xent_fwd_pair(zi, zj, INV_TAU)
     zi, zj, lse, scale = _nt_inputs(64, 128, 1, "cuda")
     with pytest.raises(TypeError, match="float32"):
         nt_xent_bwd_rows(zi.double(), zj.double(), lse, scale, INV_TAU)
@@ -644,6 +713,12 @@ def test_cuda_wrappers_refuse_instead_of_falling_back():
         nt_xent_bwd(zi.t().contiguous().t(), zj, lse, lse, scales, INV_TAU)
     with pytest.raises(ValueError, match="aligned"):
         nt_xent_bwd(_shifted(zi, 1), zj, lse, lse, scales, INV_TAU)
+    with pytest.raises(TypeError, match="float32"):
+        nt_xent_fwd_pair(zi.double(), zj.double(), INV_TAU)
+    with pytest.raises(ValueError, match="contiguous"):
+        nt_xent_fwd_pair(zi, zj.t().contiguous().t(), INV_TAU)
+    with pytest.raises(ValueError, match="aligned"):
+        nt_xent_fwd_pair(zi, _shifted(zj, 2), INV_TAU)
     with pytest.raises(ValueError, match="one scale per lse"):
         nt_xent_bwd(zi, zj, lse, lse, scale, INV_TAU)
     for D in (96, 576):

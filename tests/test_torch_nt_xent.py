@@ -1,7 +1,8 @@
 """The blocked NT-Xent (K4-K6) against the JAX package: the kernels' plain
 versions against the Pallas ``_direction_fwd`` / ``_direction_bwd`` /
-``_direction_bwd_cols`` in interpret mode (the two-term backward against
-the sum of the last two, as the JAX ``_bwd`` forms it), and the autograd
+``_direction_bwd_cols`` in interpret mode (the pair forward against the
+JAX ``_fwd``'s two directions, the two-term backward against the sum of the
+last two, as the JAX ``_bwd`` forms it), and the autograd
 loss against ``pallas_nt_xent_loss(..., interpret=True)`` with
 ``jax.grad`` and against the plain ``nt_xent_loss``. On the CPU the
 wrappers run the plain versions; the CUDA kernels are held against those
@@ -53,6 +54,30 @@ def test_plain_fwd_matches_pallas_direction_fwd():
     _close((out[:, 1] - out[:, 0]).mean().item(), float(loss_ref))
     logits = zi @ zj.T / TAU
     _close(out[:, 0].numpy(), np.diagonal(logits))
+
+
+@pytest.mark.parametrize("D", [128, 512])
+@pytest.mark.parametrize("B", [16, 64])
+def test_plain_fwd_pair_matches_pallas_fwd(B, D):
+    """The pair forward's plain version (and the CPU wrapper) against the
+    JAX ``_fwd``: column 1 is direction a's logsumexps, column 2 direction
+    b's (the column logsumexps of a's logits), and the loss built from them
+    as ``_BlockedNTXent`` builds it."""
+    from tricolo_tpu.ops.nt_xent_pallas import _fwd
+
+    zi, zj = _embeddings(B, D, 10 + B + D)
+    loss_ref, (_, _, lse_a, lse_b) = _fwd(zi, zj, TAU, ALPHA, 8, True)
+    zi_t, zj_t = torch.from_numpy(zi), torch.from_numpy(zj)
+    out = ours.nt_xent_fwd_pair_plain(zi_t, zj_t, 1 / TAU)
+    assert out.shape == (B, 3)
+    assert torch.equal(ours.nt_xent_fwd_pair(zi_t, zj_t, 1 / TAU), out)
+    _close(out[:, 1].numpy(), np.asarray(lse_a)[:, 0])
+    _close(out[:, 2].numpy(), np.asarray(lse_b)[:, 0])
+    _close(out[:, 0].numpy(), np.diagonal(zi @ zj.T / TAU))
+    loss = (ALPHA * (out[:, 1] - out[:, 0]).mean()
+            + (1 - ALPHA) * (out[:, 2] - out[:, 0]).mean())
+    _close(loss.item(), float(loss_ref))
+    assert torch.equal(ours.blocked_nt_xent_loss(zi_t, zj_t, TAU, ALPHA, norm=False), loss)
 
 
 @pytest.mark.parametrize("ct", [1.0, -0.7])
@@ -129,12 +154,13 @@ def test_cpu_backward_is_the_four_term_composition(use_kernels):
     """On the CPU the loss's backward (two two-term calls) gives bit for bit
     the four single-term plain calls it replaced: d_zis = rows(zis, zjs,
     lse_a) + cols(zis, zjs, lse_b), d_zjs = cols(zjs, zis, lse_a) +
-    rows(zjs, zis, lse_b)."""
+    rows(zjs, zis, lse_b), with the logsumexps the forward saved (the pair
+    forward's row and column logsumexps)."""
     zis, zjs = (torch.from_numpy(z) for z in _embeddings(20, 64, 7))
     a, b = zis.clone().requires_grad_(), zjs.clone().requires_grad_()
     ours.blocked_nt_xent_loss(a, b, TAU, ALPHA, norm=False, use_kernels=use_kernels).backward()
-    lse_a = ours.nt_xent_fwd_plain(zis, zjs, 1 / TAU)[:, 1].contiguous()
-    lse_b = ours.nt_xent_fwd_plain(zjs, zis, 1 / TAU)[:, 1].contiguous()
+    out = ours.nt_xent_fwd_pair_plain(zis, zjs, 1 / TAU)
+    lse_a, lse_b = out[:, 1].contiguous(), out[:, 2].contiguous()
     ct = torch.ones(1)
     s_a, s_b = ct * ALPHA * (1 / TAU) / 20, ct * (1.0 - ALPHA) * (1 / TAU) / 20
     d_zis = (ours.nt_xent_bwd_rows_plain(zis, zjs, lse_a, s_a, 1 / TAU)

@@ -1,11 +1,15 @@
-// Blocked online-softmax NT-Xent: the forward and one two-term backward
-// kernel behind three entries, f32 on the CUDA cores.
+// Blocked online-softmax NT-Xent: one forward and one two-term backward
+// kernel behind five entries, f32 on the CUDA cores.
 //
 // Replaces the three Pallas TPU kernels of tricolo_tpu/ops/nt_xent_pallas.py:
 //
 //   nt_xent_fwd       <- _fwd_kernel (l.43):       per row i of zi, the
 //                        diagonal logit l_ii and logsumexp_j l_ij,
 //                        l = zi zj^T / tau -> (B, 2)
+//   nt_xent_fwd_pair  <- _fwd_kernel twice, as the JAX _fwd (l.178) calls it
+//                        on (zi, zj) and (zj, zi): from one pass over l, the
+//                        diagonal, the row logsumexps and the column ones
+//                        (the row logsumexps of zj zi^T / tau) -> (B, 3)
 //   nt_xent_bwd_rows  <- _bwd_kernel (l.92):       dzi = (P - I) zj * s
 //   nt_xent_bwd_cols  <- _bwd_cols_kernel (l.208): dzj = (P - I)^T zi * s
 //   nt_xent_bwd       <- both at once, as the JAX _bwd (l.186) adds them for
@@ -17,16 +21,55 @@
 // P is recomputed from the saved logsumexps and the scales (the loss
 // cotangent times a direction's weight over tau B) are read from device
 // memory (no host sync). Nothing O(B^2) reaches device memory: that is the
-// kernels' purpose. dzi of the loss is nt_xent_bwd(zi, zj, lse_a, lse_b,
-// [s_a, s_b]) and dzj is nt_xent_bwd(zj, zi, lse_b, lse_a, [s_b, s_a]); the
-// single-term entries are the two-term kernel with one term compiled out
-// (rows: own = zi, lse by row; cols: own = zj, oth = zi, lse by column).
+// kernels' purpose. The loss's forward is one nt_xent_fwd_pair; dzi is
+// nt_xent_bwd(zi, zj, lse_a, lse_b, [s_a, s_b]) and dzj is nt_xent_bwd(zj,
+// zi, lse_b, lse_a, [s_b, s_a]). nt_xent_fwd is the pair kernel with the
+// column statistics compiled out, and the single-term backward entries the
+// two-term kernel with one term compiled out (rows: own = zi, lse by row;
+// cols: own = zj, oth = zi, lse by column).
 //
-// Bound: operations. The forward does 2 B^2 D flops, each backward 4 B^2 D
-// (one logits product, one coefficient product) at 67 TFLOP/s (H100 SXM f32
-// outside the tensor cores): 2.05 ms at (8192, 512), 0.5 us at (128, 512),
-// where the launch floor of a few us is the practical limit. The operands
-// are read once from device memory, small beside that.
+// Bound: operations. Each forward does 2 B^2 D flops (the pair's column
+// statistics reuse the same logits), each backward 4 B^2 D (one logits
+// product, one coefficient product) at 67 TFLOP/s (H100 SXM f32 outside the
+// tensor cores): 1.03 and 2.05 ms at (8192, 512), 0.3 and 0.5 us at (128,
+// 512), where the launch floor of a few us is the practical limit. The
+// operands are read once from device memory, small beside that.
+//
+// The forward's design, against the one-block-a-32-row-tile kernel it
+// replaces (4 blocks at B = 128, one logit a thread a row, no register
+// blocking or prefetch, the transposed logits recomputed by a second call):
+//
+// * One pass for both directions. A block owns one BM x BN tile of l over
+//   the full D and reduces it twice: per row (max, sum exp(l - max)) over
+//   its columns and per column over its rows. A row's lse needs every column
+//   tile and a column's every row tile, which lie in other blocks: each
+//   block writes its per-row and per-column partials to a scratch buffer
+//   (the wrapper's torch.empty, 8 MB at (8192, 512)), and a small combine
+//   kernel merges them per row and per column in tile order, as online
+//   logsumexp. No float atomics: the result does not depend on scheduling.
+//   The combine is a programmatic dependent launch, so its launch overlaps
+//   the tile kernel's end.
+// * Parallelism at B = 128: a 2-D grid of tiles (column tiles x row tiles),
+//   not the backward's D-splitting cluster: the forward has no second product to
+//   spread over D slices, and a tile over the full D needs no exchange
+//   barrier on its critical path. Small tiles of 16 x 32 give 8 x 4 = 32
+//   blocks; four groups of 64 threads each sum a quarter of D, added in
+//   group order, and the whole of D (at most 512) is in flight at once (16
+//   cp.async stages), since such a block is bound by latency.
+// * Throughput at B = 8192: 128 x 128 tiles (4096 blocks of 256 threads,
+//   about 16 waves of two blocks an SM). Each thread owns an 8 x 8 block of
+//   logits, its warp a 4 x 8 grid of threads: 16 float4 reads of shared
+//   memory feed 256 FMAs, and a warp's read is 4 broadcast rows or 8 rows
+//   padded to KC + 4 floats (conflict-free). That is a quarter of a float
+//   a thread per FMA, about all that shared memory delivers at the FMA
+//   rate, so latency is hidden by occupancy rather than by deep prefetch:
+//   two 32-column cp.async stages (74 KB) and registers capped at 128 a
+//   thread (a few spill) let two blocks share an SM. That measured faster
+//   than one block an SM with three stages (216 registers) or with 16 x 8
+//   logits a thread (a quarter fewer reads per FMA, 254 registers).
+//   64 x 64 tiles with 4 x 4 blocks cover the batches between (B ~ 1000).
+//   The wrapper's launch plan picks the largest tile whose grid fills the
+//   132 SMs.
 //
 // The backward's design, against the three limits of the one-block-a-32-row
 // tile kernel it replaces (4 blocks at B = 128; one logit a thread a row and
@@ -58,7 +101,8 @@
 //   on every launch; the launch plan (DS, row tile) comes from the wrapper.
 //
 // Ragged edges (B not a multiple of the tiles) are masked: rows past B load
-// as zeros and are not stored, columns past B get a zero coefficient. D is
+// as zeros and are not stored; columns past B get a zero coefficient, and
+// rows and columns past B are left out of the forward's statistics. D is
 // a multiple of 64, at most 512. f32 fmaf and expf throughout, no atomics:
 // the result does not depend on scheduling. The sums run in another order
 // than the plain version's matrix products, so the two agree to rounding,
@@ -87,102 +131,347 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, std::atomic<unsigned long lo
   return err;
 }
 
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }
+
 // ------------------------------------------------------------- forward (K4)
 
-constexpr int TILE = 32;     // rows of the own tile and of each streamed tile
-constexpr int THREADS = 256;  // 8 warps
+constexpr int KC = 32;          // D columns of one pipeline stage
+constexpr int LDK = KC + 4;     // a stage's padded row stride (floats)
+constexpr float NEG = -1e30f;   // the JAX kernel's _NEG_INF
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
-  return v;
-}
+// A BM x BN logits tile a block: each thread owns TM x TN logits, rows
+// tr + RT i and columns tc + CT j, its warp a 4 x 8 grid of threads. KG
+// groups of threads each sum a quarter (KG = 4) or all (KG = 1) of every
+// stage's D columns; STAGES stages of cp.async are in flight; MINB blocks
+// share an SM (the registers a thread get capped to fit).
+template <int BM_, int BN_, int TM_, int TN_, int KG_, int STAGES_, int MINB_>
+struct FwdPlan {
+  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_, KG = KG_, STAGES = STAGES_;
+  static constexpr int MINB = MINB_;
+  static constexpr int RT = BM / TM, CT = BN / TN;  // threads along rows, columns
+  static constexpr int WR = RT / 4, WC = CT / 8;    // warps of a group along rows, columns
+  static constexpr int GROUP = 32 * WR * WC;        // threads of a group
+  static constexpr int THREADS = GROUP * KG;
+  static constexpr int KQ = KC / 4 / KG;            // float4 columns a group a stage
+  static constexpr int STAGE = (BM + BN) * LDK;     // floats
+  static constexpr int RED = (KG - 1) * TM * TN * GROUP;   // the groups' partial logits
+  static constexpr int EPI = 2 * (WC * BM + WR * BN);      // the statistics exchange
+  static constexpr size_t SMEM = sizeof(float) * STAGES * STAGE;
+  static_assert(RT % 4 == 0 && CT % 8 == 0 && (KC / 4) % KG == 0, "thread layout");
+  static_assert(RED + EPI <= STAGES * STAGE, "the epilogue reuses the stages");
+};
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-  return v;
-}
+using FwdLarge = FwdPlan<128, 128, 8, 8, 1, 2, 2>;  // B = 8192: 4096 blocks, 256 threads
+using FwdMid = FwdPlan<64, 64, 4, 4, 1, 4, 1>;      // B ~ 1000: 256 blocks
+using FwdSmall = FwdPlan<16, 32, 2, 4, 4, 16, 1>;   // B = 128: 32 blocks, all D in flight
 
-// Rows [row0, row0 + TILE) of a (B, D) f32 matrix into shared memory with
-// row stride D + 4; zeros past B.
-__device__ void load_tile(const float* __restrict__ src, float* dst, int row0, int B,
-                          int D) {
-  const int d4 = D >> 2;
-  for (int i = threadIdx.x; i < TILE * d4; i += THREADS) {
-    const int r = i / d4, k = i - r * d4;
-    const int g = row0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (g < B) v = reinterpret_cast<const float4*>(src + (size_t)g * D)[k];
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + 4 * k) = v;
-  }
-}
-
-// s[i] = own row (warp + 8 i) . other row lane, over the full D.
-__device__ __forceinline__ void tile_dots(const float* own_s, const float* oth_s, int D,
-                                          float s[4]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* b = oth_s + lane * (D + 4);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) s[i] = 0.f;
-  for (int k = 0; k < D; k += 4) {
-    const float4 bv = *reinterpret_cast<const float4*>(b + k);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 av =
-          *reinterpret_cast<const float4*>(own_s + (warp + 8 * i) * (D + 4) + k);
-      s[i] = fmaf(av.x, bv.x, s[i]);
-      s[i] = fmaf(av.y, bv.y, s[i]);
-      s[i] = fmaf(av.z, bv.z, s[i]);
-      s[i] = fmaf(av.w, bv.w, s[i]);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-    nt_xent_fwd_kernel(const float* __restrict__ zi, const float* __restrict__ zj,
-                       float* __restrict__ out, int B, int D, float inv_tau) {
+template <typename P, bool COL>
+__global__ void __launch_bounds__(P::THREADS, P::MINB)
+    nt_xent_fwd_tile_kernel(const float* __restrict__ zi, const float* __restrict__ zj,
+                            float* __restrict__ out, float2* __restrict__ row_part,
+                            float2* __restrict__ col_part, int B, int D, float inv_tau) {
+  constexpr int BM = P::BM, BN = P::BN, TM = P::TM, TN = P::TN, RT = P::RT, CT = P::CT;
+  constexpr int WR = P::WR, WC = P::WC, STAGES = P::STAGES, KQ = P::KQ, STAGE = P::STAGE;
+  constexpr int W = COL ? 3 : 2;  // out's row: diagonal, row lse[, column lse]
   extern __shared__ float4 smem4[];
-  float* zi_s = reinterpret_cast<float*>(smem4);
-  float* zj_s = zi_s + TILE * (D + 4);
-  const int row0 = blockIdx.x * TILE;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  load_tile(zi, zi_s, row0, B, D);
-  float run_max[4], run_sum[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    run_max[i] = -1e30f;  // the JAX kernel's _NEG_INF
-    run_sum[i] = 0.f;
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int ct = blockIdx.x, rt = blockIdx.y;
+  const int row0 = rt * BM, col0 = ct * BN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = warp / (WR * WC), wg = warp % (WR * WC);
+  const int wr = wg / WC, wc = wg % WC;
+  const int tr = wr * 4 + (lane >> 3), tc = wc * 8 + (lane & 7);
+
+  // Stage s holds D columns [KC c, KC c + KC) of the tile's BM zi rows, then
+  // of its BN zj rows (zeros past B), rows padded to LDK floats.
+  auto load_stage = [&](int c) {
+    float* dst = smem + (c % STAGES) * STAGE;
+    const int k0 = c * KC;
+    for (int q = tid; q < (BM + BN) * (KC / 4); q += P::THREADS) {
+      const int r = q / (KC / 4), k = q % (KC / 4);
+      const int grow = r < BM ? row0 + r : col0 + r - BM;
+      const bool valid = grow < B;
+      const float* src = (r < BM ? zi : zj) + (size_t)(valid ? grow : 0) * D + k0 + 4 * k;
+      cp_async16(dst + r * LDK + 4 * k, src, valid);
+    }
+  };
+
+  const int n_chunks = D / KC;
+#pragma unroll 1
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < n_chunks) load_stage(c);
+    cp_async_commit();
   }
-  for (int col0 = 0; col0 < B; col0 += TILE) {
-    __syncthreads();  // the previous tile is no longer read
-    load_tile(zj, zj_s, col0, B, D);
-    __syncthreads();
-    float s[4];
-    tile_dots(zi_s, zj_s, D, s);
-    const int gj = col0 + lane;
-    const bool valid = gj < B;
+  float acc[TM][TN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float l = s[i] * inv_tau;
-      const float new_max = fmaxf(run_max[i], warp_max(valid ? l : -INFINITY));
-      const float e = warp_sum(valid ? expf(l - new_max) : 0.f);
-      run_sum[i] = run_sum[i] * expf(run_max[i] - new_max) + e;
-      run_max[i] = new_max;
-      if (valid && row0 + warp + 8 * i == gj) out[2 * gj] = l;  // diagonal logit
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+#pragma unroll 1
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // chunk c has landed; chunk c - 1's stage is no longer read
+    if (c + STAGES - 1 < n_chunks) load_stage(c + STAGES - 1);
+    cp_async_commit();
+    const float* a = smem + (c % STAGES) * STAGE + tr * LDK + 4 * KQ * g;
+    const float* b = smem + (c % STAGES) * STAGE + (BM + tc) * LDK + 4 * KQ * g;
+    // One float4 of D a row: TN zj reads, then TM zi reads each feeding 4 TN FMAs.
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+      float4 bv[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        bv[j] = *reinterpret_cast<const float4*>(b + j * CT * LDK + 4 * kk);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 av = *reinterpret_cast<const float4*>(a + i * RT * LDK + 4 * kk);
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          acc[i][j] = fmaf(av.x, bv[j].x, acc[i][j]);
+          acc[i][j] = fmaf(av.y, bv[j].y, acc[i][j]);
+          acc[i][j] = fmaf(av.z, bv[j].z, acc[i][j]);
+          acc[i][j] = fmaf(av.w, bv[j].w, acc[i][j]);
+        }
+      }
     }
   }
-  if (lane == 0) {
+  __syncthreads();  // every stage has been read: the epilogue reuses them
+
+  // Groups 1.. hand their partial dot products to group 0, which adds them
+  // in group order.
+  if constexpr (P::KG > 1) {
+    float* red = smem + wg * 32 + lane;
+    if (g > 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gi = row0 + warp + 8 * i;
-      if (gi < B) out[2 * gi + 1] = run_max[i] + logf(run_sum[i]);
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) red[((g - 1) * TM * TN + i * TN + j) * P::GROUP] = acc[i][j];
+    }
+    __syncthreads();
+    if (g == 0) {
+      for (int h = 1; h < P::KG; ++h)
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] += red[((h - 1) * TM * TN + i * TN + j) * P::GROUP];
+    }
+  }
+
+  // The tile's logits (group 0 holds them), the diagonal, and per row and
+  // per column of the tile the max and the sum of exp(l - max).
+  const bool mine = g == 0;
+  bool rv[TM], cv[TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) rv[i] = row0 + tr + RT * i < B;
+#pragma unroll
+  for (int j = 0; j < TN; ++j) cv[j] = col0 + tc + CT * j < B;
+  float rmax[TM], cmax[TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) rmax[i] = NEG;
+#pragma unroll
+  for (int j = 0; j < TN; ++j) cmax[j] = NEG;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const float l = acc[i][j] * inv_tau;
+      acc[i][j] = l;
+      if (mine && rv[i] && row0 + tr + RT * i == col0 + tc + CT * j)
+        out[(size_t)W * (row0 + tr + RT * i)] = l;
+      if (cv[j]) rmax[i] = fmaxf(rmax[i], l);
+      if (COL && rv[i]) cmax[j] = fmaxf(cmax[j], l);
+    }
+  // Row statistics across the 8 lanes of a thread row and the WC warps of a
+  // block row; column statistics across the 4 lanes and WR warps.
+  float* epi = smem + P::RED;
+  float* xr = epi;                  // [WC][BM] row maxima
+  float* yr = xr + WC * BM;         // [WC][BM] row sums
+  float* xc = yr + WC * BM;         // [WR][BN] column maxima
+  float* yc = xc + WR * BN;         // [WR][BN] column sums
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1)
+      rmax[i] = fmaxf(rmax[i], __shfl_xor_sync(FULL, rmax[i], off));
+  if (COL) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+#pragma unroll
+      for (int off = 8; off < 32; off <<= 1)
+        cmax[j] = fmaxf(cmax[j], __shfl_xor_sync(FULL, cmax[j], off));
+  }
+  if (mine && (lane & 7) == 0) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) xr[wc * BM + tr + RT * i] = rmax[i];
+  }
+  if (COL && mine && (lane >> 3) == 0) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) xc[wr * BN + tc + CT * j] = cmax[j];
+  }
+  __syncthreads();
+  float rsum[TM], csum[TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float m = xr[tr + RT * i];
+#pragma unroll
+    for (int w = 1; w < WC; ++w) m = fmaxf(m, xr[w * BM + tr + RT * i]);
+    rmax[i] = m;
+    rsum[i] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    float m = NEG;
+    if (COL) {
+      m = xc[tc + CT * j];
+#pragma unroll
+      for (int w = 1; w < WR; ++w) m = fmaxf(m, xc[w * BN + tc + CT * j]);
+    }
+    cmax[j] = m;
+    csum[j] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      if (cv[j]) rsum[i] += expf(acc[i][j] - rmax[i]);
+      if (COL && rv[i]) csum[j] += expf(acc[i][j] - cmax[j]);
+    }
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) rsum[i] += __shfl_xor_sync(FULL, rsum[i], off);
+  if (COL) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+#pragma unroll
+      for (int off = 8; off < 32; off <<= 1) csum[j] += __shfl_xor_sync(FULL, csum[j], off);
+  }
+  if (mine && (lane & 7) == 0) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) yr[wc * BM + tr + RT * i] = rsum[i];
+  }
+  if (COL && mine && (lane >> 3) == 0) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) yc[wr * BN + tc + CT * j] = csum[j];
+  }
+  __syncthreads();
+  // A thread a row, then a column, writes the tile's (max, sum), the warps'
+  // sums added in warp order.
+  for (int q = tid; q < BM + (COL ? BN : 0); q += P::THREADS) {
+    if (q < BM) {
+      if (row0 + q >= B) continue;
+      float m = xr[q], s = yr[q];
+#pragma unroll
+      for (int w = 1; w < WC; ++w) {
+        m = fmaxf(m, xr[w * BM + q]);
+        s += yr[w * BM + q];
+      }
+      row_part[(size_t)ct * B + row0 + q] = make_float2(m, s);
+    } else {
+      const int c = q - BM;
+      if (col0 + c >= B) continue;
+      float m = xc[c], s = yc[c];
+#pragma unroll
+      for (int w = 1; w < WR; ++w) {
+        m = fmaxf(m, xc[w * BN + c]);
+        s += yc[w * BN + c];
+      }
+      col_part[(size_t)rt * B + col0 + c] = make_float2(m, s);
     }
   }
 }
 
-size_t fwd_smem(int D) { return (size_t)2 * TILE * (D + 4) * sizeof(float); }
+// One thread a row (then a column) merges the tiles' (max, sum) partials in
+// tile order, as online logsumexp: lse = max + log(sum).
+template <bool COL>
+__global__ void __launch_bounds__(256)
+    nt_xent_fwd_combine_kernel(const float2* __restrict__ row_part,
+                               const float2* __restrict__ col_part, float* __restrict__ out,
+                               int B, int n_col_tiles, int n_row_tiles) {
+  // A programmatic dependent launch: its launch overlaps the tile kernel's
+  // end; wait until that kernel has finished and its partials are visible.
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool col = COL && q >= B;
+  const int r = col ? q - B : q;
+  if (r >= B) return;
+  const float2* part = (col ? col_part : row_part) + r;
+  const int n = col ? n_row_tiles : n_col_tiles;
+  float m = NEG, s = 0.f;
+  for (int t = 0; t < n; ++t) {
+    const float2 v = part[(size_t)t * B];
+    const float mx = fmaxf(m, v.x);
+    s = s * expf(m - mx) + v.y * expf(v.x - mx);
+    m = mx;
+  }
+  out[(size_t)(COL ? 3 : 2) * r + (col ? 2 : 1)] = m + logf(s);
+}
+
+template <typename P, bool COL>
+int launch_fwd(const float* zi, const float* zj, float* out, float* scratch, int B, int D,
+               float inv_tau, cudaStream_t stream) {
+  auto kernel = nt_xent_fwd_tile_kernel<P, COL>;
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = allow_smem(kernel, P::SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const int n_ct = (B + P::BN - 1) / P::BN, n_rt = (B + P::BM - 1) / P::BM;
+  float2* row_part = reinterpret_cast<float2*>(scratch);  // [n_ct][B]
+  float2* col_part = row_part + (size_t)n_ct * B;         // [n_rt][B]
+  kernel<<<dim3((unsigned)n_ct, (unsigned)n_rt, 1), P::THREADS, P::SMEM, stream>>>(
+      zi, zj, out, row_part, col_part, B, D, inv_tau);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)(((COL ? 2 : 1) * (size_t)B + 255) / 256), 1, 1);
+  config.blockDim = dim3(256, 1, 1);
+  config.stream = stream;
+  config.attrs = &pdl;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, nt_xent_fwd_combine_kernel<COL>,
+                           static_cast<const float2*>(row_part),
+                           static_cast<const float2*>(col_part), out, B, n_ct, n_rt);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// bm: the logits tile's rows (128, 64 or 16; the wrapper's launch plan
+// picks it, with 128, 64 or 32 columns).
+template <bool COL>
+int launch_fwd_plan(const void* zi, const void* zj, void* out, void* scratch, int B, int D,
+                    float inv_tau, int bm, void* stream) {
+  if (B == 0) return 0;
+  if (D % 64 != 0 || D > 512) return (int)cudaErrorInvalidValue;
+  const float *a = (const float*)zi, *b = (const float*)zj;
+  float *y = (float*)out, *p = (float*)scratch;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bm == FwdLarge::BM) return launch_fwd<FwdLarge, COL>(a, b, y, p, B, D, inv_tau, st);
+  if (bm == FwdMid::BM) return launch_fwd<FwdMid, COL>(a, b, y, p, B, D, inv_tau, st);
+  if (bm == FwdSmall::BM) return launch_fwd<FwdSmall, COL>(a, b, y, p, B, D, inv_tau, st);
+  return (int)cudaErrorInvalidValue;
+}
 
 // ----------------------------------------------------- backward (K5, K6, both)
 
@@ -199,21 +488,6 @@ struct Plan {
   static constexpr size_t SMEM =
       sizeof(float) * (BM * LD + 3 * BN * LD + 2 * 16 * THREADS + 2 * BN * LDC);
 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // The cluster barrier in two halves: arrive publishes this block's shared
 // memory writes, wait returns once every block of the cluster has arrived.
@@ -505,19 +779,19 @@ int launch_bwd_plan(const void* own, const void* oth, const void* lse_row, const
 }  // namespace
 
 // All pointers are contiguous, 16-byte-aligned f32 on one device: zi, zj,
-// own, oth (B, D); out (B, 2) for the forward and (B, D) for the
-// backwards; lse* (B,); scale one float, scales two (s_row, s_col). D is a
+// own, oth (B, D); out (B, 2) for the single-direction forward, (B, 3) for
+// the pair and (B, D) for the backwards; scratch (the tiles' partials, from
+// the wrapper's launch plan) 2 B (column tiles [+ row tiles for the pair])
+// floats; lse* (B,); scale one float, scales two (s_row, s_col). D is a
 // multiple of 64, at most 512.
-extern "C" int nt_xent_fwd(const void* zi, const void* zj, void* out, int B, int D,
-                           float inv_tau, void* stream) {
-  if (B == 0) return 0;
-  if (D % 64 != 0 || D > 512) return (int)cudaErrorInvalidValue;
-  static std::atomic<unsigned long long> smem_set{0};
-  cudaError_t err = allow_smem(nt_xent_fwd_kernel, fwd_smem(512), smem_set);
-  if (err != cudaSuccess) return (int)err;
-  nt_xent_fwd_kernel<<<(B + TILE - 1) / TILE, THREADS, fwd_smem(D), (cudaStream_t)stream>>>(
-      (const float*)zi, (const float*)zj, (float*)out, B, D, inv_tau);
-  return (int)cudaGetLastError();
+extern "C" int nt_xent_fwd(const void* zi, const void* zj, void* out, void* scratch, int B,
+                           int D, float inv_tau, int bm, void* stream) {
+  return launch_fwd_plan<false>(zi, zj, out, scratch, B, D, inv_tau, bm, stream);
+}
+
+extern "C" int nt_xent_fwd_pair(const void* zi, const void* zj, void* out, void* scratch, int B,
+                                int D, float inv_tau, int bm, void* stream) {
+  return launch_fwd_plan<true>(zi, zj, out, scratch, B, D, inv_tau, bm, stream);
 }
 
 extern "C" int nt_xent_bwd(const void* own, const void* oth, const void* lse_row,

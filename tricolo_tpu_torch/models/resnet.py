@@ -12,12 +12,17 @@ statistics); in train mode it normalises with the batch statistics and
 updates its running buffers as flax ``nn.BatchNorm`` does — momentum 0.9
 and the *biased* batch variance (torch's module would use the unbiased one).
 
+``load_pretrained`` reads the backbone weights that the JAX package's
+``models/resnet.py::save_pretrained`` writes (converted torchvision
+weights); the trainer grafts them over the random init.
+
 ResNet34/50, EfficientNet and the stem opt-ins (hybrid/space-to-depth) are
 not ported yet.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -92,3 +97,19 @@ class ResNet(nn.Module):
         x = nn.functional.max_pool2d(x, 3, stride=2, padding=1)
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         return x.mean(dim=(2, 3))
+
+
+def load_pretrained(path: str) -> tuple[dict, dict]:
+    """Backbone weights of a ``save_pretrained`` npz → (params, batch_stats)
+    nested numpy trees in the JAX package's names and layouts: the file's
+    flat keys are ``params/<module>/…/<leaf>`` and ``batch_stats/…``."""
+    params: dict = {}
+    stats: dict = {}
+    with np.load(path) as data:
+        for flat_key in data.files:
+            root, *parts = flat_key.split("/")
+            node = params if root == "params" else stats
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = data[flat_key]
+    return params, stats

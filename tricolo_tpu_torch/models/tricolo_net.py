@@ -59,6 +59,10 @@ class TriCoLoNet(nn.Module):
         voxel = modules.VoxelCNNEncoder
         if cfg.model.voxel_encoder is not None and not voxel.get("masked_bn", False):
             raise NotImplementedError("the port runs the masked voxel encoder only")
+        if cfg.precision.get("param_dtype", "float32") != "float32":
+            raise NotImplementedError(
+                f"precision.param_dtype={cfg.precision.param_dtype}: the port builds float32 "
+                "parameters only")
         # Every layout of the JAX package computes the same scatter, which K2
         # does one way: the key is checked and has no other effect.
         layout = voxel.get("scatter_layout", None)

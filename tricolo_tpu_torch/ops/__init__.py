@@ -12,8 +12,9 @@ PyTorch version and a launch counter.
 * ``nt_xent_fwd`` / ``nt_xent_bwd_rows`` / ``nt_xent_bwd_cols`` (K4-K6,
   ``csrc/nt_xent.cu``) — the blocked online-softmax NT-Xent; replace
   ``nt_xent_pallas._fwd_kernel`` / ``_bwd_kernel`` / ``_bwd_cols_kernel``;
-  ``nt_xent_bwd`` computes K5's and K6's terms of one operand in one launch
-  (the loss's backward).
+  ``nt_xent_fwd_pair`` computes both directions' forward from one pass over
+  the logits (the loss's forward), ``nt_xent_bwd`` K5's and K6's terms of
+  one operand in one launch (the loss's backward).
 * ``gather_tiles`` (K7, ``csrc/tile_gather.cu``) — halo'd tile gather from
   a dense grid by global tile id; replaces ``_graveyard/dma_tiles._gather_kernel``.
 
@@ -40,6 +41,8 @@ from .nt_xent import (
     nt_xent_bwd_rows,
     nt_xent_bwd_rows_plain,
     nt_xent_fwd,
+    nt_xent_fwd_pair,
+    nt_xent_fwd_pair_plain,
     nt_xent_fwd_plain,
 )
 from .tile_gather import gather_tiles, gather_tiles_autograd, gather_tiles_plain
@@ -59,6 +62,7 @@ KERNELS = (
     scatter_tiles_ps,
     bn_relu_pool_bwd,
     nt_xent_fwd,
+    nt_xent_fwd_pair,
     nt_xent_bwd_rows,
     nt_xent_bwd_cols,
     nt_xent_bwd,
@@ -99,6 +103,8 @@ __all__ = [
     "nt_xent_bwd_rows",
     "nt_xent_bwd_rows_plain",
     "nt_xent_fwd",
+    "nt_xent_fwd_pair",
+    "nt_xent_fwd_pair_plain",
     "nt_xent_fwd_plain",
     "reset_launches",
     "scatter_tiles",

@@ -7,6 +7,10 @@ nothing O(B²) reaches device memory. They replace the Pallas TPU kernels of
 
 * ``nt_xent_fwd`` (K4, ``_fwd_kernel``) — per row of zi the diagonal logit
   and the logsumexp of ``zi·zjᵀ/τ`` → (B, 2);
+* ``nt_xent_fwd_pair`` (K4 for both directions, as the JAX ``_fwd`` calls
+  it twice) — from one pass over ``zi·zjᵀ/τ`` its diagonal and its row and
+  column logsumexps → (B, 3); K4 alone is this kernel without the column
+  statistics;
 * ``nt_xent_bwd_rows`` (K5, ``_bwd_kernel``) — ``(P − I)·zj·s``;
 * ``nt_xent_bwd_cols`` (K6, ``_bwd_cols_kernel``) — ``(P − I)ᵀ·zi·s``;
 * ``nt_xent_bwd`` (K5 + K6 in one launch) — both terms of one operand's
@@ -21,7 +25,7 @@ plain version agree to f32 rounding, not bit for bit.
 
 ``blocked_nt_xent_loss`` is the counterpart of ``pallas_nt_xent_loss``: L2
 normalisation in torch, then an autograd Function with the JAX
-``_fwd``/``_bwd`` composition (two K4 launches forward, two two-term
+``_fwd``/``_bwd`` composition (one pair launch forward, two two-term
 launches backward).
 """
 
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -44,6 +49,14 @@ def nt_xent_fwd_plain(zi, zj, inv_tau: float):
     """(B, 2): [:, 0] the diagonal logits, [:, 1] the row logsumexps."""
     logits = _logits(zi, zj, inv_tau)
     return torch.stack([logits.diagonal(), torch.logsumexp(logits, dim=1)], dim=1)
+
+
+def nt_xent_fwd_pair_plain(zi, zj, inv_tau: float):
+    """(B, 3): the diagonal logits and the row and column logsumexps of one
+    logits matrix; the column ones are the row logsumexps of zj·ziᵀ/τ."""
+    logits = _logits(zi, zj, inv_tau)
+    return torch.stack([logits.diagonal(), torch.logsumexp(logits, dim=1),
+                        torch.logsumexp(logits, dim=0)], dim=1)
 
 
 def _coeff(zi, zj, lse, inv_tau):
@@ -71,8 +84,35 @@ def nt_xent_bwd_plain(own, oth, lse_row, lse_col, scales, inv_tau: float):
             + nt_xent_bwd_cols_plain(own, oth, lse_col, scales[1:2], inv_tau))
 
 
-# An H100's SMs: the backward takes 64-row tiles once they fill the card.
+# An H100's SMs: the kernels take their large tiles once these fill the card.
 _SMS = 132
+# The forward's logits tiles (rows, columns), largest first.
+_FWD_TILES = ((128, 128), (64, 64), (16, 32))
+
+
+class FwdPlan(NamedTuple):
+    bm: int  # logits tile rows
+    bn: int  # logits tile columns
+    col_tiles: int  # grid x
+    row_tiles: int  # grid y
+    scratch: int  # f32 elements of the tiles' (max, sum) partials
+
+
+def fwd_launch_plan(B: int, pair: bool) -> FwdPlan:
+    """The forward's grid of bm × bn logits tiles over the full D: the
+    largest tile whose ⌈B/bm⌉·⌈B/bn⌉ blocks fill the card, else the
+    smallest (B = 128: 8 × 4 = 32 blocks of 16 × 32). Each block writes a
+    (max, sum) pair per row for its column tile and, for the pair, per
+    column for its row tile: the scratch holds 2·B·(col_tiles [+
+    row_tiles]) floats. Past 65535 row tiles (grid y) the plan raises."""
+    for bm, bn in _FWD_TILES:
+        if -(-B // bm) * -(-B // bn) >= _SMS:
+            break
+    col_tiles, row_tiles = -(-B // bn), -(-B // bm)
+    if row_tiles > 65535:
+        raise ValueError(f"the NT-Xent forward takes at most 65535 row tiles, got B = {B}")
+    return FwdPlan(bm, bn, col_tiles, row_tiles,
+                   2 * B * (col_tiles + (row_tiles if pair else 0)))
 
 
 def bwd_launch_plan(B: int, D: int) -> tuple[int, int]:
@@ -110,11 +150,13 @@ def _check(zi, zj, *rest):
 def _lib():
     lib = _build.load("nt_xent")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nt_xent_fwd.argtypes = [ptr] * 3 + [i32, i32, f32, ptr]
+    for name in ("nt_xent_fwd", "nt_xent_fwd_pair"):
+        getattr(lib, name).argtypes = [ptr] * 4 + [i32, i32, f32, i32, ptr]
     lib.nt_xent_bwd.argtypes = [ptr] * 6 + [i32, i32, f32, i32, i32, ptr]
     for name in ("nt_xent_bwd_rows", "nt_xent_bwd_cols"):
         getattr(lib, name).argtypes = [ptr] * 5 + [i32, i32, f32, i32, i32, ptr]
-    for name in ("nt_xent_fwd", "nt_xent_bwd", "nt_xent_bwd_rows", "nt_xent_bwd_cols"):
+    for name in ("nt_xent_fwd", "nt_xent_fwd_pair", "nt_xent_bwd", "nt_xent_bwd_rows",
+                 "nt_xent_bwd_cols"):
         getattr(lib, name).restype = ctypes.c_int
     return lib
 
@@ -124,22 +166,39 @@ def _device(t, name):
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {t.device}")
 
 
+def _fwd(wrapper, zi, zj, inv_tau, pair):
+    name = wrapper.__name__
+    _device(zi, name)
+    B, D = _check(zi, zj)
+    plan = fwd_launch_plan(B, pair)
+    out = torch.empty((B, 3 if pair else 2), dtype=torch.float32, device=zi.device)
+    scratch = torch.empty(plan.scratch, dtype=torch.float32, device=zi.device)
+    with torch.cuda.device(zi.device):
+        status = getattr(_lib(), name)(
+            zi.data_ptr(), zj.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, D,
+            float(inv_tau), plan.bm, torch.cuda.current_stream(zi.device).cuda_stream,
+        )
+    _build.check(status, name)
+    wrapper.launches += 1
+    return out
+
+
 def nt_xent_fwd(zi, zj, inv_tau: float):
-    """(B, 2) [diagonal logit, logsumexp] per row of zi; K4 on CUDA.
-    zi, zj (B, D) f32 contiguous, D a multiple of 64 up to 512."""
+    """(B, 2) [diagonal logit, logsumexp] per row of zi; K4 on CUDA (the
+    pair kernel without its column statistics). zi, zj (B, D) f32
+    contiguous, D a multiple of 64 up to 512."""
     if zi.device.type == "cpu":
         return nt_xent_fwd_plain(zi, zj, inv_tau)
-    _device(zi, "nt_xent_fwd")
-    B, D = _check(zi, zj)
-    out = torch.empty((B, 2), dtype=torch.float32, device=zi.device)
-    with torch.cuda.device(zi.device):
-        status = _lib().nt_xent_fwd(
-            zi.data_ptr(), zj.data_ptr(), out.data_ptr(), B, D, float(inv_tau),
-            torch.cuda.current_stream(zi.device).cuda_stream,
-        )
-    _build.check(status, "nt_xent_fwd")
-    nt_xent_fwd.launches += 1
-    return out
+    return _fwd(nt_xent_fwd, zi, zj, inv_tau, pair=False)
+
+
+def nt_xent_fwd_pair(zi, zj, inv_tau: float):
+    """(B, 3) [diagonal logit, row logsumexp, column logsumexp] of
+    zi·zjᵀ/τ (``nt_xent_fwd_pair_plain``): both directions of the loss from
+    one pass over the logits, on CUDA one launch."""
+    if zi.device.type == "cpu":
+        return nt_xent_fwd_pair_plain(zi, zj, inv_tau)
+    return _fwd(nt_xent_fwd_pair, zi, zj, inv_tau, pair=True)
 
 
 def _bwd(wrapper, own, oth, lses, scales, inv_tau):
@@ -189,6 +248,7 @@ def nt_xent_bwd_cols(zj, zi, lse, scale, inv_tau: float):
 
 
 nt_xent_fwd.launches = 0
+nt_xent_fwd_pair.launches = 0
 nt_xent_bwd.launches = 0
 nt_xent_bwd_rows.launches = 0
 nt_xent_bwd_cols.launches = 0
@@ -196,16 +256,19 @@ nt_xent_bwd_cols.launches = 0
 
 class _BlockedNTXent(torch.autograd.Function):
     """α·La + (1 − α)·Lb on L2-normalised (B, D) f32 embeddings, where
-    La = mean(lse − diag) of zis·zjsᵀ/τ and Lb of zjs·zisᵀ/τ."""
+    La = mean(lse − diag) of zis·zjsᵀ/τ and Lb of zjs·zisᵀ/τ: Lb's
+    logsumexps are the column logsumexps of La's logits, its diagonal the
+    same, so one pass over those logits gives both."""
 
     @staticmethod
     def forward(ctx, zis, zjs, temperature, alpha, use_kernels):
         inv_tau = 1.0 / temperature
-        fwd = nt_xent_fwd if use_kernels else nt_xent_fwd_plain
-        out_a, out_b = fwd(zis, zjs, inv_tau), fwd(zjs, zis, inv_tau)
-        loss_a = torch.mean(out_a[:, 1] - out_a[:, 0])
-        loss_b = torch.mean(out_b[:, 1] - out_b[:, 0])
-        ctx.save_for_backward(zis, zjs, out_a[:, 1].contiguous(), out_b[:, 1].contiguous())
+        fwd = nt_xent_fwd_pair if use_kernels else nt_xent_fwd_pair_plain
+        out = fwd(zis, zjs, inv_tau)
+        lse_a, lse_b = out[:, 1].contiguous(), out[:, 2].contiguous()
+        loss_a = torch.mean(lse_a - out[:, 0])
+        loss_b = torch.mean(lse_b - out[:, 0])
+        ctx.save_for_backward(zis, zjs, lse_a, lse_b)
         ctx.inv_tau, ctx.alpha, ctx.use_kernels = inv_tau, alpha, use_kernels
         return alpha * loss_a + (1.0 - alpha) * loss_b
 
@@ -226,8 +289,8 @@ def blocked_nt_xent_loss(zis, zjs, temperature: float = 0.1, alpha_weight: float
                          norm: bool = True, use_kernels: bool = True):
     """Twin of ``losses.nt_xent_loss`` on the blocked kernels (the port of
     ``pallas_nt_xent_loss``): f32, L2 normalisation in torch, the O(B²)
-    work in K4 and the two-term backward. ``use_kernels=False`` runs their
-    plain versions."""
+    work in the pair forward and the two-term backward. ``use_kernels=False``
+    runs their plain versions."""
     zis, zjs = zis.float(), zjs.float()
     if norm:
         zis, zjs = l2_normalize(zis), l2_normalize(zjs)

@@ -8,6 +8,10 @@ at the end one checkpoint: ``torch.save`` of the model's state_dict as
 ``{checkpoint_monitor.dirpath}/epoch={N}.pt``, the format
 ``RetrievalServer.from_checkpoint`` reads — so training feeds serving.
 
+With ``model.modules.MVCNNEncoder.pretrained_path`` set, the image
+backbone starts from that ``save_pretrained`` npz instead of its random
+init, as in the JAX ``Trainer.init_state``.
+
 Before the first epoch, ``_check_tile_budget`` warns when the first
 train batch holds more active tiles than the static tile budget of the
 device-side compactions (the dense-input plan, the full windowed transfer)
@@ -27,8 +31,10 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from ..convert import jax_to_torch
 from ..evaluation import compute_metrics
 from ..inference import collect_embeddings, resolve_device, to_device_batch
+from ..models.resnet import load_pretrained
 from ..models.tricolo_net import TriCoLoNet
 from ..ops.tile_sparse import host_tile_count, tile_budget
 from .optim import lr_for_epoch, make_optimizer
@@ -50,10 +56,34 @@ class Trainer:
         self.device = resolve_device(device)
         torch.manual_seed(cfg.train_seed)
         self.model = TriCoLoNet.from_config(cfg).to(self.device)
+        self._graft_pretrained_backbone()
         self.optimizer = make_optimizer(cfg, self.model)
         self.train_step = make_train_step(self.model, self.optimizer, cfg)
         self.metrics = None
         self._timers: dict[str, float] = defaultdict(float)
+
+    def _graft_pretrained_backbone(self) -> None:
+        """Copy the ``pretrained_path`` npz over the image backbone (the JAX
+        trainer's ``_graft_pretrained_backbone``): names and layouts through
+        ``convert.jax_to_torch``, values in the backbone's dtype. A key the
+        backbone lacks raises KeyError, a shape mismatch ValueError."""
+        path = self.cfg.model.modules.MVCNNEncoder.get("pretrained_path")
+        if not path or self.cfg.model.image_encoder != "MVCNNEncoder":
+            return
+        params, stats = load_pretrained(path)
+        converted = jax_to_torch({"image_encoder": {"backbone": params}},
+                                 {"image_encoder": {"backbone": stats}})
+        target = self.model.state_dict()
+        with torch.no_grad():
+            for key, value in converted.items():
+                if key.endswith("num_batches_tracked"):  # not in the file
+                    continue
+                if key not in target:
+                    raise KeyError(f"pretrained key {key!r} not in model")
+                if target[key].shape != value.shape:
+                    raise ValueError(f"pretrained {key} shape {tuple(value.shape)} != model "
+                                     f"{tuple(target[key].shape)}")
+                target[key].copy_(value.to(target[key].dtype))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -46,8 +46,8 @@ Phases (any failure exits non-zero and prints no result line):
    launches (K1 5, K2 2, K3 5, pair forward 3, two-term backward 6, K4/K5/K6
    alone 0 a step), peak memory; the
    launch counts are reset just before ``fit`` and read just after it;
-8. the trained checkpoint serves: ``RetrievalServer.from_checkpoint`` builds
-   an index and answers a query;
+8. the trained checkpoint (the fit's best ``epoch=0.ckpt``) serves:
+   ``RetrievalServer.from_checkpoint`` builds an index and answers a query;
 9. train plain path — one f32 train step (TF32 off, deterministic cuDNN)
    through the kernels and through their plain versions from the same
    state: losses, gradients and running variances within stated tolerances;
@@ -59,10 +59,24 @@ Phases (any failure exits non-zero and prints no result line):
     K2 and K4/K5/K6 alone 0), the f32 step
     kernel-vs-plain with phase 9's tolerances, a profiled step;
 10c. a diagnostic beside the main path: the windowed and dense-plan train
-    steps with ``VoxelCNNEncoder.explicit_dgrad`` off and on, a profile of
+    steps with ``VoxelCNNEncoder.explicit_dgrad`` set off and on (whatever
+    the config default), a profile of
     one explicit-dgrad dense-plan step (top device kernels and operators,
     idle share, the port kernels' share), and block 2's input gradient alone
     both ways with the kernels that compute it;
+10d. the training-run lifecycle — Bi(V) on ``data=structured
+    data.num_models=150`` at the flagship widths (450 captions, 3 steps an
+    epoch): ``Trainer.fit`` for 2 epochs with validation every epoch (finite
+    val losses), async top-1 and ``last.ckpt`` saves, launches a step
+    exactly K1 5, K2 2, K3 5, pair forward 1, two-term backward 2; then the
+    train CLI with ``+auto_resume`` to epoch 3 (step and Adam step 9 in
+    ``last.ckpt``); ``python -m tricolo_tpu_torch.test`` on the best
+    checkpoint with ``inference.device_eval=true`` and ``python -m
+    tricolo_tpu_torch.eval`` (which ranks on the card) on its ``output.p``
+    (equal metrics); the device ranking against the numpy
+    metrics (RR exact, NDCG and MRR within 1e-6); the split's k and T and
+    the step's CUDA-event median; its launch counts are reset just before
+    the fit and the resumed run and read just after each;
 11. the kernels line (a row per TPU kernel, ten wrappers; the row of K4
     counts the pair launches, each of which computes K4 twice, and carries
     the pair entry's times, the rows of K5 and K6 likewise the two-term
@@ -75,7 +89,11 @@ of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -892,9 +910,9 @@ def explicit_dgrad_diagnostic(torch, trainer, step, batch, dense_trainer, dense_
             times.setdefault(explicit, []).append(
                 time_ms(lambda: fn(b, lr), torch, repeats=3, warmup=1))
         enc.explicit_dgrad = False
-        out[label] = {"default_ms": min(times[False]), "explicit_ms": min(times[True]),
-                      "runs": {"default": times[False], "explicit": times[True]}}
-        log(f"explicit_dgrad, {label} train step: default {out[label]['default_ms']:.3f} ms, "
+        out[label] = {"autograd_ms": min(times[False]), "explicit_ms": min(times[True]),
+                      "runs": {"autograd": times[False], "explicit": times[True]}}
+        log(f"explicit_dgrad, {label} train step: autograd {out[label]['autograd_ms']:.3f} ms, "
             f"explicit {out[label]['explicit_ms']:.3f} ms [{card}]")
     # Where an explicit-dgrad dense-plan step spends its device time.
     enc = dense_trainer.model.voxel_encoder
@@ -921,6 +939,158 @@ def explicit_dgrad_diagnostic(torch, trainer, step, batch, dense_trainer, dense_
             f"top kernel {top['name'][:100]} [{card}]")
     log(f"  explicit vs transposed dgrad: max |d| / max = {alone['rel_diff_of_max']:.3g}")
     return out
+
+
+# -------------------------------------------------------------- phase 10d
+
+# The training-run lifecycle on the structured dataset: Bi(V) at the
+# flagship widths (64³ voxels, ef 32, z 512, batch 128, bf16, masked BN,
+# windowed_compact), 150 models = 450 captions = 3 steps an epoch.
+LIFECYCLE = [
+    "data=structured",
+    "data.num_models=150",
+    "model.voxel_encoder=VoxelCNNEncoder",
+    "precision.compute_dtype=bfloat16",
+    "loss.NTXentLoss.use_pallas=true",
+    "trainer.check_val_every_n_epoch=1",
+    "trainer.log_every_n_steps=1",
+    "trainer.profiler=none",
+    "logger.backend=jsonl",
+    "checkpoint_monitor.save_top_k=1",
+    "checkpoint_monitor.save_last=true",
+    "checkpoint_monitor.async_save=true",
+    "experiment_name=chip_smoke_lifecycle",
+    f"project_root_path={ROOT / 'build' / 'chip_smoke'}",
+]
+# One modality pair: 1 pair-forward and 2 two-term backward launches a step.
+LIFECYCLE_LAUNCHES = dict(TRAIN_LAUNCHES, nt_xent_fwd_pair=1, nt_xent_bwd=2)
+# device_eval against the numpy pipeline: hit counts exact, the float sums
+# of NDCG and MRR to f32 rounding.
+DEVICE_EVAL_TOL = 1e-6
+
+
+def _cli(module: str, args: list[str], cwd: Path) -> list[str]:
+    """Run ``python -m tricolo_tpu_torch.<module>`` as a user would; its
+    printed "RR@1 RR@5 NDCG@5 MRR" numbers."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    proc = subprocess.run([sys.executable, "-m", f"tricolo_tpu_torch.{module}", *args],
+                          cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0,
+            f"{module} CLI failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    return lines[lines.index("RR@1 RR@5 NDCG@5 MRR") + 1].split()
+
+
+def lifecycle(torch, card) -> tuple[dict, dict]:
+    """Fit 2 epochs (validation and an async top-1 + last save each epoch),
+    resume to epoch 3 through the train CLI with ``+auto_resume``, test the
+    best checkpoint through the test CLI and score its ``output.p`` through
+    the eval CLI, and hold ``device_eval`` against the numpy metrics.
+    Returns (report, launches of the fit and the resumed run)."""
+    import pickle
+
+    import numpy as np
+
+    from tricolo_tpu_torch import ops, train
+    from tricolo_tpu_torch.config import load_config
+    from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch.evaluation import compute_metrics, compute_metrics_on_device
+    from tricolo_tpu_torch.training import Trainer
+    from tricolo_tpu_torch.training.checkpoint import load_checkpoint
+
+    cfg = load_config(LIFECYCLE + ["trainer.max_epochs=2"])
+    shutil.rmtree(cfg.experiment_output_path, ignore_errors=True)
+    trainer = Trainer(cfg, device=cfg.get("device", None))  # cuda unless +device=...
+    device = trainer.device
+    steps: list = []
+    trainer.train_step = timed_step(torch, trainer.train_step, steps)
+    dm = DataModule(cfg)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    tic = time.perf_counter()
+    manager = trainer.fit(dm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - tic
+    launches = ops.launches()
+    k = dm.train_loader().tile_budget_rows
+    B = cfg.data.batch_size
+    require(len(dm.train_set) == 450 and len(steps) == 6,
+            f"2 epochs of {len(dm.train_set)} structured captions ran {len(steps)} steps, not 6")
+    for i, row in enumerate(steps):
+        require(all(np.isfinite(v) for v in row["losses"].values()),
+                f"structured step {i}: non-finite losses {row['losses']}")
+        require(row["launches"] == LIFECYCLE_LAUNCHES,
+                f"structured step {i}: launches {row['launches']} != {LIFECYCLE_LAUNCHES}")
+    with open(os.path.join(cfg.logger.save_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    val_rows = [r for r in rows if "val_loss/total_loss" in r]
+    require(len(val_rows) == 2 and all(np.isfinite(r[key]) for r in val_rows
+                                       for key in r if key.startswith("val_loss/")),
+            f"validation losses: {val_rows}")
+    best = manager.best_path
+    saved = sorted(os.listdir(manager.dirpath))
+    require(best is not None and os.path.exists(best) and "last.ckpt" in saved
+            and sum(name.startswith("epoch=") for name in saved) == 1,
+            f"top-1 + last checkpoints: {saved}")
+    step_ms = statistics.median(r["ms"] for r in steps[1:])
+    out = {"captions": len(dm.train_set), "k": k, "T": B * k, "steps": steps,
+           "step_ms_median_2_6": step_ms, "fit_s": fit_s, "launches_fit": launches,
+           "val_rows": val_rows, "best": os.path.basename(best), "saved": saved}
+    log(f"lifecycle: structured split {len(dm.train_set)} captions, k={k} tiles/sample, "
+        f"T={B * k} rows/batch; 2 epochs in {fit_s:.1f} s, median step (2-6) {step_ms:.3f} ms, "
+        f"launches/step {steps[-1]['launches']}; val losses "
+        f"{[round(r['val_loss/total_loss'], 5) for r in val_rows]}; kept {saved} [{card}]")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # Resume through the train CLI: the newest surviving epoch=N.ckpt.
+    buffer = io.StringIO()
+    ops.reset_launches()
+    tic = time.perf_counter()
+    with contextlib.redirect_stdout(buffer):
+        best = train.main(LIFECYCLE + ["trainer.max_epochs=3", "+auto_resume=true"])
+    out["resume_s"] = time.perf_counter() - tic
+    resume_launches = ops.launches()
+    printed = buffer.getvalue()
+    require("auto_resume: resuming from " in printed, f"no resume: {printed[-500:]}")
+    last = load_checkpoint(os.path.join(manager.dirpath, "last.ckpt"))
+    adam_steps = {int(e["step"]) for e in last["optimizer"]["state"].values()}
+    require(last["epoch"] == 2 and last["step"] == 9 and adam_steps == {9},
+            f"resumed run ended at epoch {last['epoch']}, step {last['step']}, "
+            f"Adam steps {adam_steps}; want 2, 9, 9")
+    out["resumed_from"] = printed.split("auto_resume: resuming from ")[1].split()[0]
+    log(f"lifecycle: resumed from {Path(out['resumed_from']).name} to epoch 2, step 9, Adam "
+        f"step 9 in {out['resume_s']:.1f} s [{card}]")
+
+    # The test CLI on the best checkpoint, the eval CLI on its output.p; both
+    # rank on the card, so their printed metrics are equal to the digit.
+    tic = time.perf_counter()
+    tested = _cli("test", LIFECYCLE + [f"+ckpt_path={best}", "inference.device_eval=true"],
+                  Path(manager.dirpath))
+    output_p = os.path.join(load_config(LIFECYCLE).inference.output_dir, "output.p")
+    evaluated = _cli("eval", [f"+prediction_file_path={output_p}"], Path(manager.dirpath))
+    out["cli_s"] = time.perf_counter() - tic
+    require(tested == evaluated, f"test CLI {tested} != eval CLI {evaluated}")
+    with open(output_p, "rb") as f:
+        embeddings = pickle.load(f)
+    reference = compute_metrics(embeddings, nearest_path=None)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    on_device = compute_metrics_on_device(embeddings, device)[0]
+    out["device_eval_ms"] = (time.perf_counter() - tic) * 1e3
+    ndcg_dev = float(np.abs(on_device.ndcg - reference.ndcg).max())
+    mrr_dev = abs(on_device.mrr - reference.mrr)
+    require(np.array_equal(on_device.recall_rate, reference.recall_rate),
+            f"device_eval RR {on_device.recall_rate} != numpy {reference.recall_rate}")
+    require(ndcg_dev <= DEVICE_EVAL_TOL and mrr_dev <= DEVICE_EVAL_TOL,
+            f"device_eval NDCG |d| {ndcg_dev}, MRR |d| {mrr_dev} > {DEVICE_EVAL_TOL}")
+    out.update(tested=best, test_cli=tested, eval_cli=evaluated, device_eval_ndcg_abs=ndcg_dev,
+               device_eval_mrr_abs=mrr_dev, resume_launches=resume_launches)
+    log(f"lifecycle: test CLI on {Path(best).name} -> RR@1 RR@5 NDCG@5 MRR {tested}, eval CLI "
+        f"on its output.p equal; device_eval RR equal, NDCG |d| {ndcg_dev:.3g}, MRR |d| "
+        f"{mrr_dev:.3g} (tol {DEVICE_EVAL_TOL}); CLIs {out['cli_s']:.1f} s [{card}]")
+    return out, {"lifecycle_fit": launches, "lifecycle_resume": resume_launches}
 
 
 # ----------------------------------------------------------------- main
@@ -950,6 +1120,7 @@ def main() -> int:
 
     report: dict = {"phases": {}}
     walls = report["phases"]
+    shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)  # earlier runs' outputs
 
     # 1. card
     card = subprocess.run(
@@ -1145,7 +1316,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     tic = time.perf_counter()
-    ckpt = trainer.fit(train_dm)
+    ckpt = trainer.fit(train_dm).best_path
     torch.cuda.synchronize()
     walls["train_fit_s"] = time.perf_counter() - tic
     train_launches = ops.launches()
@@ -1254,13 +1425,21 @@ def main() -> int:
     del dense_trainer, dense_step, dense_batch
     torch.cuda.empty_cache()
 
+    # 10d. the training-run lifecycle on the structured dataset: fit with
+    # validation losses and async top-1 + last saves, resume, test and eval
+    # CLIs, device_eval.
+    tic = time.perf_counter()
+    report["lifecycle"], lifecycle_paths = lifecycle(torch, card)
+    walls["lifecycle_s"] = time.perf_counter() - tic
+    torch.cuda.empty_cache()
+
     # 11. kernels line, card line, result
     def total(rows, key):
         return sum(r[key] for r in rows)
 
     paths = {"serving": launches, "train": train_launches,
              "dense_serving": report["dense_serving"]["launches"],
-             "dense_train": dense_train["launches_fit"]}
+             "dense_train": dense_train["launches_fit"], **lifecycle_paths}
 
     def both(name):
         return {path: counts[name] for path, counts in paths.items()}

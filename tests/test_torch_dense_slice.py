@@ -98,7 +98,8 @@ def test_collect_embeddings_match_jax(variables, transfer):
     port_dm.setup("test")
     port = torch_model(params, stats, _transfer(transfer))
     assert port.voxel_encoder.tile_sparse
-    got = collect_embeddings(port, port_dm.test_loader(), torch.device("cpu"))
+    got, losses = collect_embeddings(port, port_dm.test_loader(), torch.device("cpu"))
+    assert losses == {}
     tuples = got["caption_embedding_tuples"]
     assert len(tuples) == len(ref) == 15
     for (_, _, model_id, text, shape), (ref_id, ref_text, ref_shape) in zip(tuples, ref):

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no file of ``tricolo_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, flax, optax or the JAX package; and the
+``chip_smoke.py`` imports JAX, flax, optax, msgpack or the JAX package; and the
 kernel wrappers launch nothing on CPU tensors, eval or train.
 
 The scan reads the sources' import statements (AST) rather than
@@ -14,7 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tricolo_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "tricolo_tpu")
 SOURCES = sorted((ROOT / "tricolo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

@@ -208,8 +208,8 @@ def test_fit_one_epoch_checkpoint_serves(tmp_path, capsys):
                        f"project_root_path={tmp_path}"])
     trainer = Trainer(cfg, device="cpu")
     before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
-    path = trainer.fit(DataModule(cfg))
-    assert path == str(tmp_path / "output" / "Synthetic" / "fit" / "training" / "epoch=0.pt")
+    path = trainer.fit(DataModule(cfg)).best_path
+    assert path == str(tmp_path / "output" / "Synthetic" / "fit" / "training" / "epoch=0.ckpt")
     out = capsys.readouterr().out
     assert "epoch 0: RR@1=" in out and "MRR=" in out
     assert trainer.metrics is not None
@@ -227,7 +227,7 @@ def test_train_cli_on_cpu(tmp_path, capsys):
 
     path = train.main([*TINY, *PORT, "trainer.max_epochs=1", "experiment_name=cli",
                        f"project_root_path={tmp_path}", "+device=cpu"])
-    assert path.endswith("epoch=0.pt")
+    assert path.endswith("epoch=0.ckpt")
     assert f"checkpoint: {path}" in capsys.readouterr().out
 
 

@@ -13,8 +13,11 @@ round trip is bit-exact:
 * BN ``scale/bias`` + batch_stats ``mean/var`` ↔
   ``weight/bias/running_mean/running_var`` (``num_batches_tracked`` is 0).
 
-A port checkpoint is ``torch.save`` of the state_dict. Reading the JAX
-package's msgpack checkpoints needs flax or msgpack and is not ported yet.
+``jax_checkpoint_to_torch`` carries a whole JAX checkpoint (as
+``training.jax_checkpoint.load_jax_checkpoint`` reads it, no flax needed)
+over: the weights through ``jax_to_torch`` after
+``migrate_legacy_voxel_kernel``, the Adam moments of either JAX optimizer
+layout as ``torch.optim.Adam`` state.
 """
 
 from __future__ import annotations
@@ -156,3 +159,96 @@ def torch_to_jax(state_dict: dict) -> tuple[dict, dict]:
         else:
             raise KeyError(f"unmapped state_dict entry {key}")
     return params, stats
+
+
+def migrate_legacy_voxel_kernel(raw: dict) -> dict:
+    """Zero-pad a legacy (3,3,3,3,C) block-0 voxel conv kernel of a JAX
+    checkpoint to the (3,3,3,4,C) layout, in place, in the params and in
+    the per-leaf Adam moments (``tricolo_tpu``'s function of this name):
+    the pad channel's input is always zero, so the zeros change nothing."""
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return
+        voxel = node.get("voxel_encoder")
+        if isinstance(voxel, dict):
+            conv = voxel.get("ConvBlock_0", {}).get("Conv_0", {})
+            kernel = conv.get("kernel")
+            if kernel is not None and getattr(kernel, "ndim", 0) == 5 and kernel.shape[-2] == 3:
+                conv["kernel"] = np.concatenate([kernel, np.zeros_like(kernel[..., :1, :])],
+                                                axis=-2)
+        for value in node.values():
+            walk(value)
+
+    walk(raw.get("params", {}))
+    walk(raw.get("opt_state", {}))
+    return raw
+
+
+def _find_adam_moments(node):
+    """The ``{count, mu, nu}`` dict inside a JAX opt-state tree: the
+    optax chain's ``ScaleByAdamState`` or the flat ``FlatTorchAdamState``."""
+    if isinstance(node, dict):
+        if {"count", "mu", "nu"} <= set(node):
+            return node
+        for value in node.values():
+            found = _find_adam_moments(value)
+            if found is not None:
+                return found
+    return None
+
+
+def _unravel(flat: np.ndarray, like: dict) -> dict:
+    """A flat moment buffer (``optimizer.flat_update=true``) → a tree shaped
+    like ``like``, in ``jax.flatten_util.ravel_pytree``'s order: dict keys
+    sorted at every level, each leaf in C order."""
+    offset = 0
+
+    def walk(node):
+        nonlocal offset
+        out = {}
+        for key in sorted(node):
+            value = node[key]
+            if isinstance(value, dict):
+                out[key] = walk(value)
+            else:
+                n = int(np.asarray(value).size)
+                out[key] = flat[offset:offset + n].reshape(np.shape(value))
+                offset += n
+        return out
+
+    tree = walk(like)
+    if offset != flat.size:
+        raise ValueError(f"flat Adam moment holds {flat.size} values, the params {offset}")
+    return tree
+
+
+def jax_checkpoint_to_torch(raw: dict, param_names: list[str] | None = None) -> dict:
+    """A restored JAX checkpoint → the port's checkpoint payload
+    ``{"model", "optimizer", "step", "epoch", "extra"}``.
+
+    ``param_names`` (the model's ``named_parameters`` order, the optimizer's
+    parameter order) asks for the Adam state too: ``step`` = count,
+    ``exp_avg`` = mu, ``exp_avg_sq`` = nu, each in its parameter's torch
+    layout; without it, or before the first step, ``optimizer`` is None."""
+    raw = migrate_legacy_voxel_kernel(raw)
+    params = raw["params"]
+    optimizer = None
+    adam = _find_adam_moments(raw.get("opt_state", {})) if param_names is not None else None
+    if adam is not None and int(np.asarray(adam["count"])) > 0:
+        mu, nu = adam["mu"], adam["nu"]
+        if not isinstance(mu, dict):
+            mu, nu = _unravel(np.asarray(mu), params), _unravel(np.asarray(nu), params)
+        exp_avg, exp_avg_sq = jax_to_torch(mu, {}), jax_to_torch(nu, {})
+        step = float(np.asarray(adam["count"]))
+        optimizer = {"state": {
+            i: {"step": torch.tensor(step), "exp_avg": exp_avg[name],
+                "exp_avg_sq": exp_avg_sq[name]}
+            for i, name in enumerate(param_names)}}
+    return {
+        "model": jax_to_torch(params, raw.get("batch_stats", {})),
+        "optimizer": optimizer,
+        "step": int(np.asarray(raw.get("step", 0))),
+        "epoch": int(np.asarray(raw["epoch"])) if "epoch" in raw else None,
+        "extra": raw.get("extra", {}),
+    }

@@ -8,7 +8,9 @@ model's vision data. Items stay uint8/packed on the host — images
 | occupancy bit 24) — and the float work happens on the device
 (data/device_prep.py).
 
-``SyntheticDataset`` is the CPU/GPU-runnable fixture; ``GeneralDataset``
+``SyntheticDataset`` is the CPU/GPU-runnable fixture,
+``StructuredSyntheticDataset`` (``structured.py``) the one whose captions
+determine their shapes; ``GeneralDataset``
 reads the Text2Shape ``{split}_map.json`` + per-model ``.npz`` layout with
 numpy only. The precached-CLIP-feature fields are not ported yet (the CLIP
 heads come in a later slice).
@@ -248,11 +250,14 @@ class SyntheticDataset(_SplitDataset):
         self.max_voxel_points = _resolve_voxel_budget(cfg, self.vision_data, split)
 
 
+from .structured import StructuredSyntheticDataset  # noqa: E402 (it subclasses _SplitDataset)
+
 _DATASETS = {
     "Text2ShapeChairTable": GeneralDataset,
     "Text2ShapeC13": GeneralDataset,
     "GeneralDataset": GeneralDataset,
     "Synthetic": SyntheticDataset,
+    "StructuredSynthetic": StructuredSyntheticDataset,
 }
 
 

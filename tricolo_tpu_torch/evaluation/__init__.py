@@ -1,5 +1,6 @@
-"""Retrieval evaluation (numpy)."""
+"""Retrieval evaluation: the numpy pipeline and its device twin."""
 
+from .device import compute_metrics_on_device
 from .retrieval import (
     RetrievalMetrics,
     compute_metrics,
@@ -12,6 +13,7 @@ from .retrieval import (
 __all__ = [
     "RetrievalMetrics",
     "compute_metrics",
+    "compute_metrics_on_device",
     "compute_nearest_neighbors",
     "compute_pr_at_k",
     "construct_embeddings_matrix",

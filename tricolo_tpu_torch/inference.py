@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .data.device_prep import prepare_device_batch
+from .losses import pairwise_losses
 
 
 def resolve_device(device=None) -> torch.device:
@@ -90,11 +91,19 @@ def shape_embedding_sum(output: dict) -> torch.Tensor:
     return shape
 
 
-def collect_embeddings(model, loader, device: torch.device) -> dict:
-    """Run the eval step over a loader → the evaluator's caption-tuple dict
-    ``{"caption_embedding_tuples": [(None, category, model_id, text, shape)]}``."""
+def collect_embeddings(model, loader, device: torch.device, loss_fn=None):
+    """Run the eval step over a loader → ``(embeddings, val_losses)``:
+    the evaluator's caption-tuple dict ``{"caption_embedding_tuples":
+    [(None, category, model_id, text, shape)]}`` and, with ``loss_fn`` (a
+    pair loss, ``losses.make_loss_fn``), ``pairwise_losses(...,
+    "val_loss")`` of each batch's features averaged over the *full* batches
+    only — a padded tail batch's repeated rows would act as false negatives
+    (the JAX ``Trainer.collect_embeddings(with_loss=True)``). Without
+    ``loss_fn`` the losses are ``{}``."""
     model.eval()
     tuples = []
+    totals: dict[str, float] = {}
+    n_loss_batches = 0
     for batch in loader:
         output = eval_step(model, to_device_batch(batch, device))
         n_valid = batch["num_valid"]
@@ -104,4 +113,10 @@ def collect_embeddings(model, loader, device: torch.device) -> dict:
             tuples.append(
                 (None, batch["category"][i], batch["model_id"][i], text[i], shape[i])
             )
-    return {"caption_embedding_tuples": tuples}
+        if loss_fn is not None and n_valid == loader.batch_size:
+            n_loss_batches += 1
+            with torch.no_grad():
+                for key, value in pairwise_losses(loss_fn, output, "val_loss").items():
+                    totals[key] = totals.get(key, 0.0) + float(value)
+    embeddings = {"caption_embedding_tuples": tuples}
+    return embeddings, {k: v / max(n_loss_batches, 1) for k, v in totals.items()}

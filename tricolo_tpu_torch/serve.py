@@ -1,17 +1,18 @@
 """Retrieval serving entry point of the PyTorch port.
 
-Build the shape index from a port checkpoint + split, then answer text
+Build the shape index from a checkpoint + split, then answer text
 queries — one-shot, or as an HTTP endpoint:
 
     python -m tricolo_tpu_torch.serve data=text2shape_chair_table \\
         model.image_encoder=MVCNNEncoder model.voxel_encoder=VoxelCNNEncoder \\
-        +ckpt_path=tri.pt +query_tokens="12,5,99"
+        +ckpt_path=output/.../training/last.ckpt +query_tokens="12,5,99"
 
     # HTTP endpoint (POST /retrieve {"query": ..., "k": 5})
-    python -m tricolo_tpu_torch.serve ... +ckpt_path=tri.pt +port=8080
+    python -m tricolo_tpu_torch.serve ... +ckpt_path=... +port=8080
 
-The checkpoint is ``torch.save`` of the port's state_dict (``convert.py``
-turns a JAX parameter tree into one). Runs on the GPU; ``+device=cpu``
+The checkpoint is any file ``training.checkpoint.load_checkpoint`` reads:
+the port's, a bare state_dict saved with ``torch.save``, or the JAX
+package's msgpack ``.ckpt``. Runs on the GPU; ``+device=cpu``
 runs on the CPU instead. ``+index_path=index.npz`` caches the built index;
 ``+vocab_path=...`` points at the Text2Shape ``shapenet.json`` for raw-text
 queries (default ``{data.dataset_path}/shapenet.json``).

@@ -29,6 +29,7 @@ import torch
 from .data.device_prep import normalize_images
 from .inference import autocast, collect_embeddings, resolve_device
 from .models.tricolo_net import TriCoLoNet
+from .training.checkpoint import load_checkpoint, prune_disabled_encoders
 
 
 class TextTokenizer:
@@ -125,17 +126,18 @@ class RetrievalServer:
 
     @classmethod
     def from_checkpoint(cls, cfg, ckpt_path: str, device=None, **kw) -> "RetrievalServer":
-        """Build the model from ``cfg`` and load a port checkpoint (a
-        ``torch.save``d state_dict)."""
+        """Build the model from ``cfg`` and load its weights from any
+        checkpoint ``training.checkpoint.load_checkpoint`` reads (the
+        port's, a bare state_dict, the JAX package's), without the disabled
+        encoders' entries."""
         model = TriCoLoNet.from_config(cfg)
-        state = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-        model.load_state_dict(state)
+        model.load_state_dict(prune_disabled_encoders(load_checkpoint(ckpt_path)["model"], cfg))
         return cls(cfg, model, device=device, **kw)
 
     def build_index(self, data_module) -> RetrievalIndex:
         """Embed the ``inference.split`` split and build the index."""
         data_module.setup("test")
-        embeddings = collect_embeddings(self.model, data_module.test_loader(), self.device)
+        embeddings, _ = collect_embeddings(self.model, data_module.test_loader(), self.device)
         self.index = RetrievalIndex.from_embeddings_dict(embeddings)
         return self.index
 

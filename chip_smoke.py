@@ -29,7 +29,10 @@ Phases (any failure exits non-zero and prints no result line):
 4. serving — ``RetrievalServer.build_index`` over a 256-model synthetic
    split at the flagship widths (Tri(I+V), 64³ voxels, 6×128² views,
    batch 128, bf16), four token queries and one image query, with the
-   kernels' launch counts taken over exactly this phase;
+   kernels' launch counts taken over exactly this phase; every array that
+   reaches ``to_device_batch`` comes from pinned memory and every batch
+   through the C++ windowed_compact sweep (so in phases 7 and 10d); the
+   build's wall split by part, through the prefetching loader;
 5. serving plain path — the same index in f32 (TF32 off) through the
    kernels and through their plain versions; the two must agree to 1e-5;
 6. one flagship eval batch — 128 solid-ellipsoid shapes, CUDA-event median;
@@ -77,7 +80,13 @@ Phases (any failure exits non-zero and prints no result line):
     metrics (RR exact, NDCG and MRR within 1e-6); the split's k and T and
     the step's CUDA-event median; its launch counts are reset just before
     the fit and the resumed run and read just after each;
-11. the kernels line (a row per TPU kernel, ten wrappers; the row of K4
+11. host path — the host loader (``csrc/host_loader.cpp``) built with g++
+    on the card's host; its four sweeps (windowed_compact halo 3, windowed
+    halo 1 and 3, dense, and the RGBA packing of each sample's grid)
+    bit-exact against their numpy versions on the flagship synthetic-256
+    val batch and a structured-300 train batch, each timed (C++ median of
+    5, numpy median of 3) beside the host CPU model and thread count;
+12. the kernels line (a row per TPU kernel, ten wrappers; the row of K4
     counts the pair launches, each of which computes K4 twice, and carries
     the pair entry's times, the rows of K5 and K6 likewise the two-term
     launches and times), then the card line, then
@@ -492,9 +501,13 @@ def check_k2_global(torch, cases, ids, n_active, batch, flush):
 
 
 def index_breakdown(torch, dm, model) -> dict:
-    """Where an index build's wall time goes: split construction, host
-    collation, host→device copy, and the eval forward's device time (CUDA
-    events). ``device_idle_share`` = 1 − forward device time / wall."""
+    """Where an index build's wall time goes, through the loader
+    ``RetrievalServer.build_index`` uses (prefetch thread, pinned
+    batches): split construction, the wait for the next batch on the
+    prefetch queue (``collate_s``: the collation the thread did not hide),
+    the host→device copy (non_blocking from pinned memory, then
+    synchronised), and the eval forward's device time (CUDA events).
+    ``device_idle_share`` = 1 − forward device time / wall."""
     from tricolo_tpu_torch.inference import eval_step, shape_embedding_sum, to_device_batch
 
     wall = time.perf_counter()
@@ -502,7 +515,7 @@ def index_breakdown(torch, dm, model) -> dict:
     dm.setup("test")
     parts = {"setup_s": time.perf_counter() - tic, "collate_s": 0.0, "h2d_s": 0.0,
              "forward_device_s": 0.0}
-    batches = iter(dm.test_loader())
+    batches = iter(dm.test_loader(pin_memory=True))
     while True:
         tic = time.perf_counter()
         batch = next(batches, None)
@@ -523,6 +536,32 @@ def index_breakdown(torch, dm, model) -> dict:
     parts["wall_s"] = time.perf_counter() - wall
     parts["device_idle_share"] = 1.0 - parts["forward_device_s"] / parts["wall_s"]
     return parts
+
+
+def reset_host_counts() -> None:
+    from tricolo_tpu_torch import native
+    from tricolo_tpu_torch.inference import to_device_batch
+
+    native.reset_calls()
+    to_device_batch.copies.update(pinned=0, pageable=0)
+
+
+def check_host_path(path: str, batches: int) -> dict:
+    """Since ``reset_host_counts``: every array that reached
+    ``to_device_batch`` came from pinned memory (no synchronous pageable
+    copy), and each of the ``batches`` batches went through the C++
+    windowed_compact sweep."""
+    from tricolo_tpu_torch import native
+    from tricolo_tpu_torch.inference import to_device_batch
+
+    copies, calls = dict(to_device_batch.copies), native.call_counts()
+    require(copies["pageable"] == 0 and copies["pinned"] > 0,
+            f"{path}: {copies['pageable']} arrays reached to_device_batch from pageable "
+            f"memory, {copies['pinned']} from pinned memory")
+    require(calls["packed_to_windowed_compact"] == batches,
+            f"{path}: {calls['packed_to_windowed_compact']} C++ windowed_compact sweeps for "
+            f"{batches} batches")
+    return {"copies": copies, "sweeps": calls}
 
 
 # -------------------------------------------------------------- phase 6
@@ -1008,11 +1047,14 @@ def lifecycle(torch, card) -> tuple[dict, dict]:
     dm = DataModule(cfg)
     torch.cuda.synchronize()
     ops.reset_launches()
+    reset_host_counts()
     tic = time.perf_counter()
     manager = trainer.fit(dm)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - tic
     launches = ops.launches()
+    # 2 epochs of 3 train batches, each followed by a validation of 4.
+    host = check_host_path("lifecycle fit", 2 * 3 + 2 * 4)
     k = dm.train_loader().tile_budget_rows
     B = cfg.data.batch_size
     require(len(dm.train_set) == 450 and len(steps) == 6,
@@ -1036,7 +1078,8 @@ def lifecycle(torch, card) -> tuple[dict, dict]:
     step_ms = statistics.median(r["ms"] for r in steps[1:])
     out = {"captions": len(dm.train_set), "k": k, "T": B * k, "steps": steps,
            "step_ms_median_2_6": step_ms, "fit_s": fit_s, "launches_fit": launches,
-           "val_rows": val_rows, "best": os.path.basename(best), "saved": saved}
+           "val_rows": val_rows, "best": os.path.basename(best), "saved": saved,
+           "host_path": host}
     log(f"lifecycle: structured split {len(dm.train_set)} captions, k={k} tiles/sample, "
         f"T={B * k} rows/batch; 2 epochs in {fit_s:.1f} s, median step (2-6) {step_ms:.3f} ms, "
         f"launches/step {steps[-1]['launches']}; val losses "
@@ -1091,6 +1134,121 @@ def lifecycle(torch, card) -> tuple[dict, dict]:
         f"on its output.p equal; device_eval RR equal, NDCG |d| {ndcg_dev:.3g}, MRR |d| "
         f"{mrr_dev:.3g} (tol {DEVICE_EVAL_TOL}); CLIs {out['cli_s']:.1f} s [{card}]")
     return out, {"lifecycle_fit": launches, "lifecycle_resume": resume_launches}
+
+
+# -------------------------------------------------------------- phase 11
+
+# The structured quality run's configuration (python -m
+# tricolo_tpu_torch.bn_experiment): its train batches are what a structured
+# run collates.
+STRUCTURED_300 = ["data=structured", "data.num_models=300",
+                  "model.voxel_encoder=VoxelCNNEncoder", "precision.compute_dtype=bfloat16"]
+
+
+def host_cpu() -> str:
+    """The host CPU as ``lscpu`` names it: model name, vendor, family and
+    model numbers (a virtual machine may report the name as unknown)."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+    fields = dict(line.split(":", 1) for line in out.splitlines() if ":" in line)
+    fields = {key.strip(): value.strip() for key, value in fields.items()}
+    return (f"{fields.get('Model name', 'unknown')} ({fields.get('Vendor ID', '?')}, family "
+            f"{fields.get('CPU family', '?')} model {fields.get('Model', '?')})")
+
+
+def rgba_grids(flat, rgb, d):
+    """Each sample's packed words → its (4, d, d, d) u8 RGBA grid (alpha
+    255 on occupied sites), in numpy."""
+    import numpy as np
+
+    grids = np.zeros((len(flat), 4, d, d, d), np.uint8)
+    for i in range(len(flat)):
+        words = flat[i][flat[i] != 0xFFFFFFFF]
+        x, y, z = (words >> 16) & 0xFF, (words >> 8) & 0xFF, words & 0xFF
+        colors = rgb[i][: len(words)]
+        for c in range(3):
+            grids[i, c, x, y, z] = (colors >> (8 * c)) & 0xFF
+        grids[i, 3, x, y, z] = 255
+    return grids
+
+
+def host_path(torch, card, dm) -> dict:
+    """The host loader's build on this host, then its four sweeps against
+    their numpy versions, bit-exact, on the first flagship val batch and
+    the first structured-300 train batch, with host times."""
+    import numpy as np
+
+    from tricolo_tpu_torch import native
+    from tricolo_tpu_torch.config import load_config
+    from tricolo_tpu_torch.data import DataModule, datasets, device_prep
+
+    tic = time.perf_counter()
+    native.build(build_dir=ROOT / "build" / "chip_smoke" / "host_loader")  # a fresh build
+    out = {"build_s": time.perf_counter() - tic, "cpu": host_cpu(), "threads": native.threads(),
+           "batches": {}}
+    log(f"host loader: g++ build {out['build_s']:.2f} s on {out['cpu']}, "
+        f"{out['threads']} sweep threads [{card}]")
+
+    structured = DataModule(load_config(STRUCTURED_300))
+    structured.setup("fit")
+    for name, loader in (("synthetic-256 val", dm.test_loader()),
+                         ("structured-300 train", structured.train_loader())):
+        k, d = loader.tile_budget_rows, loader.voxel_size
+        loader.voxel_transfer = "packed"  # the batch's packed words, collated as usual
+        first = loader.peek()
+        flat, rgb = first["voxel_flat"], first["voxel_rgb"]
+        grids = rgba_grids(flat, rgb, d)
+        cases = [
+            ("windowed_compact halo 3",
+             lambda: native.packed_to_windowed_compact(flat, rgb, d, k, 8, 3),
+             lambda: device_prep.windowed_compact_on_host_plain(flat, rgb, d, k, halo=3)),
+            ("windowed halo 1", lambda: native.packed_to_windowed(flat, rgb, d, 8, 1),
+             lambda: device_prep.windowed_on_host_plain(flat, rgb, d, halo=1)),
+            ("windowed halo 3", lambda: native.packed_to_windowed(flat, rgb, d, 8, 3),
+             lambda: device_prep.windowed_on_host_plain(flat, rgb, d, halo=3)),
+            ("dense", lambda: native.packed_to_dense(flat, rgb, d),
+             lambda: device_prep.densify_on_host_plain(flat, rgb, d)),
+            ("dense_rgba_to_packed x B",
+             lambda: [native.dense_rgba_to_packed(g) for g in grids],
+             lambda: [datasets.dense_rgba_to_packed_plain(g) for g in grids]),
+        ]
+        rows = []
+        for label, fast, plain in cases:
+            got, want = _arrays(fast()), _arrays(plain())
+            exact = len(got) == len(want) and all(
+                a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(got, want))
+            require(exact, f"host sweep {label} on the {name} batch differs from numpy")
+            if label.startswith("dense_rgba"):
+                n = (flat != 0xFFFFFFFF).sum(axis=1)
+                require(all(np.array_equal(got[2 * i], flat[i, : n[i]])
+                            and np.array_equal(got[2 * i + 1], rgb[i, : n[i]])
+                            for i in range(len(flat))),
+                        f"RGBA packing does not give back the {name} batch's words")
+            del got, want
+            ms = statistics.median(_host_ms(fast) for _ in range(5))
+            plain_ms = statistics.median(_host_ms(plain) for _ in range(3))
+            rows.append({"sweep": label, "ms": ms, "plain_ms": plain_ms, "bit_exact": True})
+            log(f"  host sweep, {name} batch (B={len(flat)}, N={flat.shape[1]}, k={k}), "
+                f"{label}: C++ {ms:.2f} ms vs numpy {plain_ms:.1f} ms, bit-exact "
+                f"[{out['cpu']}, {out['threads']} threads] [{card}]")
+        out["batches"][name] = {"B": len(flat), "N": int(flat.shape[1]), "k": k,
+                                "sites": int((flat != 0xFFFFFFFF).sum()), "sweeps": rows}
+    return out
+
+
+def _arrays(result) -> list:
+    """A sweep's output as a flat list of arrays: one array, a tuple of
+    them, or a list of (flat, rgb) pairs."""
+    if isinstance(result, tuple):
+        return list(result)
+    if isinstance(result, list):
+        return [a for pair in result for a in pair]
+    return [result]
+
+
+def _host_ms(fn) -> float:
+    tic = time.perf_counter()
+    fn()
+    return (time.perf_counter() - tic) * 1e3
 
 
 # ----------------------------------------------------------------- main
@@ -1210,6 +1368,7 @@ def main() -> int:
     model = TriCoLoNet.from_config(cfg)
     server = RetrievalServer(cfg, model)  # device: cuda
     ops.reset_launches()
+    reset_host_counts()
     torch.cuda.synchronize()
     tic = time.perf_counter()
     index = server.build_index(dm)
@@ -1217,6 +1376,7 @@ def main() -> int:
     walls["index_build_s"] = time.perf_counter() - tic
     launches = ops.launches()
     n_batches = len(loader)
+    host_checks = {"serving": check_host_path("index build", n_batches)}
     require(index.matrix.shape == (256, cfg.model.out_dim), f"index {index.matrix.shape}")
     require(bool(np.isfinite(index.matrix).all()), "index has non-finite values")
     require(len(set(index.model_ids)) == 256, "index model ids are not unique")
@@ -1226,7 +1386,7 @@ def main() -> int:
         f"{walls['index_build_s']:.3f} s over {n_batches} batches; launches {launches} "
         f"[{card}]")
     report["index_breakdown"] = parts = index_breakdown(torch, dm, model)
-    log("index breakdown (second build, same split): " + ", ".join(
+    log("index breakdown (second build, same split, prefetching pinned loader): " + ", ".join(
         f"{key} {value:.4f}" for key, value in parts.items()) + f" [{card}]")
     queries = [dm.val_set[i]["tokens"] for i in (0, 3, 100, 500)]
     tic = time.perf_counter()
@@ -1315,11 +1475,14 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
+    reset_host_counts()
     tic = time.perf_counter()
     ckpt = trainer.fit(train_dm).best_path
     torch.cuda.synchronize()
     walls["train_fit_s"] = time.perf_counter() - tic
     train_launches = ops.launches()
+    # One epoch: 6 train batches, then one validation of 6 batches.
+    host_checks["train"] = check_host_path("train fit", 12)
     train_peak = torch.cuda.max_memory_allocated() / 2**30
     require(len(steps) == 6, f"one epoch of 768 captions ran {len(steps)} steps, not 6")
     for i, row in enumerate(steps):
@@ -1433,7 +1596,16 @@ def main() -> int:
     walls["lifecycle_s"] = time.perf_counter() - tic
     torch.cuda.empty_cache()
 
-    # 11. kernels line, card line, result
+    # 11. the host path: the C++ sweeps against numpy, bit-exact, timed
+    tic = time.perf_counter()
+    report["host_path"] = host = host_path(torch, card, dm)
+    host["pinned_paths"] = {**host_checks, "lifecycle": report["lifecycle"]["host_path"]}
+    walls["host_path_s"] = time.perf_counter() - tic
+    log("host path: to_device_batch copies (pinned, pageable) "
+        + ", ".join(f"{path} {c['copies']['pinned']}/{c['copies']['pageable']}"
+                    for path, c in host["pinned_paths"].items()) + f" [{card}]")
+
+    # 12. kernels line, card line, result
     def total(rows, key):
         return sum(r[key] for r in rows)
 

@@ -235,3 +235,155 @@ def test_general_dataset_matches_jax(tmp_path):
         assert (a["model_id"], a["category"]) == (b["model_id"], b["category"])
         for key in ("tokens", "images", "voxel_flat", "voxel_rgb"):
             np.testing.assert_array_equal(a[key], b[key])
+
+
+# ------------------------------------------------- host path: prefetch, split load
+
+
+def _train_loader(**kw):
+    from tricolo_tpu_torch.data import DataModule
+
+    dm = DataModule(torch_cfg(["data.num_models=8"]))
+    dm.setup("fit")
+    loader = dm.train_loader()
+    for key, value in kw.items():
+        setattr(loader, key, value)
+    return loader
+
+
+def _prefetch_threads():
+    import threading
+
+    return [t for t in threading.enumerate() if t.name == "tricolo-prefetch"]
+
+
+def test_prefetch_stream_equals_synchronous_stream():
+    """Batch for batch over two shuffled epochs, with and without the
+    producer thread."""
+    loader = _train_loader()
+    streams = {}
+    for prefetch in (True, False):
+        loader.prefetch = prefetch
+        streams[prefetch] = []
+        for epoch in (0, 1):
+            loader.set_epoch(epoch)
+            streams[prefetch] += list(loader)
+    assert len(streams[True]) == len(streams[False]) == 2 * len(loader) > 2
+    assert streams[True][0]["model_id"] != streams[True][len(loader)]["model_id"]
+    for a, b in zip(streams[True], streams[False]):
+        assert a.keys() == b.keys() and a["model_id"] == b["model_id"]
+        assert a["num_valid"] == b["num_valid"]
+        for key in ("tokens", "images", "voxel_rows", "voxel_row_ids"):
+            np.testing.assert_array_equal(a[key], b[key])
+
+
+def test_producer_error_reaches_the_consumer():
+    loader = _train_loader()
+
+    class Broken(type(loader.dataset)):
+        def __getitem__(self, idx):
+            raise OSError(f"unreadable item {idx}")
+
+    loader.dataset.__class__ = Broken
+    with pytest.raises(OSError, match="unreadable item"):
+        list(loader)
+    assert not _prefetch_threads()
+
+
+def test_abandoned_iterator_thread_exits():
+    loader = _train_loader()
+    before = set(_prefetch_threads())
+    it = iter(loader)
+    next(it)
+    (thread,) = set(_prefetch_threads()) - before
+    it.close()  # drains the queue and joins with a 5 s timeout
+    thread.join(timeout=5)
+    assert not thread.is_alive()
+
+
+def test_peek_starts_no_thread(monkeypatch):
+    from tricolo_tpu_torch.data import loader as loader_module
+
+    loader = _train_loader()
+
+    def no_thread(*args, **kwargs):
+        raise AssertionError("peek started a thread")
+
+    monkeypatch.setattr(loader_module.threading, "Thread", no_thread)
+    batch = loader.peek()
+    assert isinstance(batch["voxel_rows"], np.ndarray)
+    with pytest.raises(AssertionError, match="started a thread"):
+        next(iter(loader))
+
+
+def test_collate_never_calls_the_plain_sweeps(monkeypatch):
+    """Every transfer's collation goes through the C++ sweeps."""
+    from tricolo_tpu_torch import native
+    from tricolo_tpu_torch.data import DataModule, device_prep
+
+    for name in ("densify_on_host_plain", "windowed_on_host_plain",
+                 "windowed_compact_on_host_plain"):
+        monkeypatch.setattr(device_prep, name, None)
+    native.reset_calls()
+    for transfer, sweep in (("dense", "packed_to_dense"), ("windowed", "packed_to_windowed"),
+                            ("windowed_compact", "packed_to_windowed_compact")):
+        dm = DataModule(torch_cfg([f"data.voxel_transfer={transfer}"]))
+        dm.setup("test")
+        batches = list(dm.test_loader())
+        assert native.call_counts()[sweep] == len(batches) > 0
+
+
+def test_cpu_to_device_batch_pins_nothing():
+    from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch.inference import to_device_batch
+
+    dm = DataModule(torch_cfg())
+    dm.setup("test")
+    loader = dm.test_loader()
+    assert loader.prefetch and not loader.pin_memory
+    copies = dict(to_device_batch.copies)
+    for batch in loader:
+        out = to_device_batch(batch, torch.device("cpu"))
+        assert out.keys() == {"tokens", "images", "voxel_rows", "voxel_row_ids"}
+        assert not any(t.is_pinned() for t in out.values())
+        np.testing.assert_array_equal(out["voxel_rows"].numpy().view(np.uint32),
+                                      batch["voxel_rows"])
+    assert to_device_batch.copies == copies  # counts only copies to a CUDA device
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+def test_general_dataset_threaded_load_matches_jax(tmp_path, monkeypatch, workers):
+    """data.num_workers loads the models over that many threads, item for
+    item equal to the JAX GeneralDataset."""
+    import os
+
+    from test_data import make_disk_dataset
+    from tricolo_tpu.data.datasets import GeneralDataset as JaxGeneral
+    from tricolo_tpu_torch.data import datasets
+
+    pools = []
+
+    class Recording(datasets.ThreadPoolExecutor):
+        def __init__(self, max_workers):
+            pools.append(max_workers)
+            super().__init__(max_workers=max_workers)
+
+    monkeypatch.setattr(datasets, "ThreadPoolExecutor", Recording)
+    make_disk_dataset(str(tmp_path), n_models=6)
+    overrides = [
+        f"data.exp_data_root_path={tmp_path}",
+        f"data.train_lang_data_path={os.path.join(tmp_path, 'train_map.json')}",
+        "data.image_size=16", "data.num_views=4", "data.max_tokens=12",
+        f"data.num_workers={workers}",
+    ]
+    ours = datasets.GeneralDataset(torch_cfg(overrides), "train")
+    ref = JaxGeneral(jax_cfg(overrides), "train")
+    assert pools == ([] if workers == 1 else [workers])
+    assert list(ours.vision_data) == list(ref.vision_data)
+    assert len(ours) == len(ref) == 12
+    assert ours.max_voxel_points == ref.max_voxel_points
+    for i in range(len(ref)):
+        a, b = ours[i], ref[i]
+        assert (a["model_id"], a["category"]) == (b["model_id"], b["category"])
+        for key in ("tokens", "images", "voxel_flat", "voxel_rgb"):
+            np.testing.assert_array_equal(a[key], b[key])

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no file of ``tricolo_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, flax, optax, msgpack or the JAX package; and the
-kernel wrappers launch nothing on CPU tensors, eval or train.
+``chip_smoke.py`` imports JAX, flax, optax, msgpack or the JAX package, or
+names the JAX package's native library (the port builds its own host
+loader); and the kernel wrappers launch nothing on CPU tensors, eval or
+train.
 
 The scan reads the sources' import statements (AST) rather than
 ``sys.modules``: the test process itself may have JAX loaded.
@@ -79,3 +81,18 @@ def test_counters_stay_zero_on_cpu():
         "bn_relu_pool", "scatter_tiles_ps", "bn_relu_pool_bwd", "nt_xent_fwd",
         "nt_xent_fwd_pair", "nt_xent_bwd_rows", "nt_xent_bwd_cols", "nt_xent_bwd", "gather_tiles",
         "scatter_tiles_global")}
+
+
+def test_host_library_is_the_ports_own():
+    """The port builds its host loader from its own C++ source and never
+    names, builds or loads the JAX package's library."""
+    for path in SOURCES:
+        text = path.read_text()
+        for name in ("libtricolo_native", "tricolo_native.cpp", "ensure_built"):
+            assert name not in text, f"{path.relative_to(ROOT)} names {name}"
+    from tricolo_tpu_torch import native
+
+    assert native.SOURCE == ROOT / "tricolo_tpu_torch" / "csrc" / "host_loader.cpp"
+    library = native.build()
+    assert library.name.startswith("libhost_loader-") and library.suffix == ".so"
+    assert Path(native.library()._name) == library

@@ -151,3 +151,19 @@ def test_serve_cli_from_checkpoint(served, tmp_path, capsys):
     assert lines[0] == "index built: 5 models"
     expected = server.query(tokens=[5, 12, 9], k=5)
     assert [line.split("\t")[0] for line in lines[1:]] == [m for m, _ in expected]
+
+
+def test_index_timing_runs_on_cpu(capsys):
+    """``index_timing`` builds the index a warm-up and ``--repeats`` times
+    and prints one JSON line naming the package it timed."""
+    from pathlib import Path
+
+    from tricolo_tpu_torch import index_timing
+
+    result = index_timing.main([
+        "--repeats", "2", "--extra", "+device=cpu", "data.voxel_size=32",
+        "data.image_size=32", "data.num_views=2", "data.batch_size=4", "data.num_models=6",
+        "model.modules.VoxelCNNEncoder.ef_dim=8", "precision.compute_dtype=float32"])
+    assert result["models"] == 6 and len(result["walls_s"]) == 2 and result["card"] == "cpu"
+    assert Path(result["package"]) == Path(index_timing.__file__).resolve().parent
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == result

@@ -11,18 +11,23 @@ model's vision data. Items stay uint8/packed on the host — images
 ``SyntheticDataset`` is the CPU/GPU-runnable fixture,
 ``StructuredSyntheticDataset`` (``structured.py``) the one whose captions
 determine their shapes; ``GeneralDataset``
-reads the Text2Shape ``{split}_map.json`` + per-model ``.npz`` layout with
-numpy only. The precached-CLIP-feature fields are not ported yet (the CLIP
-heads come in a later slice).
+reads the Text2Shape ``{split}_map.json`` + per-model ``.npz`` layout: each
+model's npz with numpy, its RGBA grid packed by the host loader's C++ sweep
+(``dense_rgba_to_packed``; the numpy version is ``dense_rgba_to_packed_plain``),
+over ``data.num_workers`` threads. The precached-CLIP-feature fields are not
+ported yet (the CLIP heads come in a later slice).
 """
 
 from __future__ import annotations
 
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
+
+from .. import native
 
 # CLIP normalization stats (reference general_dataset.py:87-89).
 CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -111,7 +116,13 @@ class _SplitDataset:
 
 
 def dense_rgba_to_packed(dense_voxel: np.ndarray):
-    """Dense (4, D, D, D) RGBA grid → packed (flat, rgb) u32 site words."""
+    """Dense (4, D, D, D) RGBA grid → packed (flat, rgb) u32 site words
+    (the occupied sites in site order), by the C++ sweep."""
+    return native.dense_rgba_to_packed(dense_voxel)
+
+
+def dense_rgba_to_packed_plain(dense_voxel: np.ndarray):
+    """numpy version of ``dense_rgba_to_packed``."""
     alpha = dense_voxel[3]
     sites = np.nonzero(alpha.reshape(-1))[0].astype(np.uint32)
     d = dense_voxel.shape[1]
@@ -145,7 +156,10 @@ def _resize_views_bicubic(views_chw: np.ndarray, size: int) -> np.ndarray:
 
 
 class GeneralDataset(_SplitDataset):
-    """One Text2Shape split in RAM (caption map + per-model npz)."""
+    """One Text2Shape split in RAM (caption map + per-model npz). Each
+    unique model loads once (``_load_model``), over ``data.num_workers``
+    threads when it is > 1: numpy's npz inflate and the C++ packing
+    release the GIL, so the threads overlap."""
 
     def __init__(self, cfg, split: str):
         data = cfg.data
@@ -153,6 +167,7 @@ class GeneralDataset(_SplitDataset):
             cfg.model.image_encoder == "CLIPImageEncoder"
         ):
             raise NotImplementedError("the CLIP heads are not ported yet")
+        self.data_cfg = data
         self.voxel_size = data.voxel_size
         max_tokens = data.get("max_tokens", 96)
         with open(data.get(f"{split}_lang_data_path")) as f:
@@ -173,20 +188,25 @@ class GeneralDataset(_SplitDataset):
                 }
             )
             keys.setdefault(key)
-        self.vision_data = {}
-        for category, model_id in keys:
-            npz = np.load(
-                os.path.join(data.exp_data_root_path, category, f"{model_id}.npz")
-            )
+        workers = int(data.get("num_workers", 0) or 0)
+        if workers > 1 and len(keys) > 1:
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                entries = list(pool.map(self._load_model, keys))
+        else:
+            entries = [self._load_model(key) for key in keys]
+        self.vision_data = dict(zip(keys, entries))
+        self.max_voxel_points = _resolve_voxel_budget(cfg, self.vision_data, split)
+
+    def _load_model(self, key: tuple) -> dict:
+        """One model's packed voxels and resized views from its npz."""
+        category, model_id = key
+        data = self.data_cfg
+        with np.load(os.path.join(data.exp_data_root_path, category, f"{model_id}.npz")) as npz:
             flat, rgb = dense_rgba_to_packed(npz[f"voxel{self.voxel_size}"])
             stored = npz["images"]
-            sub = np.round(np.linspace(0, len(stored) - 1, data.num_views)).astype(int)
-            self.vision_data[(category, model_id)] = {
-                "flat": flat,
-                "rgb": rgb,
-                "images": _resize_views_bicubic(stored[sub], data.image_size),
-            }
-        self.max_voxel_points = _resolve_voxel_budget(cfg, self.vision_data, split)
+        sub = np.round(np.linspace(0, len(stored) - 1, data.num_views)).astype(int)
+        return {"flat": flat, "rgb": rgb,
+                "images": _resize_views_bicubic(stored[sub], data.image_size)}
 
 
 class SyntheticDataset(_SplitDataset):

@@ -1,10 +1,12 @@
 """Batch preparation: host-side voxel packing/windowing and device unpack.
 
-Host side (numpy, runs in the loader): ``pack_sparse_voxels``,
-``densify_on_host``, ``windowed_on_host`` and ``windowed_compact_on_host``
-produce exactly the arrays of their ``tricolo_tpu.data.device_prep``
-namesakes (the port has no binding to the C++ loader yet, so these are the
-numpy formulations).
+Host side (runs in the loader's prefetch thread): ``densify_on_host``,
+``windowed_on_host`` and ``windowed_compact_on_host`` produce exactly the
+arrays of their ``tricolo_tpu.data.device_prep`` namesakes through the C++
+sweeps of the host loader (``tricolo_tpu_torch.native``, built from
+``csrc/host_loader.cpp``). Beside each stands its numpy formulation,
+``*_plain``: the tests' reference, used by nothing on the main path.
+``pack_sparse_voxels`` packs one sample in numpy.
 
 Device side (torch): ``normalize_images``, ``densify_voxels``,
 ``unpack_dense_voxels``, ``unpack_windowed_rows`` and
@@ -22,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from .datasets import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
 
 VOXEL_PAD_SENTINEL = np.uint32(0xFFFFFFFF)
@@ -150,7 +153,12 @@ def pack_sparse_voxels(coords: np.ndarray, feats: np.ndarray, n_pad: int):
 
 def densify_on_host(flat_u32: np.ndarray, rgb_u32: np.ndarray, voxel_size: int):
     """Packed sparse (B, N) → dense (B, D, D, D) u32 RGB words on the host
-    (the ``dense`` transfer's collation). Slot D³ swallows padding and
+    (the ``dense`` transfer's collation), by the C++ sweep."""
+    return native.packed_to_dense(flat_u32, rgb_u32, voxel_size)
+
+
+def densify_on_host_plain(flat_u32: np.ndarray, rgb_u32: np.ndarray, voxel_size: int):
+    """numpy version of ``densify_on_host``. Slot D³ swallows padding and
     out-of-range coordinates."""
     batch = flat_u32.shape[0]
     d3 = voxel_size**3
@@ -208,7 +216,18 @@ def windowed_on_host(
     halo: int = 1,
 ):
     """Packed sparse (B, N) → ((B·tg³, s³) u32 window rows, (B·tg³,) u8
-    per-tile occupancy), s = tile + 2·halo."""
+    per-tile occupancy), s = tile + 2·halo, by the C++ sweep."""
+    return native.packed_to_windowed(flat_u32, rgb_u32, voxel_size, tile, halo)
+
+
+def windowed_on_host_plain(
+    flat_u32: np.ndarray,
+    rgb_u32: np.ndarray,
+    voxel_size: int,
+    tile: int = 8,
+    halo: int = 1,
+):
+    """numpy version of ``windowed_on_host``."""
     batch = flat_u32.shape[0]
     tg = voxel_size // tile
     tg3, s3 = tg**3, (tile + 2 * halo) ** 3
@@ -232,14 +251,27 @@ def windowed_compact_on_host(
     halo: int = 1,
 ):
     """Per-sample compacted windows: rows for only each sample's active
-    tiles.
+    tiles, by the C++ sweep.
 
     Returns (rows (B, k, s³) u32, local_ids (B, k) i32, counts (B,) i32):
     each sample's first ``k`` active tiles in ascending tile-id order, zero
     rows / tg³-sentinel ids as padding, ``counts`` the total active tiles
-    (count > k means truncation). Writes the compact rows directly through
-    a per-sample tile → row map instead of materialising every window.
+    (count > k means truncation).
     """
+    return native.packed_to_windowed_compact(flat_u32, rgb_u32, voxel_size, k, tile, halo)
+
+
+def windowed_compact_on_host_plain(
+    flat_u32: np.ndarray,
+    rgb_u32: np.ndarray,
+    voxel_size: int,
+    k: int,
+    tile: int = 8,
+    halo: int = 1,
+):
+    """numpy version of ``windowed_compact_on_host``: writes the compact
+    rows directly through a per-sample tile → row map instead of
+    materialising every window."""
     batch = flat_u32.shape[0]
     tg = voxel_size // tile
     tg3, s3 = tg**3, (tile + 2 * halo) ** 3

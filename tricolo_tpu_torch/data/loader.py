@@ -1,4 +1,5 @@
-"""Batching: fixed-shape collation of every voxel transfer.
+"""Batching: fixed-shape collation of every voxel transfer, collated in a
+prefetch thread.
 
 The port's copy of ``tricolo_tpu.data.loader``. Eval batches come in split
 order, the short tail batch is padded with repeats of its last item and
@@ -9,18 +10,32 @@ drops the short tail. ``data.voxel_transfer`` takes every value the JAX
 package takes: ``packed`` (sparse u32 site/RGB words, densified on the
 device), ``dense`` (the u32 grid, densified here), ``windowed`` (every
 tile's halo'd window rows + per-tile occupancy) and ``windowed_compact``
-(per-sample rows of the active tiles only). The port runs the masked
-(submanifold) voxel encoder only, so ``masked_bn=false`` raises. The
-prefetch thread and multi-process striping are not ported yet.
+(per-sample rows of the active tiles only); the last three through the
+host loader's C++ sweeps (``data/device_prep.py``). The port runs the
+masked (submanifold) voxel encoder only, so ``masked_bn=false`` raises.
+
+``BatchIterator`` collates in a one-deep background thread by default
+(``prefetch``; the JAX loader's producer: a bounded queue, the producer's
+error raised in the consumer, drain and join on close), so a batch's
+collation overlaps the previous batch's step. With ``pin_memory`` (set by
+the trainer and the server when their device is CUDA) the producer also
+copies each batch's arrays into page-locked CPU tensors
+(``pin_batch``), which ``inference.to_device_batch`` then copies to the
+card with ``non_blocking=True``. ``peek`` collates one batch in the
+caller's thread, unpinned. Multi-process striping comes with data
+parallelism.
 """
 
 from __future__ import annotations
 
 import logging
+import queue
+import threading
 import warnings
 from typing import Any, Iterator
 
 import numpy as np
+import torch
 
 from ..ops.tile_sparse import sample_tile_budget, windowed_halo
 from .datasets import build_dataset
@@ -32,6 +47,29 @@ from .device_prep import (
 )
 
 TRANSFERS = ("packed", "dense", "windowed", "windowed_compact")
+# Packed u32 voxel words, carried as their int32 bit view in tensors.
+PACKED_KEYS = ("voxel_flat", "voxel_rgb", "voxel_grid", "voxel_windows", "voxel_rows")
+# The arrays of a batch that go to the device, with the dtype each carries.
+ARRAY_DTYPES = {"tokens": np.int32, "images": None, **dict.fromkeys(PACKED_KEYS, np.uint32),
+                "voxel_row_ids": np.int32, "voxel_tile_occ": None}
+
+
+def host_tensor(key: str, value) -> torch.Tensor:
+    """One batch array → a CPU tensor on its memory (packed u32 words as
+    their int32 view; tokens and row ids as int32)."""
+    array = np.ascontiguousarray(value, ARRAY_DTYPES[key])
+    if key in PACKED_KEYS:
+        array = array.view(np.int32)
+    return torch.from_numpy(array)
+
+
+def pin_batch(batch: dict) -> dict:
+    """The batch with each array copied into a page-locked CPU tensor, from
+    which a ``non_blocking`` copy to the card is asynchronous. Every call
+    allocates new pinned buffers (PyTorch's pinned-memory cache reuses one
+    only after the copies that read it have finished)."""
+    return {key: host_tensor(key, value).pin_memory() if key in ARRAY_DTYPES else value
+            for key, value in batch.items()}
 
 
 def collate(
@@ -98,7 +136,8 @@ def collate(
 
 class BatchIterator:
     """Iterate a dataset in fixed-shape batches: split order, or a seeded
-    per-epoch permutation with ``shuffle``."""
+    per-epoch permutation with ``shuffle``; collated in a background thread
+    with ``prefetch``, into pinned tensors with ``pin_memory``."""
 
     def __init__(
         self,
@@ -114,6 +153,8 @@ class BatchIterator:
         tile_budget: "int | str" = "auto",
         windowed_halo: int = 3,
         tile_overflow: str = "error",
+        prefetch: bool = True,
+        pin_memory: bool = False,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -128,6 +169,8 @@ class BatchIterator:
         self.tile_budget = tile_budget
         self.windowed_halo = windowed_halo
         self.tile_overflow = tile_overflow
+        self.prefetch = prefetch
+        self.pin_memory = pin_memory
         self._tile_budget_rows: int | None = None
 
     @property
@@ -153,7 +196,8 @@ class BatchIterator:
         """Advance the shuffle stream (a new seeded permutation each epoch)."""
         self.epoch = epoch
 
-    def __iter__(self) -> Iterator[dict]:
+    def _batches(self, pin: bool) -> Iterator[dict]:
+        """The epoch's batches, collated in the caller's thread."""
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
@@ -180,10 +224,55 @@ class BatchIterator:
                 self.tile_overflow,
             )
             batch["num_valid"] = valid
-            yield batch
+            yield pin_batch(batch) if pin else batch
 
     def peek(self) -> dict:
-        return next(iter(self))
+        """The first batch, collated here and unpinned, without starting
+        the prefetch thread (the trainer's tile-budget canary)."""
+        return next(self._batches(pin=False))
+
+    def __iter__(self) -> Iterator[dict]:
+        if not self.prefetch:
+            yield from self._batches(self.pin_memory)
+            return
+        q: queue.Queue = queue.Queue(maxsize=2)
+        done = object()
+        stop = threading.Event()
+        error: list[BaseException] = []
+
+        def produce():
+            try:
+                for batch in self._batches(self.pin_memory):
+                    # A bounded put that notices an abandoned consumer, so
+                    # a dropped iterator never leaves a thread blocked.
+                    while not stop.is_set():
+                        try:
+                            q.put(batch, timeout=0.1)
+                            break
+                        except queue.Full:
+                            continue
+                    if stop.is_set():
+                        return
+            except BaseException as exc:  # raised again in the consumer below
+                error.append(exc)
+            finally:
+                q.put(done)
+
+        thread = threading.Thread(target=produce, name="tricolo-prefetch", daemon=True)
+        thread.start()
+        try:
+            while (batch := q.get()) is not done:
+                yield batch
+        finally:
+            stop.set()
+            while True:  # drain, so the producer's last put never blocks
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            thread.join(timeout=5)
+        if error:
+            raise error[0]
 
 
 class DataModule:
@@ -231,11 +320,12 @@ class DataModule:
             windowed_halo=windowed_halo(blocks),
         )
 
-    def train_loader(self) -> BatchIterator:
+    def train_loader(self, pin_memory: bool = False) -> BatchIterator:
         return BatchIterator(self.train_set, shuffle=True, drop_last=True,
-                             seed=self.cfg.train_seed, **self._loader_kwargs())
+                             seed=self.cfg.train_seed, pin_memory=pin_memory,
+                             **self._loader_kwargs())
 
-    def val_loader(self) -> BatchIterator:
-        return BatchIterator(self.val_set, **self._loader_kwargs())
+    def val_loader(self, pin_memory: bool = False) -> BatchIterator:
+        return BatchIterator(self.val_set, pin_memory=pin_memory, **self._loader_kwargs())
 
     test_loader = val_loader

@@ -12,10 +12,10 @@ dropped through ``num_valid``).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .data.device_prep import prepare_device_batch
+from .data.loader import ARRAY_DTYPES, host_tensor
 from .losses import pairwise_losses
 
 
@@ -35,28 +35,28 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-# Packed u32 voxel words, shipped as their int32 bit view.
-_PACKED_KEYS = ("voxel_flat", "voxel_rgb", "voxel_grid", "voxel_windows", "voxel_rows")
-
-
 def to_device_batch(batch: dict, device: torch.device) -> dict:
-    """Host numpy batch → tensors on ``device``: tokens, images, and the
-    voxel keys of the batch's transfer (packed u32 words travel as their
-    int32 bit view)."""
-    out = {"tokens": torch.from_numpy(np.asarray(batch["tokens"], np.int32)).to(device)}
-    if "images" in batch:
-        out["images"] = torch.from_numpy(np.asarray(batch["images"])).to(device)
-    for key in _PACKED_KEYS:
-        if key in batch:
-            words = np.ascontiguousarray(batch[key], np.uint32).view(np.int32)
-            out[key] = torch.from_numpy(words).to(device)
-    if "voxel_row_ids" in batch:
-        out["voxel_row_ids"] = torch.from_numpy(
-            np.asarray(batch["voxel_row_ids"], np.int32)
-        ).to(device)
-    if "voxel_tile_occ" in batch:
-        out["voxel_tile_occ"] = torch.from_numpy(np.asarray(batch["voxel_tile_occ"])).to(device)
+    """Host batch → tensors on ``device``: tokens, images, and the voxel
+    keys of the batch's transfer (packed u32 words travel as their int32
+    bit view). The arrays are numpy arrays or, from a ``pin_memory``
+    loader, page-locked CPU tensors; a pinned tensor goes to a CUDA device
+    with ``non_blocking=True`` (PyTorch keeps its buffer until the copy has
+    run). ``to_device_batch.copies`` counts the arrays sent to a CUDA
+    device from pinned and from pageable memory."""
+    out = {}
+    for key in ARRAY_DTYPES:
+        if key not in batch:
+            continue
+        value = batch[key]
+        tensor = value if isinstance(value, torch.Tensor) else host_tensor(key, value)
+        pinned = device.type == "cuda" and tensor.is_pinned()
+        if device.type == "cuda":
+            to_device_batch.copies["pinned" if pinned else "pageable"] += 1
+        out[key] = tensor.to(device, non_blocking=pinned)
     return out
+
+
+to_device_batch.copies = {"pinned": 0, "pageable": 0}
 
 
 def prepare_inputs(model, batch: dict) -> dict:

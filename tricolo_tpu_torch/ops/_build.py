@@ -14,6 +14,9 @@ kernel is never served from a stale library. ``build_all`` starts one
 ``nvcc`` per source at once and waits for all of them.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
+``compile_start`` / ``compile_finish`` build any one-file shared library
+this way: ``tricolo_tpu_torch.native`` builds the host loader with ``g++``
+through them.
 """
 
 from __future__ import annotations
@@ -51,36 +54,50 @@ def _nvcc() -> str:
     )
 
 
+def hashed_library(name: str, source: Path, flags: list[str],
+                   build_dir: Path = BUILD_DIR) -> Path:
+    """``<build_dir>/lib<name>-<hash>.so``, the hash over the source and the
+    flags: an edited source is never served from a stale library."""
+    digest = hashlib.sha1(source.read_bytes() + " ".join(flags).encode())
+    return build_dir / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
 def library_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    return hashed_library(name, CSRC / f"{name}.cu", NVCC_FLAGS)
 
 
-def _start(name: str):
-    """Start nvcc for ``name`` unless its library exists; returns
-    (target, tmp, process) or None."""
-    target = library_path(name)
+def compile_start(command: list[str], source: Path, target: Path):
+    """Start ``command -o <tmp> source`` unless ``target`` exists; returns
+    (target, tmp, process, label) or None. The output goes to a
+    pid-suffixed file that ``compile_finish`` renames into place, so
+    processes that build at once never load a half-written library."""
     if target.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(
-        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        [*command, "-o", str(tmp), str(source)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
-    return target, tmp, proc
+    return target, tmp, proc, f"{Path(command[0]).name} failed for {source.name}"
 
 
-def _finish(name: str, started) -> None:
+def compile_finish(started) -> None:
+    """Wait for ``compile_start``'s compiler; raise with its output if it
+    failed, else move the library into place."""
     if started is None:
         return
-    target, tmp, proc = started
+    target, tmp, proc, label = started
     out, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+        raise RuntimeError(f"{label}:\n{out}")
     os.replace(tmp, target)  # atomic: a concurrent loader sees old or new
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library exists."""
+    return compile_start([_nvcc(), *NVCC_FLAGS], CSRC / f"{name}.cu", library_path(name))
 
 
 def build_all(names: list[str] | None = None) -> dict[str, Path]:
@@ -89,9 +106,9 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
     names = names or sorted(p.stem for p in CSRC.glob("*.cu"))
     started = {name: _start(name) for name in names}
     errors = []
-    for name, handle in started.items():
+    for handle in started.values():
         try:
-            _finish(name, handle)
+            compile_finish(handle)
         except RuntimeError as exc:
             errors.append(str(exc))
     if errors:
@@ -104,7 +121,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            _finish(name, _start(name))
+            compile_finish(_start(name))
             lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return lib
 

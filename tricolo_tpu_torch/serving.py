@@ -137,7 +137,8 @@ class RetrievalServer:
     def build_index(self, data_module) -> RetrievalIndex:
         """Embed the ``inference.split`` split and build the index."""
         data_module.setup("test")
-        embeddings, _ = collect_embeddings(self.model, data_module.test_loader(), self.device)
+        loader = data_module.test_loader(pin_memory=self.device.type == "cuda")
+        embeddings, _ = collect_embeddings(self.model, loader, self.device)
         self.index = RetrievalIndex.from_embeddings_dict(embeddings)
         return self.index
 

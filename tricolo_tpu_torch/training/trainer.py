@@ -3,7 +3,8 @@
 Port of ``tricolo_tpu.training.Trainer``:
 
 * ``fit(data_module, resume_ckpt=None)`` — the epoch loop over the train
-  step (``lr_for_epoch``, ``set_epoch``, the steps) with a metrics-logger
+  step (``lr_for_epoch``, ``set_epoch``, the steps; on CUDA the loaders
+  pin their batches for ``non_blocking`` copies) with a metrics-logger
   row (train losses and ``lr``) every ``trainer.log_every_n_steps`` steps;
   validation every ``trainer.check_val_every_n_epoch`` epochs and after the
   last, printed as ``epoch N: RR@1=… …`` and logged as ``val_eval/*`` plus
@@ -189,8 +190,9 @@ class Trainer:
         tic = time.perf_counter()
         data_module.setup("fit")
         self.timers["data_load"] += time.perf_counter() - tic
-        train_loader = data_module.train_loader()
-        val_loader = data_module.val_loader()
+        pin = self.device.type == "cuda"  # non_blocking copies from pinned batches
+        train_loader = data_module.train_loader(pin_memory=pin)
+        val_loader = data_module.val_loader(pin_memory=pin)
 
         monitor = cfg.checkpoint_monitor
         writer = AsyncCheckpointWriter() if monitor.get("async_save", False) else None
@@ -286,7 +288,7 @@ class Trainer:
         cfg = self.cfg
         np.random.seed(cfg.test_seed)
         data_module.setup("test")
-        loader = data_module.test_loader()
+        loader = data_module.test_loader(pin_memory=self.device.type == "cuda")
         self.load_state(ckpt_path, for_inference=True)
         embeddings, _ = collect_embeddings(self.model, loader, self.device)
         metrics = None

@@ -25,7 +25,11 @@ Phases (any failure exits non-zero and prints no result line):
    ``NT_XENT_TOL``·max|plain|; K7 (gather_tiles) at the dense
    plan's four gathers and K2's global entry (scatter_tiles_global) at its
    four handoffs, on the active tiles of a real packed batch (budget 32,768
-   rows), in f32 and bf16, bit-exact;
+   rows), in f32 and bf16, bit-exact; K1's and K3's unmasked entries
+   (bn_relu_pool_unmasked idx off and on, bn_relu_pool_bwd_unmasked) at
+   the five dense blocks of the masked_bn=false flagship, (128, 64³, 32) …
+   (128, 4³, 512), in f32 and bf16, bit-exact, on inputs with ties, dead
+   windows and one γ = 0 channel (K3 on K1's argmax of them);
 4. serving — ``RetrievalServer.build_index`` over a 256-model synthetic
    split at the flagship widths (Tri(I+V), 64³ voxels, 6×128² views,
    batch 128, bf16), four token queries and one image query, with the
@@ -80,13 +84,23 @@ Phases (any failure exits non-zero and prints no result line):
     metrics (RR exact, NDCG and MRR within 1e-6); the split's k and T and
     the step's CUDA-event median; its launch counts are reset just before
     the fit and the resumed run and read just after each;
+10e. the unmasked (all-site BN) flagship — Tri(I+V) with
+    ``VoxelCNNEncoder.masked_bn=false data.voxel_transfer=packed``, bf16,
+    random weights: the synthetic-256 index with launches per batch exactly
+    K1-unmasked 5 and every other kernel 0, the f32 index kernel-vs-plain
+    (1e-5), one ellipsoid eval batch, ``Trainer.fit`` for one epoch (6
+    steps; launches a step exactly K1-unmasked 5, K3-unmasked 5, pair
+    forward 3, two-term backward 6, every other kernel 0; finite losses,
+    CUDA-event step median, peak memory), the f32 step kernel-vs-plain with
+    phase 9's tolerances, a profiled step;
 11. host path — the host loader (``csrc/host_loader.cpp``) built with g++
     on the card's host; its four sweeps (windowed_compact halo 3, windowed
     halo 1 and 3, dense, and the RGBA packing of each sample's grid)
     bit-exact against their numpy versions on the flagship synthetic-256
     val batch and a structured-300 train batch, each timed (C++ median of
     5, numpy median of 3) beside the host CPU model and thread count;
-12. the kernels line (a row per TPU kernel, ten wrappers; the row of K4
+12. the kernels line (ten rows: K1-K7, K2's global entry, and K1's and
+    K3's unmasked entries; the row of K4
     counts the pair launches, each of which computes K4 twice, and carries
     the pair entry's times, the rows of K5 and K6 likewise the two-term
     launches and times), then the card line, then
@@ -360,6 +374,113 @@ def check_k3(torch, shapes, flush):
     return max_err, rows
 
 
+def k1_unmasked_inputs(torch, shape, dtype, gen):
+    """Quantized activations (exact ties), dead windows (every member below
+    the ReLU) and one γ = 0 channel (mul 0, add > 0: eight tied members),
+    folded BN from random statistics."""
+    from tricolo_tpu_torch.ops import fold_bn
+
+    N, D, H, W, C = shape
+    y = torch.randint(-16, 17, shape, generator=gen, device="cuda", dtype=torch.int8)
+    y = y.to(dtype) / 8.0
+    y[:, :2, :2, :2] = -4.0
+    scale = torch.rand(C, generator=gen, device="cuda") + 0.5
+    bias = torch.randn(C, generator=gen, device="cuda") * 0.3
+    scale[0], bias[0] = 0.0, 0.5
+    mean = torch.randn(C, generator=gen, device="cuda") * 0.3
+    var = torch.rand(C, generator=gen, device="cuda") * 1.5 + 0.5
+    mul, add = fold_bn(scale, bias, mean, var, 1e-5, dtype)
+    return y, mul, add
+
+
+def check_k1_unmasked(torch, shapes, flush):
+    """K1's unmasked entry against its plain version, bit-exact in f32 and
+    bf16 with idx off and on; timed in bf16 in both forms (eval: idx off,
+    serving; train: idx on). Bound: y read once, pooled (and idx) written
+    once."""
+    from tricolo_tpu_torch.ops import bn_relu_pool_plain, bn_relu_pool_unmasked
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    max_err, rows = 0.0, []
+    for name, shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = k1_unmasked_inputs(torch, shape, dtype, gen)
+            for want_idx in (False, True):
+                got = bn_relu_pool_unmasked(*args, want_idx=want_idx)
+                torch.cuda.synchronize()
+                ref = bn_relu_pool_plain(*args, want_idx=want_idx)
+                pairs = zip(got, ref) if want_idx else [(got, ref)]
+                for a, b in pairs:
+                    err = (a.float() - b.float()).abs().max().item()
+                    max_err = max(max_err, err)
+                    require(torch.equal(a, b), f"K1-unmasked {name} {dtype} idx={want_idx}: "
+                            f"kernel != plain (max err {err})")
+                del got, ref
+            if dtype == torch.bfloat16:  # the main path's dtype is timed
+                y = args[0]
+                pooled = y.numel() // 8
+                for form, want_idx in (("eval", False), ("train", True)):
+                    out_bytes = pooled * (y.element_size() + (1 if want_idx else 0))
+                    bound = (nbytes(y) + out_bytes) / HBM_BYTES_PER_S * 1e3
+                    ms = time_ms(lambda: bn_relu_pool_unmasked(*args, want_idx=want_idx),
+                                 torch, flush=flush)
+                    plain = time_ms(lambda: bn_relu_pool_plain(*args, want_idx=want_idx),
+                                    torch, repeats=5, flush=flush)
+                    rows.append({"block": name, "form": form, "shape": list(shape),
+                                 "dtype": "bf16", "ms": ms, "plain_ms": plain, "bound_ms": bound})
+                    log(f"  K1-unmasked {name:6s} {form:5s} {tuple(shape)} bf16: {ms:.4f} ms "
+                        f"(plain {plain:.4f} ms, bound {bound:.4f} ms, {bound / ms:.0%} of bound)")
+                del y
+            del args
+            torch.cuda.empty_cache()
+    return max_err, rows
+
+
+def check_k3_unmasked(torch, shapes, flush):
+    """K3's unmasked entry against its plain version, bit-exact in f32 and
+    bf16, on K1-unmasked's argmax of ``k1_unmasked_inputs`` (ties, dead
+    windows, the γ = 0 channel, whose A, B and C are 0: ga, bcoef and ccoef
+    are zero there); timed in bf16. Bound: y, ga and idx read once, dy
+    written once."""
+    from tricolo_tpu_torch.ops import (bn_relu_pool_bwd_plain, bn_relu_pool_bwd_unmasked,
+                                       bn_relu_pool_unmasked)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    max_err, rows = 0.0, []
+    for name, shape in shapes:
+        C = shape[-1]
+        for dtype in (torch.float32, torch.bfloat16):
+            y, mul, add = k1_unmasked_inputs(torch, shape, dtype, gen)
+            pooled, idx = bn_relu_pool_unmasked(y, mul, add, want_idx=True)
+            ga = torch.randn(pooled.shape, generator=gen, device="cuda") * (pooled > 0)
+            ga[..., 0] = 0.0
+            del pooled, mul, add
+            vec = lambda s, o: torch.randn(C, generator=gen, device="cuda") * s + o  # noqa: E731
+            bcoef, ccoef = vec(1e-3, 0.0), vec(1e-3, 0.0)
+            bcoef[0] = ccoef[0] = 0.0
+            args = (y, ga.to(dtype), idx, bcoef, ccoef, vec(0.3, 1.0), vec(0.3, 0.0))
+            del ga
+            got = bn_relu_pool_bwd_unmasked(*args)
+            torch.cuda.synchronize()
+            ref = bn_relu_pool_bwd_plain(*args[:3], None, *args[3:])
+            err = (got.float() - ref.float()).abs().max().item()
+            max_err = max(max_err, err)
+            require(torch.equal(got, ref), f"K3-unmasked {name} {dtype}: kernel != plain ({err})")
+            del got, ref
+            if dtype == torch.bfloat16:  # the main path's dtype
+                bound = nbytes(y, args[1], idx, y) / HBM_BYTES_PER_S * 1e3  # + dy
+                ms = time_ms(lambda: bn_relu_pool_bwd_unmasked(*args), torch, flush=flush)
+                plain = time_ms(lambda: bn_relu_pool_bwd_plain(*args[:3], None, *args[3:]),
+                                torch, repeats=5, flush=flush)
+                rows.append({"block": name, "shape": list(shape), "dtype": "bf16", "ms": ms,
+                             "plain_ms": plain, "bound_ms": bound})
+                log(f"  K3-unmasked {name:6s} {tuple(shape)} bf16: {ms:.4f} ms "
+                    f"(plain {plain:.4f} ms, bound {bound:.4f} ms, {bound / ms:.0%} of bound)")
+            del args, y, idx
+            torch.cuda.empty_cache()
+    return max_err, rows
+
+
 def check_nt_xent(torch, sizes, flush):
     """K4-K6, the pair forward and the two-term backward against their
     plain versions on L2-normalised f32 (B, D) embeddings; bound = flops /
@@ -606,13 +727,15 @@ def ellipsoid_batch(cfg, n_points=8192, packed=False):
 TRAIN_LAUNCHES = {"bn_relu_pool": 5, "scatter_tiles_ps": 2, "bn_relu_pool_bwd": 5,
                   "nt_xent_fwd": 0, "nt_xent_fwd_pair": 3, "nt_xent_bwd_rows": 0,
                   "nt_xent_bwd_cols": 0, "nt_xent_bwd": 6, "gather_tiles": 0,
-                  "scatter_tiles_global": 0}
+                  "scatter_tiles_global": 0, "bn_relu_pool_unmasked": 0,
+                  "bn_relu_pool_bwd_unmasked": 0}
 # The dense-input plan, 2 sparse blocks: K7 for x and the mask of each, K2's
 # global entry for each handoff, K1 in all five blocks; no per-sample K2.
 DENSE_EVAL_LAUNCHES = {"bn_relu_pool": 5, "scatter_tiles_ps": 0, "bn_relu_pool_bwd": 0,
                        "nt_xent_fwd": 0, "nt_xent_fwd_pair": 0, "nt_xent_bwd_rows": 0,
                        "nt_xent_bwd_cols": 0, "nt_xent_bwd": 0, "gather_tiles": 4,
-                       "scatter_tiles_global": 4}
+                       "scatter_tiles_global": 4, "bn_relu_pool_unmasked": 0,
+                       "bn_relu_pool_bwd_unmasked": 0}
 DENSE_TRAIN_LAUNCHES = dict(DENSE_EVAL_LAUNCHES, bn_relu_pool_bwd=5, nt_xent_fwd_pair=3,
                             nt_xent_bwd=6)
 
@@ -1136,6 +1259,147 @@ def lifecycle(torch, card) -> tuple[dict, dict]:
     return out, {"lifecycle_fit": launches, "lifecycle_resume": resume_launches}
 
 
+# -------------------------------------------------------------- phase 10e
+
+# The unmasked (all-site BN) flagship: masked_bn=false runs five dense
+# SAME-conv blocks through K1's and K3's unmasked entries on the packed
+# transfer; no tile kernel and no masked entry is on its path.
+UNMASKED = ["model.modules.VoxelCNNEncoder.masked_bn=false", "data.voxel_transfer=packed"]
+UNMASKED_EVAL_LAUNCHES = dict(dict.fromkeys(TRAIN_LAUNCHES, 0), bn_relu_pool_unmasked=5)
+UNMASKED_TRAIN_LAUNCHES = dict(UNMASKED_EVAL_LAUNCHES, bn_relu_pool_bwd_unmasked=5,
+                               nt_xent_fwd_pair=3, nt_xent_bwd=6)
+
+
+def unmasked_flagship(torch, card) -> tuple[dict, dict]:
+    """The masked_bn=false flagship (Tri(I+V), packed, bf16, random weights
+    from the seed): the synthetic-256 index with launches per batch, the f32
+    index through the kernels against the plain path, one ellipsoid eval
+    batch, one epoch through ``Trainer.fit`` with launches per step, the f32
+    train step kernel-vs-plain and a profiled step. Returns (report,
+    launches of the index build and of the fit)."""
+    import numpy as np
+
+    from tricolo_tpu_torch import ops
+    from tricolo_tpu_torch.config import load_config
+    from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch.inference import eval_step, to_device_batch
+    from tricolo_tpu_torch.models.tricolo_net import TriCoLoNet
+    from tricolo_tpu_torch.serving import RetrievalServer
+    from tricolo_tpu_torch.training import Trainer
+
+    out: dict = {}
+    cfg = load_config(FLAGSHIP + UNMASKED)
+    cfg.experiment_name = "chip_smoke"
+    dm = DataModule(cfg)
+    dm.setup("test")
+    torch.manual_seed(SEED)
+    model = TriCoLoNet.from_config(cfg)
+    require(not model.voxel_encoder.masked_bn, "masked_bn=false built a masked encoder")
+    server = RetrievalServer(cfg, model)  # device: cuda
+    n_batches = len(dm.test_loader())
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    index = server.build_index(dm)
+    torch.cuda.synchronize()
+    out["index_build_s"] = time.perf_counter() - tic
+    out["launches"] = serve_launches = ops.launches()
+    want = {name: n * n_batches for name, n in UNMASKED_EVAL_LAUNCHES.items()}
+    require(serve_launches == want, f"unmasked index launches {serve_launches} != {want}")
+    require(index.matrix.shape == (256, cfg.model.out_dim), f"unmasked index {index.matrix.shape}")
+    require(bool(np.isfinite(index.matrix).all()), "unmasked index non-finite")
+    log(f"unmasked index: {index.matrix.shape} in {out['index_build_s']:.3f} s over "
+        f"{n_batches} batches; launches {serve_launches} [{card}]")
+    bf16_matrix = index.matrix.copy()
+
+    model.set_compute_dtype(torch.float32)  # TF32 is off since phase 5
+    kernel32 = server.build_index(dm).matrix.copy()
+    model.voxel_encoder.use_kernels = False
+    plain32 = server.build_index(dm).matrix.copy()
+    model.voxel_encoder.use_kernels = True
+    model.set_compute_dtype(torch.bfloat16)
+    out["plain_vs_kernel_f32_max_abs"] = dev = float(np.abs(kernel32 - plain32).max())
+    out["bf16_vs_f32_max_abs"] = float(np.abs(bf16_matrix - kernel32).max())
+    require(dev <= F32_TOL, f"unmasked f32 kernel vs plain path: {dev} > {F32_TOL}")
+    log(f"unmasked f32: kernel vs plain max |d| = {dev} (tol {F32_TOL}); bf16 vs f32 "
+        f"{out['bf16_vs_f32_max_abs']}")
+
+    host, _ = ellipsoid_batch(cfg, packed=True)
+    batch = to_device_batch(host, torch.device("cuda"))
+    model.eval()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    eval_step(model, batch)
+    per_batch = ops.launches()
+    require(per_batch == UNMASKED_EVAL_LAUNCHES, f"unmasked eval batch launches {per_batch}")
+    ms = time_ms(lambda: eval_step(model, batch), torch, repeats=10, warmup=2)
+    model.voxel_encoder.use_kernels = False
+    plain_ms = time_ms(lambda: eval_step(model, batch), torch, repeats=10, warmup=2)
+    model.voxel_encoder.use_kernels = True
+    out["ellipsoid_eval"] = {"ms": ms, "plain_ms": plain_ms,
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"unmasked eval batch (128 ellipsoids, packed): {ms:.3f} ms (plain kernels "
+        f"{plain_ms:.3f} ms), peak {out['ellipsoid_eval']['peak_gib']:.2f} GiB [{card}]")
+    del server, model, index, batch
+    torch.cuda.empty_cache()
+
+    train_cfg = load_config(FLAGSHIP + UNMASKED + TRAIN + ["experiment_name=chip_smoke_unmasked"])
+    trainer = Trainer(train_cfg)  # device: cuda
+    steps: list = []
+    step = trainer.train_step
+    trainer.train_step = timed_step(torch, step, steps)
+    train_dm = DataModule(train_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    tic = time.perf_counter()
+    trainer.fit(train_dm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - tic
+    fit_launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(len(steps) == 6, f"one unmasked epoch ran {len(steps)} steps, not 6")
+    for i, row in enumerate(steps):
+        require(all(np.isfinite(v) for v in row["losses"].values()),
+                f"unmasked train step {i}: non-finite losses {row['losses']}")
+        require(row["launches"] == UNMASKED_TRAIN_LAUNCHES,
+                f"unmasked train step {i}: launches {row['launches']} != "
+                f"{UNMASKED_TRAIN_LAUNCHES}")
+        log(f"  unmasked train step {i}: {row['ms']:.3f} ms (wall {row['wall_ms']:.3f} ms) "
+            "losses " + " ".join(f"{k}={v:.5f}" for k, v in row["losses"].items()))
+    step_ms = statistics.median(r["ms"] for r in steps[1:])
+    out["train"] = {"steps": steps, "step_ms_median_2_6": step_ms,
+                    "step_wall_ms_median_2_6": statistics.median(r["wall_ms"] for r in steps[1:]),
+                    "pairs_per_s": train_cfg.data.batch_size / (step_ms / 1e3), "peak_gib": peak,
+                    "launches_fit": fit_launches, "fit_s": fit_s,
+                    "val_rr5": trainer.metrics.summary("")["RR@5"]}
+    log(f"unmasked train: 6 steps, median step (2-6) {step_ms:.3f} ms = "
+        f"{out['train']['pairs_per_s']:.1f} pairs/s, peak {peak:.2f} GiB, launches/step "
+        f"{steps[-1]['launches']}, fit {fit_s:.1f} s [{card}]")
+
+    batch = to_device_batch(next(iter(train_dm.train_loader())), torch.device("cuda"))
+    cfg32 = load_config(FLAGSHIP + UNMASKED + TRAIN + ["precision.compute_dtype=float32"])
+    out["train_plain_compare"] = cmp = train_plain_compare(torch, cfg32, batch)
+    log(f"unmasked train plain path (f32, TF32 off, deterministic): losses rel "
+        f"{cmp['loss_rel']:.3g} (tol {TRAIN_LOSS_RTOL}), grads rel-of-max "
+        f"{cmp['grad_rel_of_max']:.3g} (tol {TRAIN_GRAD_TOL}), running_var |d| "
+        f"{cmp['running_var_abs']:.3g} (tol {TRAIN_VAR_TOL})")
+    torch.cuda.empty_cache()
+    lr = train_cfg.optimizer.lr
+    step(batch, lr)  # warm the bf16 path after the f32 phase
+    out["profile"] = prof = profile_step(torch, step, batch, lr)
+    log(f"profiled unmasked train step: device busy {prof['device_busy_ms']} ms of "
+        f"{prof['wall_ms']:.3f} ms wall, idle share {prof['device_idle_share']}, port kernels "
+        f"{prof['port_kernels_ms']} [{card}]")
+    for row in prof["top"][:12]:
+        log(f"    {row['device_ms']:9.3f} ms x{row['count']:<4d} {row['name'][:90]}")
+    for row in prof["top_ops"][:8]:
+        log(f"    {row['device_ms']:9.3f} ms x{row['count']:<4d} {row['op']} {row['shapes']}")
+    del trainer, step, batch
+    torch.cuda.empty_cache()
+    return out, {"unmasked_serving": serve_launches, "unmasked_train": fit_launches}
+
+
 # -------------------------------------------------------------- phase 11
 
 # The structured quality run's configuration (python -m
@@ -1335,6 +1599,13 @@ def main() -> int:
     ids = torch.from_numpy(first["voxel_row_ids"]).cuda()
     k2_err, k2_rows = check_k2(torch, ids, cfg.data.voxel_size // 4, flush)
     k3_err, k3_rows = check_k3(torch, k1_shapes, flush)
+    # The unmasked entries at the five dense blocks of the masked_bn=false
+    # flagship (SAME convs on the whole 64³ grid).
+    D = cfg.data.voxel_size
+    dense_shapes = [(f"block{i + 1}", (B, D >> i, D >> i, D >> i, 32 << i)) for i in range(4)]
+    dense_shapes.append(("block5", (B, D >> 4, D >> 4, D >> 4, 512)))
+    k1u_err, k1u_rows = check_k1_unmasked(torch, dense_shapes, flush)
+    k3u_err, k3u_rows = check_k3_unmasked(torch, dense_shapes, flush)
     nt_errs, nt_rows = check_nt_xent(torch, [(B, cfg.model.out_dim), (8192, cfg.model.out_dim)],
                                      flush)
     # K7 and K2's global entry at the dense-input plan's shapes, on the active
@@ -1356,9 +1627,11 @@ def main() -> int:
     report["k1"], report["k2"], report["k3"], report["nt_xent"] = (
         k1_rows, k2_rows, k3_rows, nt_rows)
     report["k7"], report["k2_global"] = k7_rows, k2g_rows
+    report["k1_unmasked"], report["k3_unmasked"] = k1u_rows, k3u_rows
     report["dense_plan_tiles"] = {"budget": budget, "active": n_active}
     log(f"kernels: K1 max err {k1_err}, K2 max err {k2_err}, K3 max err {k3_err}, "
-        f"K7 max err {k7_err}, K2-global max err {k2g_err} (bit-exact required); "
+        f"K7 max err {k7_err}, K2-global max err {k2g_err}, K1-unmasked max err {k1u_err}, "
+        f"K3-unmasked max err {k3u_err} (bit-exact required); "
         f"K4-K6, pair and two-term max err {nt_errs} (limit {NT_XENT_TOL}·max|plain|); dense "
         f"plan: "
         f"{n_active} active tiles of a {budget}-row budget")
@@ -1596,6 +1869,12 @@ def main() -> int:
     walls["lifecycle_s"] = time.perf_counter() - tic
     torch.cuda.empty_cache()
 
+    # 10e. the unmasked (all-site BN) flagship: index, f32 kernel vs plain,
+    # one epoch through Trainer.fit, the f32 step, a profile.
+    tic = time.perf_counter()
+    report["unmasked"], unmasked_paths = unmasked_flagship(torch, card)
+    walls["unmasked_s"] = time.perf_counter() - tic
+
     # 11. the host path: the C++ sweeps against numpy, bit-exact, timed
     tic = time.perf_counter()
     report["host_path"] = host = host_path(torch, card, dm)
@@ -1611,7 +1890,7 @@ def main() -> int:
 
     paths = {"serving": launches, "train": train_launches,
              "dense_serving": report["dense_serving"]["launches"],
-             "dense_train": dense_train["launches_fit"], **lifecycle_paths}
+             "dense_train": dense_train["launches_fit"], **lifecycle_paths, **unmasked_paths}
 
     def both(name):
         return {path: counts[name] for path, counts in paths.items()}
@@ -1690,6 +1969,27 @@ def main() -> int:
          "ms": total(k2g_rows, "ms"), "plain_ms": total(k2g_rows, "plain_ms"),
          "bound_ms": total(k2g_rows, "bound_ms"), "bound_by": "bytes", "library_ms": None,
          "shapes": k2g_rows},
+    ]
+    # The unmasked entries' rows carry the eval form (K1) over the five
+    # dense blocks, as K1's row carries the windowed_compact eval form.
+    k1u_eval = [r for r in k1u_rows if r["form"] == "eval"]
+    kernels += [
+        {"name": "bn_relu_pool_unmasked", "route": "cuda",
+         "source": "tricolo_tpu_torch/csrc/bn_relu_pool.cu",
+         "replaces": "tricolo_tpu/ops/fused_bn_pool.py:99",
+         "launches": on_paths("bn_relu_pool_unmasked"),
+         "launches_by_path": both("bn_relu_pool_unmasked"), "max_abs_err": k1u_err,
+         "ms": total(k1u_eval, "ms"), "plain_ms": total(k1u_eval, "plain_ms"),
+         "bound_ms": total(k1u_eval, "bound_ms"), "bound_by": "bytes", "library_ms": None,
+         "shapes": k1u_rows},
+        {"name": "bn_relu_pool_bwd_unmasked", "route": "cuda",
+         "source": "tricolo_tpu_torch/csrc/bn_relu_pool_bwd.cu",
+         "replaces": "tricolo_tpu/ops/fused_bn_pool.py:134",
+         "launches": on_paths("bn_relu_pool_bwd_unmasked"),
+         "launches_by_path": both("bn_relu_pool_bwd_unmasked"), "max_abs_err": k3u_err,
+         "ms": total(k3u_rows, "ms"), "plain_ms": total(k3u_rows, "plain_ms"),
+         "bound_ms": total(k3u_rows, "bound_ms"), "bound_by": "bytes", "library_ms": None,
+         "shapes": k3u_rows},
     ]
     for row in kernels:
         require(row["launches"] > 0, f"kernel {row['name']} was launched on no path")

@@ -2,7 +2,10 @@
 image 32, 2 views, ef_dim 8, B=2, f32, masked BN): the port's loader,
 ``collect_embeddings``, train step and serving CLI against the JAX
 package on ``data.voxel_transfer=packed|dense|windowed`` with
-``VoxelCNNEncoder.tile_sparse=true``.
+``VoxelCNNEncoder.tile_sparse=true``; and the configuration checks of
+``masked_bn=false`` (a windowed transfer falls back to packed with the JAX
+loader's warning, ``fused_bn_pool`` takes the JAX values only, windowed
+input to the unmasked encoder raises).
 
 Tolerances are those of ``test_torch_serving.py`` and
 ``test_torch_train_steps.py``: embeddings atol 1e-4; one train step from
@@ -184,10 +187,50 @@ def test_tile_budget_canary_warns(tmp_path):
         trainer._check_tile_budget(dm.train_loader())
 
 
-def test_masked_bn_false_raises():
+UNMASKED = ["model.modules.VoxelCNNEncoder.masked_bn=false"]
+
+
+@pytest.mark.parametrize("transfer", ["windowed_compact", "windowed"])
+def test_masked_bn_false_windowed_transfer_falls_back_to_packed(transfer):
+    """A windowed transfer at masked_bn=false warns as the JAX loader does
+    and collates ``packed``."""
+    import warnings
+
+    from tricolo_tpu.data import DataModule as JaxDataModule
     from tricolo_tpu_torch.data import DataModule
 
-    dm = DataModule(torch_cfg(["data.voxel_transfer=packed",
-                               "model.modules.VoxelCNNEncoder.masked_bn=false"]))
-    with pytest.raises(NotImplementedError, match="masked"):
-        dm._loader_kwargs()
+    overrides = [f"data.voxel_transfer={transfer}", *UNMASKED]
+    caught = []
+    for dm in (DataModule(torch_cfg(overrides)), JaxDataModule(jax_cfg(overrides))):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            kwargs = dm._loader_kwargs()
+        assert kwargs["voxel_transfer"] == "packed"
+        caught.append([str(w.message) for w in seen if issubclass(w.category, UserWarning)])
+    assert caught[0] == caught[1] and len(caught[0]) == 1
+    assert caught[0][0].startswith(f"voxel_transfer={transfer} requires masked_bn=true")
+
+
+@pytest.mark.parametrize("value,ok", [("auto", True), ("null", True), ("true", True),
+                                      ("false", True), ("pallas", False), ("2", False)])
+def test_fused_bn_pool_values(value, ok):
+    """``fused_bn_pool`` takes the JAX package's four values (one kernel
+    path computes them all) and refuses any other."""
+    from tricolo_tpu_torch.models.tricolo_net import TriCoLoNet
+
+    cfg = torch_cfg([*UNMASKED, f"model.modules.VoxelCNNEncoder.fused_bn_pool={value}"])
+    if ok:
+        assert not TriCoLoNet.from_config(cfg).voxel_encoder.masked_bn
+    else:
+        with pytest.raises(ValueError, match="fused_bn_pool"):
+            TriCoLoNet.from_config(cfg)
+
+
+def test_masked_bn_false_refuses_windowed_input():
+    from tricolo_tpu_torch.models.tricolo_net import TriCoLoNet
+
+    enc = TriCoLoNet.from_config(torch_cfg(UNMASKED)).voxel_encoder
+    with pytest.raises(ValueError, match="requires masked_bn=true"):
+        enc(torch.zeros(2, 3, 14**3, dtype=torch.int32), torch.zeros(2, 3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="requires masked_bn=true"):
+        enc(windows=torch.zeros(128, 10**3, dtype=torch.int32), tile_occ=torch.ones(128))

@@ -80,7 +80,7 @@ def test_counters_stay_zero_on_cpu():
     assert ops.launches() == {name: 0 for name in (
         "bn_relu_pool", "scatter_tiles_ps", "bn_relu_pool_bwd", "nt_xent_fwd",
         "nt_xent_fwd_pair", "nt_xent_bwd_rows", "nt_xent_bwd_cols", "nt_xent_bwd", "gather_tiles",
-        "scatter_tiles_global")}
+        "scatter_tiles_global", "bn_relu_pool_unmasked", "bn_relu_pool_bwd_unmasked")}
 
 
 def test_host_library_is_the_ports_own():

@@ -1,12 +1,13 @@
 """The port's CUDA kernels and their wrappers, without JAX.
 
-On the CPU: the plain versions' edge cases, the wrappers' dispatch (CPU
-tensors take the plain version and launch nothing) and the launch plans of
+On the CPU: the plain versions' edge cases (K1's and K3's unmasked forms
+included), the wrappers' dispatch (CPU tensors take the plain version and
+launch nothing) and the launch plans of
 K1 and K2 (vector width from shapes and addresses, the guards of their
 32-bit index math) and of the NT-Xent forward (logits tile, grid, scratch)
 and backward (row tile and D slice). On a card (``-m cuda``): each kernel
-against its plain version — K1-K3, K7 and both K2 entries bit-exact in f32
-and bf16, K4-K6, the pair forward and the two-term backward (f32 sums in
+against its plain version — K1-K3 (masked and unmasked entries), K7 and
+both K2 entries bit-exact in f32 and bf16, K4-K6, the pair forward and the two-term backward (f32 sums in
 another order) within ``NT_XENT_TOL · max|plain|``, the forward also
 bit-identical from launch to launch — and the wrappers' refusals: a CUDA
 tensor never falls back to the plain version.
@@ -24,7 +25,9 @@ from tricolo_tpu_torch.ops import (  # noqa: E402
     bn_relu_pool,
     bn_relu_pool_bwd,
     bn_relu_pool_bwd_plain,
+    bn_relu_pool_bwd_unmasked,
     bn_relu_pool_plain,
+    bn_relu_pool_unmasked,
     fold_bn,
     gather_tiles,
     gather_tiles_plain,
@@ -187,7 +190,31 @@ def test_cpu_tensors_take_the_plain_version():
     tiles, gids = _k2g_inputs(2, 16, 4, 2, 0, torch.float32, "cpu")
     assert torch.equal(scatter_tiles_global(tiles, gids, 2, 16),
                        scatter_tiles_global_plain(tiles, gids, 2, 16))
-    assert set(ops.launches().values()) == {0} and len(ops.launches()) == 10
+    y, mul, add = _k1_inputs((2, 4, 4, 4, 8), 1, torch.float32, "cpu", False)[:3]
+    assert torch.equal(bn_relu_pool_unmasked(y, mul, add), bn_relu_pool_plain(y, mul, add))
+    for a, b in zip(bn_relu_pool(y, mul, add, want_idx=True),
+                    bn_relu_pool_plain(y, mul, add, want_idx=True)):
+        assert torch.equal(a, b)
+    y, ga, idx, _, *vectors = _k3_inputs((2, 4, 4, 4, 8), 1, torch.float32, "cpu")
+    assert torch.equal(bn_relu_pool_bwd_unmasked(y, ga, idx, *vectors),
+                       bn_relu_pool_bwd(y, ga, idx, None, *vectors))
+    assert set(ops.launches().values()) == {0} and len(ops.launches()) == 12
+
+
+def test_unmasked_plain_is_the_all_ones_masked_form():
+    """K1's and K3's unmasked plain forms equal the masked ones at an
+    all-ones mask bit for bit (a product by 1 changes no value), in f32 and
+    bf16; K1's returns no pooled mask."""
+    for dtype in (torch.float32, torch.bfloat16):
+        y, mul, add, mask, _ = _k1_inputs((2, 4, 6, 4, 8), 2, dtype, "cpu", False)
+        ones = torch.ones_like(mask)
+        pooled, idx = bn_relu_pool_plain(y, mul, add, want_idx=True)
+        ref, pmask, ref_idx = bn_relu_pool_plain(y, mul, add, ones, want_idx=True)
+        assert torch.equal(pooled, ref) and torch.equal(idx, ref_idx)
+        assert torch.equal(bn_relu_pool_plain(y, mul, add), ref) and bool((pmask == 1).all())
+        y, ga, idx, mask, *vectors = _k3_inputs((2, 4, 6, 4, 8), 2, dtype, "cpu")
+        assert torch.equal(bn_relu_pool_bwd_plain(y, ga, idx, None, *vectors),
+                           bn_relu_pool_bwd_plain(y, ga, idx, torch.ones_like(mask), *vectors))
 
 
 def test_bwd_plain_routes_to_the_argmax_member():
@@ -247,6 +274,14 @@ def test_wrappers_reject_other_devices():
     args = _k3_inputs((1, 2, 2, 2, 4), 0, torch.float32, "cpu")
     with pytest.raises(ValueError, match="cuda or cpu"):
         bn_relu_pool_bwd(*(t.to("meta") for t in args))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        bn_relu_pool_unmasked(y, torch.ones(4, device="meta"), torch.zeros(4, device="meta"))
+    y3, ga, idx, _, *vectors = (t.to("meta") for t in args)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        bn_relu_pool_bwd_unmasked(y3, ga, idx, *vectors)
+    with pytest.raises(ValueError, match="stats_mask needs a zero_mask"):
+        bn_relu_pool(y, torch.ones(4, device="meta"), torch.zeros(4, device="meta"),
+                     stats_mask=torch.ones(1, 2, 2, 2, 1, device="meta"))
     x, ids = (t.to("meta") for t in _k7_inputs(1, 8, 4, 4, 0, torch.float32, "cpu"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         gather_tiles(x, ids, 4, 1)
@@ -442,6 +477,39 @@ def test_cuda_bn_relu_pool_unaligned_view(dtype, shift):
         got = bn_relu_pool(view, mul_view, add, zmask, smask, want_idx=want_idx)
         for a, b in zip(got, bn_relu_pool_plain(y, mul, add, zmask, smask, want_idx=want_idx)):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [3, 8, 32, 64, 512])
+def test_cuda_bn_relu_pool_unmasked_matches_plain(dtype, C):
+    """K1's unmasked entry, idx off and on, against its plain version at
+    channel counts that take every plan; its own counter steps, the masked
+    one does not."""
+    _need_cuda()
+    y, mul, add = _k1_inputs((3, 4, 6, 4, C), C + 1, getattr(torch, dtype), "cuda", False)[:3]
+    for want_idx in (False, True):
+        before, masked = bn_relu_pool_unmasked.launches, bn_relu_pool.launches
+        got = bn_relu_pool(y, mul, add, want_idx=want_idx)
+        torch.cuda.synchronize()
+        assert bn_relu_pool_unmasked.launches == before + 1
+        assert bn_relu_pool.launches == masked
+        ref = bn_relu_pool_plain(y, mul, add, want_idx=want_idx)
+        for a, b in zip(got if want_idx else [got], ref if want_idx else [ref]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 64, 64, 64, 32), (8, 16, 16, 16, 128), (3, 4, 2, 6, 6)])
+def test_cuda_bn_relu_pool_bwd_unmasked_matches_plain(dtype, shape):
+    _need_cuda()
+    y, ga, idx, _, *vectors = _k3_inputs(shape, 7, getattr(torch, dtype), "cuda")
+    before = bn_relu_pool_bwd_unmasked.launches
+    got = bn_relu_pool_bwd(y, ga, idx, None, *vectors)
+    torch.cuda.synchronize()
+    assert bn_relu_pool_bwd_unmasked.launches == before + 1
+    assert torch.equal(got, bn_relu_pool_bwd_plain(y, ga, idx, None, *vectors))
 
 
 @pytest.mark.cuda

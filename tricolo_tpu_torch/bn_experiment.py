@@ -22,8 +22,13 @@ train step (each ends in a device synchronise), ``step_ms_median`` their
 median past the first, ``step_s_total`` their sum, ``timers_s`` the
 trainer's wall by phase (``data_load``, ``train``, ``validate``,
 ``checkpoint``), and ``device`` the card.
-Runs on the GPU; ``--extra +device=cpu`` runs on the CPU instead. The port
-runs the masked BN only, so ``--modes`` defaults to ``masked``.
+Runs on the GPU; ``--extra +device=cpu`` runs on the CPU instead.
+``--modes`` defaults to ``masked``; ``--modes dense`` runs the all-site BN
+arm (``masked_bn=false``, whose windowed_compact default falls back to the
+packed transfer):
+
+    python -m tricolo_tpu_torch.bn_experiment --modes dense --seeds 123 \
+        --out experiments/torch_structured_h100_dense.json
 """
 
 from __future__ import annotations

@@ -138,7 +138,9 @@ def default_config() -> ConfigNode:
                         # slower end-to-end since they break XLA's
                         # conv-epilogue fusions); under masked_bn no
                         # Pallas masked kernel exists, so true falls back
-                        # to the composed masked path.
+                        # to the composed masked path. The port computes
+                        # every value with its one kernel path (K1/K3);
+                        # TriCoLoNet.from_config refuses any other value.
                         "fused_bn_pool": "auto",
                         # Submanifold-faithful BN (spconv semantics):
                         # statistics over occupied sites only, inactive

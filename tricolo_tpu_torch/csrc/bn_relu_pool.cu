@@ -1,43 +1,27 @@
-// Masked eval BatchNorm -> ReLU -> zero -> MaxPool(2^3), channels-last.
+// BatchNorm -> ReLU [-> zero] -> MaxPool(2^3), channels-last: masked eval
+// and the unmasked (all-site) form.
 //
 // Replaces: tricolo_tpu/ops/fused_bn_pool.py::_fwd_kernel (the Pallas TPU
 // kernel: folded per-channel BN, ReLU, 2^3 window max and first-argmax
-// index), extended to the masked eval forms the voxel encoder runs in all
-// five blocks: masked_inference_bn_relu_pool2 (two masks, block 1) and
+// index). The unmasked entry (zero_mask == nullptr) is that kernel's own
+// function, which the JAX package runs through Pallas at masked_bn=false,
+// fused_bn_pool=true (fused_bn_relu_pool, with idx) and in XLA otherwise
+// (hybrid_bn_relu_pool, inference_bn_relu_pool). The masked entry extends it
+// to the masked eval forms the masked voxel encoder runs in all five blocks:
+// masked_inference_bn_relu_pool2 (two masks, block 1) and
 // masked_inference_bn_relu_pool (one mask, blocks 2-5).
 //
-//   a       = relu(y * mul + add) * zero_mask        (per site, per channel)
+//   a       = relu(y * mul + add) [* zero_mask]       (per site, per channel)
 //   pooled  = max over each 2x2x2 window of a
-//   pmask   = max over each 2x2x2 window of stats_mask
+//   pmask   = max over each 2x2x2 window of stats_mask (masked entry only)
 //   idx     = first r = dd*4 + hh*2 + ww reaching the max (strict >)
 //
 // Bound: memory. Per pooled element it reads 8 activations and writes one;
 // there are ~4 flops per activation, far below the ~295 flop/byte where the
 // H100 stops being bandwidth-bound. The least time is
-// (bytes of y + masks + pooled + pooled mask [+ idx]) / 3.35 TB/s (H100 SXM
-// data sheet).
-//
-// Design: one thread per (pooled site, group of VE channels), neighbouring
-// threads on neighbouring groups, then neighbouring sites. VE (8 bf16 or
-// 4 f32 for a 16-byte vector; 4/2/1 or 2/1 for narrower ones) is the widest
-// that divides C and the alignment of y, mul, add and pooled; the wrapper
-// picks it, and VE = 1 is the scalar plan for any C. Each thread decomposes
-// its pooled site once in 32-bit math (the wrapper keeps site and item
-// counts below 2^31; element offsets are 64-bit), keeps its VE mul/add
-// values in registers, and for each of the 8 window sites issues one
-// VE-wide load of y and one load of the site's zero mask. It writes the
-// pooled values as one VE-wide store and, when asked, the VE argmax bytes as
-// one store. The group-0 thread of each site writes the pooled mask after the
-// channel work, from the zero-mask values it holds (one mask) or 8 loads of
-// the stats mask (two masks). No shared memory, no atomics: every output is
-// written exactly once, so the result is deterministic.
-//
-// Rounding mirrors the plain PyTorch version op for op: in bf16 the product
-// and the sum are each rounded to bf16 (__fmul_rn / __fadd_rn keep nvcc from
-// contracting them into one FMA), then ReLU, then the mask product, rounded
-// again; the argmax is the strict > first max in r order. So the kernel is
-// bit-exact against tricolo_tpu_torch.ops.bn_relu_pool.bn_relu_pool_plain in
-// f32 and bf16. Values move as raw bits (bf16 widens by a 16-bit shift).
+// (bytes of y [+ masks] + pooled [+ pooled mask] [+ idx]) / 3.35 TB/s (H100
+// SXM data sheet): at the unmasked flagship block 1, (128, 64^3, 32) bf16,
+// 2.416 GB without idx (0.721 ms) and 2.550 GB with it (0.761 ms).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,7 +80,7 @@ __device__ inline void store_vec(Bits* __restrict__ p, const Bits (&in)[VE]) {
   *reinterpret_cast<Vec*>(p) = raw;
 }
 
-template <typename Num, int VE>
+template <typename Num, int VE, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
     bn_relu_pool_kernel(const typename Num::Bits* __restrict__ y,
                         const typename Num::Bits* __restrict__ mul,
@@ -130,11 +114,11 @@ __global__ void __launch_bounds__(kThreads)
       best[e] = 0.f;
       arg[e] = 0;
     }
-    float zm[8];
+    float zm[8] = {};
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int site = site0 + (r >> 2) * HW + ((r >> 1) & 1) * W + (r & 1);
-      zm[r] = Num::load(zero_mask[site]);
+      if constexpr (kMasked) zm[r] = Num::load(zero_mask[site]);
       Bits v[VE];
       load_vec<Bits, VE>(y + (int64_t)site * C + c0, v);
 #pragma unroll
@@ -142,7 +126,7 @@ __global__ void __launch_bounds__(kThreads)
         float t = Num::round(__fmul_rn(Num::load(v[e]), m[e]));
         t = Num::round(__fadd_rn(t, b[e]));
         t = t > 0.f ? t : 0.f;
-        t = Num::round(__fmul_rn(t, zm[r]));
+        if constexpr (kMasked) t = Num::round(__fmul_rn(t, zm[r]));
         if (r == 0 || t > best[e]) {  // strict >: the first max wins
           best[e] = t;
           arg[e] = (uint8_t)r;
@@ -160,7 +144,7 @@ __global__ void __launch_bounds__(kThreads)
       memcpy(&packed, arg, sizeof(packed));
       *reinterpret_cast<IdxVec*>(idx + o) = packed;
     }
-    if (c0 == 0) {  // one thread a site: the pooled mask
+    if (kMasked && c0 == 0) {  // one thread a site: the pooled mask
       float mbest = 0.f;
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
@@ -184,22 +168,32 @@ int launch_ve(const void* y, const void* mul, const void* add,
   using Bits = typename Num::Bits;
   const int want = (items + kThreads - 1) / kThreads;
   const int blocks = want < (1 << 30) ? want : (1 << 30);
-  bn_relu_pool_kernel<Num, VE><<<blocks, kThreads, 0, stream>>>(
-      (const Bits*)y, (const Bits*)mul, (const Bits*)add,
-      (const Bits*)zero_mask, (const Bits*)stats_mask, (Bits*)pooled,
-      (Bits*)pooled_mask, (uint8_t*)idx, items, C / VE, H2, W2, C);
+  if (zero_mask != nullptr) {
+    bn_relu_pool_kernel<Num, VE, true><<<blocks, kThreads, 0, stream>>>(
+        (const Bits*)y, (const Bits*)mul, (const Bits*)add,
+        (const Bits*)zero_mask, (const Bits*)stats_mask, (Bits*)pooled,
+        (Bits*)pooled_mask, (uint8_t*)idx, items, C / VE, H2, W2, C);
+  } else {
+    bn_relu_pool_kernel<Num, VE, false><<<blocks, kThreads, 0, stream>>>(
+        (const Bits*)y, (const Bits*)mul, (const Bits*)add, nullptr, nullptr,
+        (Bits*)pooled, nullptr, (uint8_t*)idx, items, C / VE, H2, W2, C);
+  }
   return (int)cudaGetLastError();
 }
 
 // vec_elems: channels a thread handles (VE): 8, 4, 2 or 1 in bf16, 4, 2 or
 // 1 in f32, a divisor of C whose VE * elem bytes divide the alignment of y,
-// mul, add, pooled and idx.
+// mul, add, pooled and idx. zero_mask == nullptr selects the unmasked entry:
+// stats_mask and pooled_mask are then nullptr too.
 template <typename Num>
 int launch(const void* y, const void* mul, const void* add,
            const void* zero_mask, const void* stats_mask, void* pooled,
            void* pooled_mask, void* idx, long long N, int D2, int H2, int W2,
            int C, int vec_elems, void* stream) {
   if (vec_elems <= 0 || C % vec_elems != 0) return (int)cudaErrorInvalidValue;
+  if ((zero_mask == nullptr) != (stats_mask == nullptr) ||
+      (zero_mask == nullptr) != (pooled_mask == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int64_t pooled_sites = (int64_t)N * D2 * H2 * W2;
   const int64_t items = pooled_sites * (C / vec_elems);
   if (8 * pooled_sites >= (1LL << 31) || items >= (1LL << 31))

@@ -11,8 +11,9 @@ package takes: ``packed`` (sparse u32 site/RGB words, densified on the
 device), ``dense`` (the u32 grid, densified here), ``windowed`` (every
 tile's halo'd window rows + per-tile occupancy) and ``windowed_compact``
 (per-sample rows of the active tiles only); the last three through the
-host loader's C++ sweeps (``data/device_prep.py``). The port runs the
-masked (submanifold) voxel encoder only, so ``masked_bn=false`` raises.
+host loader's C++ sweeps (``data/device_prep.py``). The windowed
+transfers need the masked (submanifold) encoder: at ``masked_bn=false``
+they warn and fall back to ``packed``, as the JAX loader does.
 
 ``BatchIterator`` collates in a one-deep background thread by default
 (``prefetch``; the JAX loader's producer: a bounded queue, the producer's
@@ -296,12 +297,8 @@ class DataModule:
         if transfer not in TRANSFERS:
             raise ValueError(f"unknown data.voxel_transfer={transfer!r}; one of {TRANSFERS}")
         blocks = int(voxel_cfg.get("tile_sparse_blocks", 2))
-        if model.voxel_encoder is not None:
-            if not voxel_cfg.get("masked_bn", False):
-                raise NotImplementedError(
-                    "the port runs the masked (submanifold) voxel encoder only"
-                )
-            if transfer.startswith("windowed") and blocks > 2:
+        if model.voxel_encoder is not None and transfer.startswith("windowed"):
+            if blocks > 2:
                 warnings.warn(
                     f"tile_sparse_blocks={blocks} with a windowed voxel transfer: "
                     "the windowed encoder runs at most 2 sparse blocks — running "
@@ -309,6 +306,17 @@ class DataModule:
                     "for deeper sparse stacks.",
                     stacklevel=2,
                 )
+            if not voxel_cfg.get("masked_bn", False):
+                # Windowed rows are only exact under the masked semantics;
+                # the all-site encoder takes the truncation-free packed
+                # transfer instead, with the JAX loader's warning.
+                warnings.warn(
+                    f"voxel_transfer={transfer} requires masked_bn=true; "
+                    "masked_bn=false — falling back to "
+                    "data.voxel_transfer=packed (dense all-site BN path).",
+                    stacklevel=2,
+                )
+                transfer = "packed"
         return dict(
             batch_size=self.cfg.data.batch_size,
             voxel_transfer=transfer,

@@ -1,8 +1,9 @@
 """TriCoLoNet: the configured modality encoders.
 
 Port of ``tricolo_tpu.models.tricolo_net.TriCoLoNet`` for the BiGRU text
-encoder, the MVCNN image encoder and the masked voxel encoder on every
-voxel input (``voxel_windows``, ``voxel_rows`` or dense ``voxels``).
+encoder, the MVCNN image encoder and the voxel encoder: masked BN on every
+voxel input (``voxel_windows``, ``voxel_rows`` or dense ``voxels``), all-site
+BN (``masked_bn=false``) on dense ``voxels``.
 ``train()`` / ``eval()`` switch the BatchNorms between batch and running
 statistics; the non-CLIP encoders have no dropout. The CLIP heads are not
 ported yet.
@@ -20,6 +21,9 @@ from .voxel_cnn import VoxelCNNEncoder
 _VOXEL_ALIASES = {"VoxelCNNEncoder", "SparseCNNEncoder"}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 SCATTER_LAYOUTS = ("transpose", "lines", "hybrid")
+# The JAX package's fused_bn_pool values ("auto" and None: hybrid, true:
+# Pallas, false: composed XLA), which compute one function to rounding.
+FUSED_BN_POOL = ("auto", None, True, False)
 
 
 class TriCoLoNet(nn.Module):
@@ -32,7 +36,7 @@ class TriCoLoNet(nn.Module):
                  voxel_size: int = 64, ef_dim: int = 32, voxel_z_dim: int = 512,
                  compute_dtype=torch.float32, tile_sparse: bool = False,
                  tile_sparse_blocks: int = 2, tile_budget_frac: float = 0.5,
-                 explicit_dgrad: bool = False):
+                 explicit_dgrad: bool = False, masked_bn: bool = True):
         super().__init__()
         if text_encoder != "BiGRUEncoder":
             raise NotImplementedError(f"text encoder {text_encoder!r} is not ported yet")
@@ -49,6 +53,7 @@ class TriCoLoNet(nn.Module):
                 voxel_size, ef_dim, voxel_z_dim, out_dim, compute_dtype,
                 tile_sparse=tile_sparse, tile_sparse_blocks=tile_sparse_blocks,
                 tile_budget_frac=tile_budget_frac, explicit_dgrad=explicit_dgrad,
+                masked_bn=masked_bn,
             )
         elif voxel_encoder is not None:
             raise ValueError(f"unknown voxel encoder: {voxel_encoder}")
@@ -57,8 +62,6 @@ class TriCoLoNet(nn.Module):
     def from_config(cls, cfg) -> "TriCoLoNet":
         modules = cfg.model.modules
         voxel = modules.VoxelCNNEncoder
-        if cfg.model.voxel_encoder is not None and not voxel.get("masked_bn", False):
-            raise NotImplementedError("the port runs the masked voxel encoder only")
         if cfg.precision.get("param_dtype", "float32") != "float32":
             raise NotImplementedError(
                 f"precision.param_dtype={cfg.precision.param_dtype}: the port builds float32 "
@@ -68,6 +71,11 @@ class TriCoLoNet(nn.Module):
         layout = voxel.get("scatter_layout", None)
         if layout is not None and layout not in SCATTER_LAYOUTS:
             raise ValueError(f"scatter_layout must be one of {SCATTER_LAYOUTS}, got {layout!r}")
+        # So do the JAX package's three BN-ReLU-pool paths, which the port
+        # computes with its one kernel path (K1/K3): the key is checked only.
+        fused = voxel.get("fused_bn_pool", "auto")
+        if fused not in FUSED_BN_POOL:
+            raise ValueError(f"fused_bn_pool must be one of {FUSED_BN_POOL}, got {fused!r}")
         return cls(
             text_encoder=cfg.model.text_encoder or "BiGRUEncoder",
             image_encoder=cfg.model.image_encoder,
@@ -87,6 +95,7 @@ class TriCoLoNet(nn.Module):
             tile_sparse_blocks=int(voxel.get("tile_sparse_blocks", 2)),
             tile_budget_frac=float(voxel.get("tile_budget_frac", 0.5)),
             explicit_dgrad=bool(voxel.get("explicit_dgrad", False)),
+            masked_bn=bool(voxel.get("masked_bn", False)),
         )
 
     def set_compute_dtype(self, dtype) -> None:

@@ -1,7 +1,9 @@
-"""Voxel encoder, channels-last, under the masked (submanifold) semantics.
+"""Voxel encoder, channels-last: masked (submanifold) BN and all-site BN.
 
-Port of ``tricolo_tpu.models.voxel_cnn.VoxelCNNEncoder`` with
-``masked_bn=true``, eval and train, on every input the JAX package takes:
+Port of ``tricolo_tpu.models.voxel_cnn.VoxelCNNEncoder``, eval and train,
+under both of its BatchNorm semantics (``masked_bn``). With
+``masked_bn=true`` (the config default) on every input the JAX package
+takes:
 
 * **windowed_compact** (``rows`` (B, k, s³) + ``row_ids`` (B, k)): per-sample
   packed rows of each active 8³ tile's halo'd window (s = 8 + 2·halo) and
@@ -25,19 +27,30 @@ Port of ``tricolo_tpu.models.voxel_cnn.VoxelCNNEncoder`` with
   both onto the half-resolution grid.
 
 The remaining blocks run dense (SAME conv + K1), and the NDHWC flatten
-feeds the MLP head. Every path is exact against the dense masked path (the
-JAX package's tests), so checkpoints interchange; the parameter tree is one.
+feeds the MLP head. Every masked path is exact against the dense masked
+path (the JAX package's tests), so checkpoints interchange; the parameter
+tree is one.
 
-In ``train()`` mode each block normalises with its masked batch statistics
-through ``ops.masked_bn_relu_pool_train`` (K1 forward with the argmax
-index, K3 backward) and updates ``running_mean``/``running_var`` by hand:
-flax momentum 0.9 and the *biased* masked variance, as the JAX package does
-(``nn.BatchNorm3d``'s own update would use the unbiased variance over all
-sites). K2 and K7 run through their autograd Functions.
+With ``masked_bn=false`` (the JAX class default and the torch-oracle
+parity path) the encoder takes dense ``voxels`` only, as the JAX package
+does: a 4th (occupancy) channel is dropped, RGB is padded to 4 channels,
+``tile_sparse`` is ignored, and all five blocks run a SAME conv and
+BatchNorm over every site → ReLU → MaxPool(2³) through K1's unmasked entry
+(``ops.bn_relu_pool_unmasked``, the Pallas ``_fwd_kernel``'s function);
+windowed input raises ``ValueError``.
+
+In ``train()`` mode each block normalises with its batch statistics
+through ``ops.masked_bn_relu_pool_train`` (masked: K1 forward with the
+argmax index, K3 backward) or ``ops.bn_relu_pool_train`` (all sites: K1's
+and K3's unmasked entries) and updates ``running_mean``/``running_var`` by
+hand: flax momentum 0.9 and the *biased* batch variance, as the JAX
+package does (``nn.BatchNorm3d``'s own update would use the unbiased
+variance). K2 and K7 run through their autograd Functions.
 
 Convolutions are ``F.conv3d`` on channels-last-3d views (cuDNN on the
 card), as the JAX package leaves them to XLA; ``explicit_dgrad`` writes the
-VALID convs' input gradient as a forward conv (``ops.conv3d``).
+VALID convs' input gradient as a forward conv (``ops.conv3d``), as the JAX
+package applies it to VALID convs only.
 ``use_kernels=False`` runs the same path through the kernels' plain
 PyTorch versions (the reference the kernels are held against on the card).
 """
@@ -54,6 +67,7 @@ from ..data.device_prep import unpack_windowed_rows
 from ..ops.bn_relu_pool import (
     bn_relu_pool,
     bn_relu_pool_plain,
+    bn_relu_pool_train,
     fold_bn,
     masked_bn_relu_pool_train,
 )
@@ -68,7 +82,8 @@ _MOMENTUM = 0.9  # flax convention: running = 0.9·running + 0.1·batch
 
 
 class ConvBlock(nn.Module):
-    """Conv3D(3³, no bias) → masked BN → ReLU → zero → MaxPool(2³)."""
+    """Conv3D(3³, no bias) → BN → ReLU [→ zero] → MaxPool(2³): masked BN
+    with a ``zero_mask``, all-site BN without one."""
 
     def __init__(self, cin: int, features: int):
         super().__init__()
@@ -76,8 +91,9 @@ class ConvBlock(nn.Module):
         # Holds weight/bias/running_mean/running_var; folded by fold_bn.
         self.bn = nn.BatchNorm3d(features, eps=1e-5)
 
-    def forward(self, x, zero_mask, stats_mask=None, padding: int = 0,
+    def forward(self, x, zero_mask=None, stats_mask=None, padding: int = 0,
                 use_kernels: bool = True, explicit_dgrad: bool = False):
+        """(pooled, pooled mask) under masks; pooled alone without them."""
         x = x.permute(0, 4, 1, 2, 3)
         if padding == 0 and explicit_dgrad:
             y = conv3d_valid_explicit_dgrad(x, self.conv.weight)
@@ -85,19 +101,26 @@ class ConvBlock(nn.Module):
             y = F.conv3d(x, self.conv.weight, padding=padding)
         y = y.permute(0, 2, 3, 4, 1).contiguous()
         bn = self.bn
-        zero_mask = zero_mask.to(y.dtype).contiguous()
+        if zero_mask is not None:
+            zero_mask = zero_mask.to(y.dtype).contiguous()
         if stats_mask is not None:
             stats_mask = stats_mask.to(y.dtype).contiguous()
         if self.training:
-            # Two masks: statistics over stats_mask, zeroing over zero_mask.
-            stats = zero_mask if stats_mask is None else stats_mask
-            pooled, mean, var, pooled_mask = masked_bn_relu_pool_train(
-                y, bn.weight, bn.bias, stats, zero_mask, bn.eps, use_kernels
-            )
+            if zero_mask is None:
+                pooled, mean, var = bn_relu_pool_train(y, bn.weight, bn.bias, bn.eps,
+                                                       use_kernels)
+                out = pooled
+            else:
+                # Two masks: statistics over stats_mask, zeroing over zero_mask.
+                stats = zero_mask if stats_mask is None else stats_mask
+                pooled, mean, var, pooled_mask = masked_bn_relu_pool_train(
+                    y, bn.weight, bn.bias, stats, zero_mask, bn.eps, use_kernels
+                )
+                out = pooled, pooled_mask
             with torch.no_grad():
                 bn.running_mean.copy_(_MOMENTUM * bn.running_mean + (1.0 - _MOMENTUM) * mean)
                 bn.running_var.copy_(_MOMENTUM * bn.running_var + (1.0 - _MOMENTUM) * var)
-            return pooled, pooled_mask
+            return out
         mul, add = fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var,
                            bn.eps, y.dtype)
         op = bn_relu_pool if use_kernels else bn_relu_pool_plain
@@ -110,11 +133,12 @@ class VoxelCNNEncoder(nn.Module):
     def __init__(self, voxel_size: int = 64, ef_dim: int = 32, z_dim: int = 512,
                  out_dim: int = 512, compute_dtype=torch.float32, tile_sparse: bool = False,
                  tile_sparse_blocks: int = 2, tile_budget_frac: float = 0.5,
-                 explicit_dgrad: bool = False):
+                 explicit_dgrad: bool = False, masked_bn: bool = True):
         super().__init__()
         if voxel_size % 32:
             raise ValueError(f"voxel_size must be a multiple of 32, got {voxel_size}")
         self.voxel_size = voxel_size
+        self.masked_bn = masked_bn
         self.compute_dtype = compute_dtype
         self.use_kernels = True
         self.tile_sparse = tile_sparse
@@ -139,6 +163,10 @@ class VoxelCNNEncoder(nn.Module):
         (B·tg³,) (windowed); ``voxels`` (B, D, D, D, 3 or 4) float (dense)."""
         if voxels is not None:
             return self._dense_forward(voxels)
+        if not self.masked_bn:
+            # Windowed rows are tile-sparse input: only the masked
+            # (submanifold) semantics makes that restriction exact.
+            raise ValueError("windowed voxel input requires masked_bn=true")
         if windows is not None:
             return self._full_windowed_forward(windows, tile_occ)
         if rows is None or row_ids is None or rows.ndim != 3 or row_ids.ndim != 2:
@@ -199,11 +227,14 @@ class VoxelCNNEncoder(nn.Module):
 
     def _dense_forward(self, voxels):
         """The dense-input plan: sparse blocks on the input's active tiles,
-        then dense masked blocks."""
+        then dense masked blocks; without ``masked_bn``, five dense
+        all-site blocks."""
         D = self.voxel_size
         if voxels.ndim != 5 or voxels.shape[1:4] != (D, D, D):
             raise ValueError(f"expected {D}^3 grids, got {tuple(voxels.shape[1:4])}")
         x = voxels.to(self.compute_dtype)
+        if not self.masked_bn:
+            return self._dense_tail(F.pad(x[..., :3], (0, 1)).contiguous(), None, 0)
         if x.shape[-1] == 4:
             mask = x[..., 3:]
         else:
@@ -231,7 +262,12 @@ class VoxelCNNEncoder(nn.Module):
         return self._dense_tail(x, mask, n_sparse)
 
     def _dense_tail(self, x, mask, dense_from: int):
+        """Dense SAME-conv blocks from ``dense_from`` on, masked unless
+        ``mask`` is None, then the head."""
         for block in self.blocks[dense_from:]:
-            x, mask = block(x, mask, padding=1, use_kernels=self.use_kernels)
+            if mask is None:
+                x = block(x, padding=1, use_kernels=self.use_kernels)
+            else:
+                x, mask = block(x, mask, padding=1, use_kernels=self.use_kernels)
         x = self.head(x.reshape(x.shape[0], -1))
         return l2_normalize(x.float())

@@ -2,13 +2,16 @@
 PyTorch version and a launch counter.
 
 * ``bn_relu_pool`` (K1, ``csrc/bn_relu_pool.cu``) — masked BN → ReLU →
-  zero → MaxPool(2³) + first argmax; replaces ``fused_bn_pool._fwd_kernel``.
+  zero → MaxPool(2³) + first argmax; replaces ``fused_bn_pool._fwd_kernel``;
+  ``bn_relu_pool_unmasked`` is its unmasked (all-site) entry, that
+  kernel's own function.
 * ``scatter_tiles_ps`` / ``scatter_tiles_global`` (K2, ``csrc/tile_scatter.cu``)
   — tile → grid scatter by per-sample or global tile id; replaces
   ``_graveyard/dma_tiles._scatter_kernel``.
 * ``bn_relu_pool_bwd`` (K3, ``csrc/bn_relu_pool_bwd.cu``) — the
   full-resolution dy of the masked BN-ReLU-pool backward; replaces
-  ``fused_bn_pool._dy_kernel``.
+  ``fused_bn_pool._dy_kernel``; ``bn_relu_pool_bwd_unmasked`` is its
+  unmasked entry.
 * ``nt_xent_fwd`` / ``nt_xent_bwd_rows`` / ``nt_xent_bwd_cols`` (K4-K6,
   ``csrc/nt_xent.cu``) — the blocked online-softmax NT-Xent; replace
   ``nt_xent_pallas._fwd_kernel`` / ``_bwd_kernel`` / ``_bwd_cols_kernel``;
@@ -24,10 +27,14 @@ input gradient written as a forward conv) and the tile-sparse helpers of
 """
 
 from .bn_relu_pool import (
+    batch_stats,
     bn_relu_pool,
     bn_relu_pool_bwd,
     bn_relu_pool_bwd_plain,
+    bn_relu_pool_bwd_unmasked,
     bn_relu_pool_plain,
+    bn_relu_pool_train,
+    bn_relu_pool_unmasked,
     fold_bn,
     masked_bn_relu_pool_train,
 )
@@ -68,6 +75,8 @@ KERNELS = (
     nt_xent_bwd,
     gather_tiles,
     scatter_tiles_global,
+    bn_relu_pool_unmasked,
+    bn_relu_pool_bwd_unmasked,
 )
 
 
@@ -82,11 +91,15 @@ def launches() -> dict[str, int]:
 
 __all__ = [
     "KERNELS",
+    "batch_stats",
     "blocked_nt_xent_loss",
     "bn_relu_pool",
     "bn_relu_pool_bwd",
     "bn_relu_pool_bwd_plain",
+    "bn_relu_pool_bwd_unmasked",
     "bn_relu_pool_plain",
+    "bn_relu_pool_train",
+    "bn_relu_pool_unmasked",
     "conv3d_valid_explicit_dgrad",
     "fold_bn",
     "gather_tiles",

@@ -1,4 +1,5 @@
-"""Masked BatchNorm → ReLU → zero → MaxPool(2³): kernels K1 and K3.
+"""BatchNorm → ReLU [→ zero] → MaxPool(2³): kernels K1 and K3, masked and
+unmasked.
 
 ``bn_relu_pool`` (K1) is the voxel encoder's per-block epilogue: BN folded
 to ``y·mul + add``, ReLU, zero, window max (and first argmax). On a CUDA
@@ -6,20 +7,32 @@ tensor it launches the hand-written kernel ``csrc/bn_relu_pool.cu`` (it
 replaces the TPU kernel ``tricolo_tpu/ops/fused_bn_pool.py::_fwd_kernel``)
 or raises; on a CPU tensor it runs ``bn_relu_pool_plain``, the same
 function in plain PyTorch (the torch form of
-``masked_inference_bn_relu_pool2``).
+``masked_inference_bn_relu_pool2``). With ``zero_mask=None`` it is the
+unmasked entry ``bn_relu_pool_unmasked``, the Pallas ``_fwd_kernel``'s own
+function (the torch form of ``inference_bn_relu_pool`` and of
+``fused_bn_relu_pool``'s forward): no mask in, no pooled mask out.
 
 ``bn_relu_pool_bwd`` (K3) is the full-resolution pass of the train-mode
 backward, ``dy = route(ga by idx) + (B + C·ẑ)·stats_mask``: the CUDA kernel
 ``csrc/bn_relu_pool_bwd.cu`` (it replaces ``fused_bn_pool::_dy_kernel``)
 or, on a CPU tensor, ``bn_relu_pool_bwd_plain`` (the torch form of the dy
-line of ``_masked_hybrid2_bwd``). Both kernels repeat their plain
-version's rounding step for step, so each pair agrees bit for bit.
+line of ``_masked_hybrid2_bwd``). With ``stats_mask=None`` it is the
+unmasked entry ``bn_relu_pool_bwd_unmasked`` (the dy line of
+``_hybrid_bwd``). Both kernels repeat their plain version's rounding step
+for step, so each pair agrees bit for bit.
 
-``masked_bn_relu_pool_train`` is the train-mode op, the counterpart of
-``masked_hybrid_bn_relu_pool2`` (two masks) and ``masked_hybrid_bn_relu_pool``
-(one mask): masked f32 batch statistics, K1 with the argmax index, and a
-backward whose pooled-resolution pieces are plain torch (as the JAX
-package leaves them to XLA) around K3.
+``masked_bn_relu_pool_train`` is the masked train-mode op, the counterpart
+of ``masked_hybrid_bn_relu_pool2`` (two masks) and
+``masked_hybrid_bn_relu_pool`` (one mask): masked f32 batch statistics, K1
+with the argmax index, and a backward whose pooled-resolution pieces are
+plain torch (as the JAX package leaves them to XLA) around K3.
+``bn_relu_pool_train`` is the unmasked one, the counterpart of
+``fused_bn_relu_pool`` and ``hybrid_bn_relu_pool``: all-site statistics
+(``batch_stats``, JAX's ``_stats``), K1's unmasked entry with idx, the same
+pooled-resolution pieces with n = N·D·H·W, then K3's unmasked entry. JAX's
+two forms round dy differently in bf16 (the Pallas ``_dy_kernel`` works in
+the input dtype, ``_hybrid_bwd`` in f32 with one cast); the port follows
+the hybrid.
 
 ``fold_bn`` folds statistics into per-channel ``mul``/``add`` exactly as
 the JAX package's ``_muladd`` does: f32 fold, then one cast to the compute
@@ -57,30 +70,42 @@ def _check(y, mul, add, zero_mask, stats_mask):
     if mul.shape != (C,) or add.shape != (C,):
         raise ValueError(f"mul/add must be ({C},), got {tuple(mul.shape)}/{tuple(add.shape)}")
     for name, m in (("zero_mask", zero_mask), ("stats_mask", stats_mask)):
-        if m.shape != (N, D, H, W, 1):
+        if m is not None and m.shape != (N, D, H, W, 1):
             raise ValueError(f"{name} must be {(N, D, H, W, 1)}, got {tuple(m.shape)}")
 
 
-def bn_relu_pool_plain(y, mul, add, zero_mask, stats_mask=None, want_idx=False):
+def bn_relu_pool_plain(y, mul, add, zero_mask=None, stats_mask=None, want_idx=False):
     """Plain PyTorch version: a = relu(y·mul + add)·zero_mask, then the 2³
-    window max of ``a`` and of ``stats_mask`` (and the first argmax)."""
-    stats_mask = zero_mask if stats_mask is None else stats_mask
+    window max of ``a`` and of ``stats_mask`` (and the first argmax):
+    (pooled, pooled_mask[, idx]). ``zero_mask=None`` is the unmasked form,
+    a = relu(y·mul + add): pooled, or (pooled, idx)."""
+    masked = zero_mask is not None
+    if masked:
+        stats_mask = zero_mask if stats_mask is None else stats_mask
+    elif stats_mask is not None:
+        raise ValueError("stats_mask needs a zero_mask")
     _check(y, mul, add, zero_mask, stats_mask)
     N, D, H, W, C = y.shape
-    a = torch.relu(y * mul + add) * zero_mask
+    a = torch.relu(y * mul + add)
+    if masked:
+        a = a * zero_mask
     win = (
         a.reshape(N, D // 2, 2, H // 2, 2, W // 2, 2, C)
         .permute(0, 1, 3, 5, 7, 2, 4, 6)
         .reshape(N, D // 2, H // 2, W // 2, C, 8)
     )
+    if want_idx:
+        # torch.max returns the first maximal index: r = dd·4 + hh·2 + ww.
+        pooled, idx = win.max(dim=-1)
+        extra = (idx.to(torch.uint8),)
+    else:
+        pooled, extra = win.amax(dim=-1), ()
+    if not masked:
+        return (pooled, *extra) if want_idx else pooled
     pooled_mask = stats_mask.reshape(N, D // 2, 2, H // 2, 2, W // 2, 2, 1).amax(
         dim=(2, 4, 6)
     )
-    if not want_idx:
-        return win.amax(dim=-1), pooled_mask
-    # torch.max returns the first maximal index: r = dd·4 + hh·2 + ww.
-    pooled, idx = win.max(dim=-1)
-    return pooled, pooled_mask, idx.to(torch.uint8)
+    return (pooled, pooled_mask, *extra)
 
 
 @functools.cache
@@ -110,48 +135,81 @@ def launch_plan(shape, elem_bytes: int, *tensors) -> int:
     return vec
 
 
-def bn_relu_pool(y, mul, add, zero_mask, stats_mask=None, want_idx=False):
+def _launch_k1(y, mul, add, zero_mask, stats_mask, want_idx):
+    """Check K1's inputs and launch it; masks None for the unmasked entry."""
+    name = "bn_relu_pool" if zero_mask is not None else "bn_relu_pool_unmasked"
+    _check(y, mul, add, zero_mask, stats_mask)
+    if y.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {y.dtype}")
+    for t in (y, mul, add, zero_mask, stats_mask):
+        if t is not None and (t.dtype != y.dtype or t.device != y.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} needs contiguous inputs of y's dtype on y's device")
+    N, D, H, W, C = y.shape
+    vec = launch_plan(y.shape, y.element_size(), y, mul, add)
+    pooled = torch.empty((N, D // 2, H // 2, W // 2, C), dtype=y.dtype, device=y.device)
+    pooled_mask = None
+    if zero_mask is not None:
+        pooled_mask = torch.empty((N, D // 2, H // 2, W // 2, 1), dtype=y.dtype,
+                                  device=y.device)
+    idx = (
+        torch.empty(pooled.shape, dtype=torch.uint8, device=y.device) if want_idx else None
+    )
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    fn = getattr(_lib(), f"bn_relu_pool_{_DTYPES[y.dtype]}")
+    with torch.cuda.device(y.device):
+        status = fn(
+            y.data_ptr(), mul.data_ptr(), add.data_ptr(), ptr(zero_mask), ptr(stats_mask),
+            pooled.data_ptr(), ptr(pooled_mask), ptr(idx),
+            N, D // 2, H // 2, W // 2, C, vec,
+            torch.cuda.current_stream(y.device).cuda_stream,
+        )
+    _build.check(status, name)
+    return pooled, pooled_mask, idx
+
+
+def _on_cuda(y, name):
+    if y.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {y.device}")
+
+
+def bn_relu_pool(y, mul, add, zero_mask=None, stats_mask=None, want_idx=False):
     """(pooled, pooled_mask[, idx]) of masked BN-ReLU-pool; K1 on CUDA.
 
     y (N, D, H, W, C) channels-last, bf16 or f32, D/H/W even; mul/add (C,)
     and masks (N, D, H, W, 1) in y's dtype; ``stats_mask=None`` means
     ``zero_mask``. idx is uint8, the first max in scan order.
+    ``zero_mask=None`` runs the unmasked entry, ``bn_relu_pool_unmasked``.
     """
+    if zero_mask is None:
+        if stats_mask is not None:
+            raise ValueError("stats_mask needs a zero_mask")
+        return bn_relu_pool_unmasked(y, mul, add, want_idx)
     if y.device.type == "cpu":
         return bn_relu_pool_plain(y, mul, add, zero_mask, stats_mask, want_idx)
-    if y.device.type != "cuda":
-        raise ValueError(f"bn_relu_pool runs on cuda or cpu tensors, got {y.device}")
+    _on_cuda(y, "bn_relu_pool")
     stats_mask = zero_mask if stats_mask is None else stats_mask
-    _check(y, mul, add, zero_mask, stats_mask)
-    if y.dtype not in _DTYPES:
-        raise TypeError(f"bn_relu_pool takes float32 or bfloat16, got {y.dtype}")
-    for t in (y, mul, add, zero_mask, stats_mask):
-        if t.dtype != y.dtype or t.device != y.device or not t.is_contiguous():
-            raise ValueError(
-                "bn_relu_pool needs contiguous inputs of y's dtype on y's device"
-            )
-    N, D, H, W, C = y.shape
-    vec = launch_plan(y.shape, y.element_size(), y, mul, add)
-    pooled = torch.empty((N, D // 2, H // 2, W // 2, C), dtype=y.dtype, device=y.device)
-    pooled_mask = torch.empty((N, D // 2, H // 2, W // 2, 1), dtype=y.dtype, device=y.device)
-    idx = (
-        torch.empty(pooled.shape, dtype=torch.uint8, device=y.device) if want_idx else None
-    )
-    fn = getattr(_lib(), f"bn_relu_pool_{_DTYPES[y.dtype]}")
-    with torch.cuda.device(y.device):
-        status = fn(
-            y.data_ptr(), mul.data_ptr(), add.data_ptr(), zero_mask.data_ptr(),
-            stats_mask.data_ptr(), pooled.data_ptr(), pooled_mask.data_ptr(),
-            idx.data_ptr() if want_idx else None,
-            N, D // 2, H // 2, W // 2, C, vec,
-            torch.cuda.current_stream(y.device).cuda_stream,
-        )
-    _build.check(status, "bn_relu_pool")
+    pooled, pooled_mask, idx = _launch_k1(y, mul, add, zero_mask, stats_mask, want_idx)
     bn_relu_pool.launches += 1
     return (pooled, pooled_mask, idx) if want_idx else (pooled, pooled_mask)
 
 
 bn_relu_pool.launches = 0
+
+
+def bn_relu_pool_unmasked(y, mul, add, want_idx=False):
+    """pooled (or (pooled, idx)) of all-site BN-ReLU-pool, relu(y·mul +
+    add) then the 2³ window max: K1's unmasked entry on CUDA, the Pallas
+    ``_fwd_kernel``'s function. Inputs as for ``bn_relu_pool``."""
+    if y.device.type == "cpu":
+        return bn_relu_pool_plain(y, mul, add, want_idx=want_idx)
+    _on_cuda(y, "bn_relu_pool_unmasked")
+    pooled, _, idx = _launch_k1(y, mul, add, None, None, want_idx)
+    bn_relu_pool_unmasked.launches += 1
+    return (pooled, idx) if want_idx else pooled
+
+
+bn_relu_pool_unmasked.launches = 0
 
 
 # ------------------------------------------------------------------ K3
@@ -164,7 +222,7 @@ def _check_bwd(y, ga, idx, stats_mask, vectors):
     pooled = (N, D // 2, H // 2, W // 2, C)
     if ga.shape != pooled or idx.shape != pooled:
         raise ValueError(f"ga/idx must be {pooled}, got {tuple(ga.shape)}/{tuple(idx.shape)}")
-    if stats_mask.shape != (N, D, H, W, 1):
+    if stats_mask is not None and stats_mask.shape != (N, D, H, W, 1):
         raise ValueError(f"stats_mask must be {(N, D, H, W, 1)}, got {tuple(stats_mask.shape)}")
     for v in vectors:
         if v.shape != (C,):
@@ -175,7 +233,8 @@ def bn_relu_pool_bwd_plain(y, ga, idx, stats_mask, bcoef, ccoef, invstd, sub):
     """Plain PyTorch version: ``ga`` routed to each window's member ``idx``
     (a one-hot over the 8 members), plus ``(bcoef + ccoef·ẑ)·stats_mask``
     with ``ẑ = y·invstd − sub``, in f32, one cast to y's dtype. The f32
-    work runs in place on one scratch tensor (same rounding per op)."""
+    work runs in place on one scratch tensor (same rounding per op).
+    ``stats_mask=None`` is the unmasked form: no mask product."""
     _check_bwd(y, ga, idx, stats_mask, (bcoef, ccoef, invstd, sub))
     N, D, H, W, C = y.shape
     members = torch.arange(8, device=y.device, dtype=torch.uint8)
@@ -188,7 +247,8 @@ def bn_relu_pool_bwd_plain(y, ga, idx, stats_mask, bcoef, ccoef, invstd, sub):
     t = y.to(torch.float32, copy=True)
     t.mul_(invstd).sub_(sub)
     t.mul_(ccoef).add_(bcoef)
-    t.mul_(stats_mask)
+    if stats_mask is not None:
+        t.mul_(stats_mask)
     t.add_(routed)
     return t.to(y.dtype)
 
@@ -204,28 +264,20 @@ def _lib_bwd():
     return lib
 
 
-def bn_relu_pool_bwd(y, ga, idx, stats_mask, bcoef, ccoef, invstd, sub):
-    """Full-resolution dy of the masked BN → ReLU → pool backward; K3 on CUDA.
-
-    y (N, D, H, W, C) bf16 or f32; ga (pooled shape) and stats_mask
-    (N, D, H, W, 1) in y's dtype; idx (pooled shape) uint8 from K1;
-    bcoef/ccoef/invstd/sub (C,) f32. Returns dy in y's dtype.
-    """
-    if y.device.type == "cpu":
-        return bn_relu_pool_bwd_plain(y, ga, idx, stats_mask, bcoef, ccoef, invstd, sub)
-    if y.device.type != "cuda":
-        raise ValueError(f"bn_relu_pool_bwd runs on cuda or cpu tensors, got {y.device}")
-    vectors = (bcoef, ccoef, invstd, sub)
+def _launch_k3(y, ga, idx, stats_mask, vectors, name):
+    """Check K3's inputs and launch it; ``stats_mask=None`` for the unmasked
+    entry."""
     _check_bwd(y, ga, idx, stats_mask, vectors)
     if y.dtype not in _DTYPES:
-        raise TypeError(f"bn_relu_pool_bwd takes float32 or bfloat16, got {y.dtype}")
-    if ga.dtype != y.dtype or stats_mask.dtype != y.dtype or idx.dtype != torch.uint8:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {y.dtype}")
+    if ga.dtype != y.dtype or (stats_mask is not None and stats_mask.dtype != y.dtype) \
+            or idx.dtype != torch.uint8:
         raise TypeError("ga and stats_mask must have y's dtype, idx must be uint8")
     if any(v.dtype != torch.float32 for v in vectors):
         raise TypeError("bcoef/ccoef/invstd/sub must be float32")
     for t in (y, ga, idx, stats_mask, *vectors):
-        if t.device != y.device or not t.is_contiguous():
-            raise ValueError("bn_relu_pool_bwd needs contiguous inputs on y's device")
+        if t is not None and (t.device != y.device or not t.is_contiguous()):
+            raise ValueError(f"{name} needs contiguous inputs on y's device")
     N, D, H, W, C = y.shape
     dy = torch.empty_like(y)
     vec4 = C % 4 == 0 and all(
@@ -234,17 +286,52 @@ def bn_relu_pool_bwd(y, ga, idx, stats_mask, bcoef, ccoef, invstd, sub):
     fn = getattr(_lib_bwd(), f"bn_relu_pool_bwd_{_DTYPES[y.dtype]}")
     with torch.cuda.device(y.device):
         status = fn(
-            y.data_ptr(), ga.data_ptr(), idx.data_ptr(), stats_mask.data_ptr(),
-            bcoef.data_ptr(), ccoef.data_ptr(), invstd.data_ptr(), sub.data_ptr(),
+            y.data_ptr(), ga.data_ptr(), idx.data_ptr(),
+            None if stats_mask is None else stats_mask.data_ptr(),
+            *(v.data_ptr() for v in vectors),
             dy.data_ptr(), N, D, H, W, C, int(vec4),
             torch.cuda.current_stream(y.device).cuda_stream,
         )
-    _build.check(status, "bn_relu_pool_bwd")
+    _build.check(status, name)
+    return dy
+
+
+def bn_relu_pool_bwd(y, ga, idx, stats_mask, bcoef, ccoef, invstd, sub):
+    """Full-resolution dy of the masked BN → ReLU → pool backward; K3 on CUDA.
+
+    y (N, D, H, W, C) bf16 or f32; ga (pooled shape) and stats_mask
+    (N, D, H, W, 1) in y's dtype; idx (pooled shape) uint8 from K1;
+    bcoef/ccoef/invstd/sub (C,) f32. Returns dy in y's dtype.
+    ``stats_mask=None`` runs the unmasked entry, ``bn_relu_pool_bwd_unmasked``.
+    """
+    if stats_mask is None:
+        return bn_relu_pool_bwd_unmasked(y, ga, idx, bcoef, ccoef, invstd, sub)
+    if y.device.type == "cpu":
+        return bn_relu_pool_bwd_plain(y, ga, idx, stats_mask, bcoef, ccoef, invstd, sub)
+    _on_cuda(y, "bn_relu_pool_bwd")
+    dy = _launch_k3(y, ga, idx, stats_mask, (bcoef, ccoef, invstd, sub), "bn_relu_pool_bwd")
     bn_relu_pool_bwd.launches += 1
     return dy
 
 
 bn_relu_pool_bwd.launches = 0
+
+
+def bn_relu_pool_bwd_unmasked(y, ga, idx, bcoef, ccoef, invstd, sub):
+    """Full-resolution dy of the all-site BN → ReLU → pool backward,
+    ``route(ga by idx) + bcoef + ccoef·ẑ``: K3's unmasked entry on CUDA, the
+    Pallas ``_dy_kernel``'s function (rounded as ``_hybrid_bwd``). Inputs as
+    for ``bn_relu_pool_bwd``."""
+    if y.device.type == "cpu":
+        return bn_relu_pool_bwd_plain(y, ga, idx, None, bcoef, ccoef, invstd, sub)
+    _on_cuda(y, "bn_relu_pool_bwd_unmasked")
+    dy = _launch_k3(y, ga, idx, None, (bcoef, ccoef, invstd, sub),
+                    "bn_relu_pool_bwd_unmasked")
+    bn_relu_pool_bwd_unmasked.launches += 1
+    return dy
+
+
+bn_relu_pool_bwd_unmasked.launches = 0
 
 
 # ------------------------------------------------------- train-mode op
@@ -268,6 +355,53 @@ def masked_stats(y, stats_mask, eps: float):
     return mean, var, torch.rsqrt(var + eps), count
 
 
+_SLAB_ELEMS = 1 << 26  # f32 elements batch_stats widens at once (256 MB)
+
+
+def batch_stats(y, eps: float):
+    """(mean, var, invstd) over every site in f32 — the JAX package's
+    ``_stats``: mean of y, the biased variance E[y²] − mean² clipped at 0,
+    rsqrt(var + eps). y is widened and squared in f32 one slab of the batch
+    at a time, so no whole f32 copy of y exists (4.3 GB at the flagship's
+    block 1)."""
+    n = y.numel() // y.shape[-1]
+    per_sample = max(1, y[0].numel())
+    total = torch.zeros(y.shape[-1], dtype=torch.float32, device=y.device)
+    total_sq = torch.zeros_like(total)
+    for slab in y.split(max(1, _SLAB_ELEMS // per_sample)):
+        s = slab.to(torch.float32, copy=True)
+        total += s.sum(dim=_SITE_DIMS)
+        total_sq += s.mul_(s).sum(dim=_SITE_DIMS)
+        del s
+    mean = total / n
+    var = torch.clamp(total_sq / n - mean.square(), min=0.0)
+    return mean, var, torch.rsqrt(var + eps)
+
+
+def _pooled_pieces(g_out, g_mean, g_var, pooled, scale, bias, invstd, count, dtype):
+    """The backward's pooled-resolution pieces (``_bwd_pieces`` /
+    ``_hybrid_bwd``): dγ, dβ from the argmax record — a live pooled cell's
+    argmax site is relu-positive (and unmasked), where m = γ·ẑ + β — the
+    routed cotangent ga = A·g·[m > 0] in ``dtype``, and the f32 per-channel
+    B and C of dy = route(ga) + B + C·ẑ, over ``count`` sites."""
+    g32 = g_out.float() * (pooled > 0)
+    scale32 = scale.float()
+    safe = torch.where(scale32 == 0.0, 1.0, scale32)
+    zmax = (pooled.float() - bias.float()) / safe
+    zmax = torch.where(scale32 == 0.0, 0.0, zmax)
+    dbeta = g32.sum(dim=_SITE_DIMS)
+    dgamma = (g32 * zmax).sum(dim=_SITE_DIMS)
+    a32 = scale32 * invstd
+    b32 = -a32 * dbeta / count
+    c32 = -a32 * dgamma / count
+    if g_mean is not None:
+        b32 = b32 + g_mean / count
+    if g_var is not None:
+        c32 = c32 + 2.0 * g_var / (count * invstd)
+    ga = (g32 * a32).to(dtype).contiguous()
+    return dgamma, dbeta, ga, b32.contiguous(), c32.contiguous()
+
+
 class _MaskedBNReLUPoolTrain(torch.autograd.Function):
     """Forward: masked statistics → fold → K1 (with argmax). Backward: the
     pooled-resolution pieces of ``_masked_hybrid2_bwd`` in plain torch, then
@@ -288,26 +422,11 @@ class _MaskedBNReLUPoolTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, g_mean, g_var, _g_pmask):
         y, idx, pooled, stats_mask, scale, bias, mean, invstd, count = ctx.saved_tensors
-        # Pooled-resolution BN parameter grads: a live pooled cell's argmax
-        # site is unmasked and relu-positive, where m = γ·ẑ + β.
-        g32 = g_out.float() * (pooled > 0)
-        scale32 = scale.float()
-        safe = torch.where(scale32 == 0.0, 1.0, scale32)
-        zmax = (pooled.float() - bias.float()) / safe
-        zmax = torch.where(scale32 == 0.0, 0.0, zmax)
-        dbeta = g32.sum(dim=_SITE_DIMS)
-        dgamma = (g32 * zmax).sum(dim=_SITE_DIMS)
-        a32 = scale32 * invstd
-        b32 = -a32 * dbeta / count
-        c32 = -a32 * dgamma / count
-        if g_mean is not None:
-            b32 = b32 + g_mean / count
-        if g_var is not None:
-            c32 = c32 + 2.0 * g_var / (count * invstd)
-        ga = (g32 * a32).to(y.dtype).contiguous()
+        dgamma, dbeta, ga, b32, c32 = _pooled_pieces(
+            g_out, g_mean, g_var, pooled, scale, bias, invstd, count, y.dtype)
         bwd = bn_relu_pool_bwd if ctx.use_kernels else bn_relu_pool_bwd_plain
-        dy = bwd(y, ga, idx, stats_mask, b32.contiguous(), c32.contiguous(),
-                 invstd.contiguous(), (mean * invstd).contiguous())
+        dy = bwd(y, ga, idx, stats_mask, b32, c32, invstd.contiguous(),
+                 (mean * invstd).contiguous())
         return dy, dgamma.to(scale.dtype), dbeta.to(bias.dtype), None, None, None, None
 
 
@@ -326,3 +445,46 @@ def masked_bn_relu_pool_train(y, scale, bias, stats_mask, zero_mask=None, eps: f
     _check(y, scale, bias, zero_mask, stats_mask)
     return _MaskedBNReLUPoolTrain.apply(y, scale, bias, stats_mask, zero_mask, eps,
                                         use_kernels)
+
+
+class _BNReLUPoolTrain(torch.autograd.Function):
+    """Forward: all-site statistics → fold → K1's unmasked entry (with
+    argmax), as ``fused_bn_relu_pool``'s ``_fwd``. Backward: the
+    pooled-resolution pieces over n = N·D·H·W sites in plain torch, then
+    K3's unmasked entry. Saves y, idx, pooled and the f32 statistics."""
+
+    @staticmethod
+    def forward(ctx, y, scale, bias, eps, use_kernels):
+        mean, var, invstd = batch_stats(y, eps)
+        mul, add = fold_bn(scale, bias, mean, var, eps, y.dtype)
+        fwd = bn_relu_pool_unmasked if use_kernels else bn_relu_pool_plain
+        pooled, idx = fwd(y, mul, add, want_idx=True)
+        ctx.save_for_backward(y, idx, pooled, scale, bias, mean, invstd)
+        ctx.count = float(y.numel() // y.shape[-1])
+        ctx.use_kernels = use_kernels
+        return pooled, mean, var
+
+    @staticmethod
+    def backward(ctx, g_out, g_mean, g_var):
+        y, idx, pooled, scale, bias, mean, invstd = ctx.saved_tensors
+        dgamma, dbeta, ga, b32, c32 = _pooled_pieces(
+            g_out, g_mean, g_var, pooled, scale, bias, invstd, ctx.count, y.dtype)
+        vectors = (b32, c32, invstd.contiguous(), (mean * invstd).contiguous())
+        if ctx.use_kernels:
+            dy = bn_relu_pool_bwd_unmasked(y, ga, idx, *vectors)
+        else:
+            dy = bn_relu_pool_bwd_plain(y, ga, idx, None, *vectors)
+        return dy, dgamma.to(scale.dtype), dbeta.to(bias.dtype), None, None
+
+
+def bn_relu_pool_train(y, scale, bias, eps: float = 1e-5, use_kernels: bool = True):
+    """Train-mode all-site BN (batch statistics) → ReLU → MaxPool(2³), the
+    counterpart of ``fused_bn_relu_pool`` / ``hybrid_bn_relu_pool``.
+
+    y (N, D, H, W, C) bf16 or f32 channels-last; scale/bias (C,) f32.
+    Returns (pooled, mean, var) with f32 mean and biased var over every
+    site. Differentiable in y, scale and bias (and through mean and var).
+    ``use_kernels=False`` runs the kernels' plain versions on any device.
+    """
+    _check(y, scale, bias, None, None)
+    return _BNReLUPoolTrain.apply(y, scale, bias, eps, use_kernels)

@@ -35,7 +35,7 @@ Phases (any failure exits non-zero and prints no result line):
    batch 128, bf16), four token queries and one image query, with the
    kernels' launch counts taken over exactly this phase; every array that
    reaches ``to_device_batch`` comes from pinned memory and every batch
-   through the C++ windowed_compact sweep (so in phases 7 and 10d); the
+   through the C++ windowed_compact sweep (so in phases 7, 10d and 10f); the
    build's wall split by part, through the prefetching loader;
 5. serving plain path — the same index in f32 (TF32 off) through the
    kernels and through their plain versions; the two must agree to 1e-5;
@@ -93,6 +93,20 @@ Phases (any failure exits non-zero and prints no result line):
     forward 3, two-term backward 6, every other kernel 0; finite losses,
     CUDA-event step median, peak memory), the f32 step kernel-vs-plain with
     phase 9's tolerances, a profiled step;
+10f. the CLIP flagship — Tri(CLIP-I+V): ``model.text_encoder=CLIPTextEncoder
+    model.image_encoder=CLIPImageEncoder`` at the flagship widths (CLIP heads
+    768 → 512 → 512, dropout 0.1, over the synthetic split's seeded 768-d
+    features; the voxel encoder of phase 7), bf16, random weights: the
+    synthetic-256 index with launches per batch exactly K1 5 and K2 2
+    (every other kernel 0), four token queries through a stub CLIP text
+    backend (a fixed seeded projection of the 77 token ids), the f32 index
+    kernel-vs-plain (1e-5), ``Trainer.fit`` for one epoch (6 steps; a step
+    exactly K1 5, K2 2, K3 5, pair forward 3, two-term backward 6, K4/K5/K6
+    alone 0; finite losses, CUDA-event step median, peak memory), the fit's
+    best checkpoint served through ``RetrievalServer.from_checkpoint``, the
+    f32 step kernel-vs-plain from one dropout generator seed with phase 9's
+    tolerances, and a profiled step; its index build and fit also require
+    pinned copies and one C++ sweep a batch;
 11. host path — the host loader (``csrc/host_loader.cpp``) built with g++
     on the card's host; its four sweeps (windowed_compact halo 3, windowed
     halo 1 and 3, dense, and the RGBA packing of each sample's grid)
@@ -745,13 +759,13 @@ def timed_step(torch, step, rows):
     of every call go to ``rows``."""
     from tricolo_tpu_torch import ops
 
-    def wrapped(batch, lr):
+    def wrapped(batch, lr, *args):
         before = ops.launches()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         tic = time.perf_counter()
         start.record()
-        losses = step(batch, lr)
+        losses = step(batch, lr, *args)
         end.record()
         end.synchronize()
         wall_ms = (time.perf_counter() - tic) * 1e3
@@ -766,9 +780,11 @@ def timed_step(torch, step, rows):
 
 def train_plain_compare(torch, cfg, batch) -> dict:
     """One f32 train step from the same state through the kernels and
-    through their plain versions (TF32 off, deterministic cuDNN)."""
+    through their plain versions (TF32 off, deterministic cuDNN), each
+    drawing its dropout masks (the CLIP heads') from a generator of the
+    same seed."""
     from tricolo_tpu_torch.models.tricolo_net import TriCoLoNet
-    from tricolo_tpu_torch.training import make_optimizer, make_train_step
+    from tricolo_tpu_torch.training import dropout_generator, make_optimizer, make_train_step
 
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
@@ -780,7 +796,7 @@ def train_plain_compare(torch, cfg, batch) -> dict:
         model.load_state_dict(state0)
         model.voxel_encoder.use_kernels = use_kernels
         step = make_train_step(model, make_optimizer(cfg, model), cfg, use_kernels=use_kernels)
-        losses = step(batch, cfg.optimizer.lr)
+        losses = step(batch, cfg.optimizer.lr, dropout_generator(cfg.train_seed, 0, "cuda"))
         runs[use_kernels] = (
             {k: v.item() for k, v in losses.items()},
             {n: p.grad.detach().clone() for n, p in model.named_parameters()},
@@ -1400,6 +1416,176 @@ def unmasked_flagship(torch, card) -> tuple[dict, dict]:
     return out, {"unmasked_serving": serve_launches, "unmasked_train": fit_launches}
 
 
+# -------------------------------------------------------------- phase 10f
+
+# The CLIP flagship, Tri(CLIP-I+V): the CLIP text and image heads (768 →
+# 512 → 512, dropout 0.1: two nn.Linear each, cuBLAS) over the synthetic
+# split's seeded 768-d features, and the voxel encoder of phase 7
+# (windowed_compact, masked BN). The kernels on its path are the voxel
+# encoder's (K1, K2 per-sample, K3) and the loss's (3 pairs).
+CLIP = ["model.text_encoder=CLIPTextEncoder", "model.image_encoder=CLIPImageEncoder"]
+CLIP_EVAL_LAUNCHES = dict(dict.fromkeys(TRAIN_LAUNCHES, 0), bn_relu_pool=5, scatter_tiles_ps=2)
+CLIP_TRAIN_LAUNCHES = TRAIN_LAUNCHES
+
+
+class StubClipBackend:
+    """Stands in for a local CLIP checkpoint (none ships): a fixed seeded
+    projection of the 77 CLIP token ids (/ 1000) to 768 dimensions."""
+
+    def __init__(self, seed: int):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        self.projection = (rng.standard_normal((77, 768)) / np.sqrt(77)).astype(np.float32)
+
+    def encode_text(self, tokens):
+        import numpy as np
+
+        return (np.asarray(tokens, np.float32) / 1000.0) @ self.projection
+
+
+def clip_flagship(torch, card) -> tuple[dict, dict]:
+    """Tri(CLIP-I+V) at the flagship widths (bf16, random weights from the
+    seed): the synthetic-256 index with launches per batch and four token
+    queries through the stub backend, the f32 index through the kernels
+    against the plain path, one epoch through ``Trainer.fit`` with launches
+    per step, the fit's best checkpoint served, the f32 train step
+    kernel-vs-plain from one dropout seed, and a profiled step. Returns
+    (report, launches of the index build and of the fit)."""
+    import numpy as np
+
+    from tricolo_tpu_torch import ops
+    from tricolo_tpu_torch.config import load_config
+    from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch.inference import to_device_batch
+    from tricolo_tpu_torch.models.clip_heads import CLIPImageEncoder, CLIPTextEncoder
+    from tricolo_tpu_torch.models.tricolo_net import TriCoLoNet
+    from tricolo_tpu_torch.serving import RetrievalServer
+    from tricolo_tpu_torch.training import Trainer, dropout_generator
+
+    out: dict = {}
+    backend = StubClipBackend(SEED)
+    cfg = load_config(FLAGSHIP + CLIP)
+    cfg.experiment_name = "chip_smoke"
+    dm = DataModule(cfg)
+    dm.setup("test")
+    torch.manual_seed(SEED)
+    model = TriCoLoNet.from_config(cfg)
+    require(isinstance(model.text_encoder, CLIPTextEncoder)
+            and isinstance(model.image_encoder, CLIPImageEncoder), "CLIP heads not built")
+    server = RetrievalServer(cfg, model, clip_backend=backend)  # device: cuda
+    n_batches = len(dm.test_loader())
+    ops.reset_launches()
+    reset_host_counts()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    index = server.build_index(dm)
+    torch.cuda.synchronize()
+    out["index_build_s"] = time.perf_counter() - tic
+    out["launches"] = serve_launches = ops.launches()
+    out["host_path"] = check_host_path("CLIP index build", n_batches)
+    want = {name: n * n_batches for name, n in CLIP_EVAL_LAUNCHES.items()}
+    require(serve_launches == want, f"CLIP index launches {serve_launches} != {want}")
+    require(index.matrix.shape == (256, cfg.model.out_dim), f"CLIP index {index.matrix.shape}")
+    require(bool(np.isfinite(index.matrix).all()), "CLIP index non-finite")
+    log(f"CLIP index: {index.matrix.shape} in {out['index_build_s']:.3f} s over {n_batches} "
+        f"batches; launches {serve_launches} [{card}]")
+    queries = [dm.val_set[i]["tokens"] for i in (0, 3, 100, 500)]
+    tic = time.perf_counter()
+    answers = [server.query(tokens=q, k=5) for q in queries]
+    out["token_queries_s"] = time.perf_counter() - tic
+    for q, a in zip(queries, answers):
+        require(len(a) == 5 and all(np.isfinite(s) for _, s in a), "bad CLIP text answer")
+        log(f"  CLIP query {q[q != 0][:6].tolist()}...: {[m for m, _ in a]}")
+    out["topk"] = [[m for m, _ in a] for a in answers]
+    log(f"CLIP queries: 4 token queries in {out['token_queries_s']:.3f} s [{card}]")
+    bf16_matrix = index.matrix.copy()
+
+    model.set_compute_dtype(torch.float32)  # TF32 is off since phase 5
+    kernel32 = server.build_index(dm).matrix.copy()
+    model.voxel_encoder.use_kernels = False
+    plain32 = server.build_index(dm).matrix.copy()
+    model.voxel_encoder.use_kernels = True
+    out["plain_vs_kernel_f32_max_abs"] = dev = float(np.abs(kernel32 - plain32).max())
+    out["bf16_vs_f32_max_abs"] = float(np.abs(bf16_matrix - kernel32).max())
+    require(dev <= F32_TOL, f"CLIP f32 kernel vs plain path: {dev} > {F32_TOL}")
+    log(f"CLIP f32: kernel vs plain max |d| = {dev} (tol {F32_TOL}); bf16 vs f32 "
+        f"{out['bf16_vs_f32_max_abs']}")
+    del server, model, index
+    torch.cuda.empty_cache()
+
+    train_cfg = load_config(FLAGSHIP + CLIP + TRAIN + ["experiment_name=chip_smoke_clip"])
+    trainer = Trainer(train_cfg)  # device: cuda
+    steps: list = []
+    step = trainer.train_step
+    trainer.train_step = timed_step(torch, step, steps)
+    train_dm = DataModule(train_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    reset_host_counts()
+    tic = time.perf_counter()
+    ckpt = trainer.fit(train_dm).best_path
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - tic
+    fit_launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    host = check_host_path("CLIP train fit", 12)  # 6 train batches, 6 validation
+    require(len(steps) == 6, f"one CLIP epoch ran {len(steps)} steps, not 6")
+    for i, row in enumerate(steps):
+        require(all(np.isfinite(v) for v in row["losses"].values()),
+                f"CLIP train step {i}: non-finite losses {row['losses']}")
+        require(row["launches"] == CLIP_TRAIN_LAUNCHES,
+                f"CLIP train step {i}: launches {row['launches']} != {CLIP_TRAIN_LAUNCHES}")
+        log(f"  CLIP train step {i}: {row['ms']:.3f} ms (wall {row['wall_ms']:.3f} ms) losses "
+            + " ".join(f"{k}={v:.5f}" for k, v in row["losses"].items()))
+    step_ms = statistics.median(r["ms"] for r in steps[1:])
+    out["train"] = {"steps": steps, "step_ms_median_2_6": step_ms,
+                    "step_wall_ms_median_2_6": statistics.median(r["wall_ms"] for r in steps[1:]),
+                    "pairs_per_s": train_cfg.data.batch_size / (step_ms / 1e3), "peak_gib": peak,
+                    "launches_fit": fit_launches, "fit_s": fit_s, "host_path": host,
+                    "val_rr5": trainer.metrics.summary("")["RR@5"]}
+    log(f"CLIP train: 6 steps, median step (2-6) {step_ms:.3f} ms = "
+        f"{out['train']['pairs_per_s']:.1f} pairs/s, peak {peak:.2f} GiB, launches/step "
+        f"{steps[-1]['launches']}, fit {fit_s:.1f} s [{card}]")
+
+    tic = time.perf_counter()
+    trained = RetrievalServer.from_checkpoint(train_cfg, ckpt, clip_backend=backend)
+    trained_index = trained.build_index(train_dm)
+    answer = trained.query(tokens=queries[0], k=5)
+    out["trained_index_s"] = time.perf_counter() - tic
+    require(trained_index.matrix.shape == (256, train_cfg.model.out_dim), "trained CLIP index")
+    require(bool(np.isfinite(trained_index.matrix).all()), "trained CLIP index non-finite")
+    require(len(answer) == 5 and all(np.isfinite(s) for _, s in answer), "trained CLIP query")
+    log(f"trained CLIP checkpoint {Path(ckpt).name} serves: index {trained_index.matrix.shape}, "
+        f"query -> {[m for m, _ in answer]}")
+    del trained, trained_index
+
+    batch = to_device_batch(next(iter(train_dm.train_loader())), torch.device("cuda"))
+    cfg32 = load_config(FLAGSHIP + CLIP + TRAIN + ["precision.compute_dtype=float32"])
+    out["train_plain_compare"] = cmp = train_plain_compare(torch, cfg32, batch)
+    log(f"CLIP train plain path (f32, TF32 off, deterministic, one dropout seed): losses rel "
+        f"{cmp['loss_rel']:.3g} (tol {TRAIN_LOSS_RTOL}), grads rel-of-max "
+        f"{cmp['grad_rel_of_max']:.3g} (tol {TRAIN_GRAD_TOL}), running_var |d| "
+        f"{cmp['running_var_abs']:.3g} (tol {TRAIN_VAR_TOL})")
+    torch.cuda.empty_cache()
+    lr = train_cfg.optimizer.lr
+
+    def seeded_step(b, rate):
+        return step(b, rate, dropout_generator(train_cfg.train_seed, trainer.step, "cuda"))
+
+    seeded_step(batch, lr)  # warm the bf16 path after the f32 phase
+    out["profile"] = prof = profile_step(torch, seeded_step, batch, lr)
+    log(f"profiled CLIP train step: device busy {prof['device_busy_ms']} ms of "
+        f"{prof['wall_ms']:.3f} ms wall, idle share {prof['device_idle_share']}, port kernels "
+        f"{prof['port_kernels_ms']} [{card}]")
+    for row in prof["top"][:10]:
+        log(f"    {row['device_ms']:9.3f} ms x{row['count']:<4d} {row['name'][:90]}")
+    del trainer, step, batch
+    torch.cuda.empty_cache()
+    return out, {"clip_serving": serve_launches, "clip_train": fit_launches}
+
+
 # -------------------------------------------------------------- phase 11
 
 # The structured quality run's configuration (python -m
@@ -1875,10 +2061,19 @@ def main() -> int:
     report["unmasked"], unmasked_paths = unmasked_flagship(torch, card)
     walls["unmasked_s"] = time.perf_counter() - tic
 
+    # 10f. the CLIP flagship, Tri(CLIP-I+V): index and token queries through
+    # the stub backend, f32 kernel vs plain, one epoch through Trainer.fit,
+    # the checkpoint served, the f32 step from one dropout seed, a profile.
+    tic = time.perf_counter()
+    report["clip"], clip_paths = clip_flagship(torch, card)
+    walls["clip_s"] = time.perf_counter() - tic
+
     # 11. the host path: the C++ sweeps against numpy, bit-exact, timed
     tic = time.perf_counter()
     report["host_path"] = host = host_path(torch, card, dm)
-    host["pinned_paths"] = {**host_checks, "lifecycle": report["lifecycle"]["host_path"]}
+    host["pinned_paths"] = {**host_checks, "lifecycle": report["lifecycle"]["host_path"],
+                            "clip_serving": report["clip"]["host_path"],
+                            "clip_train": report["clip"]["train"]["host_path"]}
     walls["host_path_s"] = time.perf_counter() - tic
     log("host path: to_device_batch copies (pinned, pageable) "
         + ", ".join(f"{path} {c['copies']['pinned']}/{c['copies']['pageable']}"
@@ -1890,7 +2085,8 @@ def main() -> int:
 
     paths = {"serving": launches, "train": train_launches,
              "dense_serving": report["dense_serving"]["launches"],
-             "dense_train": dense_train["launches_fit"], **lifecycle_paths, **unmasked_paths}
+             "dense_train": dense_train["launches_fit"], **lifecycle_paths, **unmasked_paths,
+             **clip_paths}
 
     def both(name):
         return {path: counts[name] for path, counts in paths.items()}

@@ -294,3 +294,28 @@ def test_pinned_batches_copy_non_blocking():
         for key in a:
             assert torch.equal(a[key], b[key])
     assert to_device_batch.copies["pinned"] == to_device_batch.copies["pageable"] > 0
+
+
+@pytest.mark.cuda
+def test_clip_fields_reach_the_card_pinned():
+    """On a card: a ``pin_memory`` loader's CLIP fields are page-locked and
+    reach the device by ``non_blocking`` copies, equal to the pageable ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: pinned memory is CUDA's")
+    from tricolo_tpu_torch.config import load_config
+    from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch.inference import to_device_batch
+
+    dm = DataModule(load_config([
+        "data=synthetic", "data.batch_size=2", "data.num_models=5",
+        "model.voxel_encoder=VoxelCNNEncoder", "model.text_encoder=CLIPTextEncoder",
+        "model.image_encoder=CLIPImageEncoder"]))
+    dm.setup("test")
+    to_device_batch.copies.update(pinned=0, pageable=0)
+    keys = ("clip_embeddings_img", "clip_embeddings_text")
+    for pinned, plain in zip(dm.test_loader(pin_memory=True), dm.test_loader()):
+        assert all(pinned[k].is_pinned() for k in keys)
+        a = to_device_batch(pinned, torch.device("cuda"))
+        b = to_device_batch(plain, torch.device("cuda"))
+        assert all(torch.equal(a[k], b[k]) and a[k].is_cuda for k in keys)
+    assert to_device_batch.copies["pinned"] == to_device_batch.copies["pageable"] > 0

@@ -105,9 +105,9 @@ def run_one(mode: str, seed: int, epochs: int, models: int, out_root: str,
     step_ms: list[float] = []
     step = trainer.train_step
 
-    def timed(batch, lr):
+    def timed(batch, lr, *args):
         tic = time.perf_counter()
-        losses = step(batch, lr)
+        losses = step(batch, lr, *args)
         if trainer.device.type == "cuda":
             torch.cuda.synchronize(trainer.device)
         step_ms.append((time.perf_counter() - tic) * 1e3)

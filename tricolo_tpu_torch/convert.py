@@ -11,7 +11,11 @@ round trip is bit-exact:
 * GRU ``w_ih (E, 3H)`` / ``w_hh (H, 3H)`` ↔ ``weight_ih_l0`` / ``weight_hh_l0``
   transposed (``_reverse`` for ``gru_bwd``); gate order r, z, n both sides;
 * BN ``scale/bias`` + batch_stats ``mean/var`` ↔
-  ``weight/bias/running_mean/running_var`` (``num_batches_tracked`` is 0).
+  ``weight/bias/running_mean/running_var`` (``num_batches_tracked`` is 0);
+  a model without BatchNorm (the CLIP heads alone) has empty batch_stats
+  both ways. The CLIP heads map as the other MLP heads:
+  ``text_encoder/MLPHead_0/TorchLinear_{0,1}/Dense_0`` ↔
+  ``text_encoder.head.fc{1,2}``, ``image_encoder`` alike.
 
 ``jax_checkpoint_to_torch`` carries a whole JAX checkpoint (as
 ``training.jax_checkpoint.load_jax_checkpoint`` reads it, no flax needed)

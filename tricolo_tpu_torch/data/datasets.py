@@ -14,8 +14,12 @@ determine their shapes; ``GeneralDataset``
 reads the Text2Shape ``{split}_map.json`` + per-model ``.npz`` layout: each
 model's npz with numpy, its RGBA grid packed by the host loader's C++ sweep
 (``dense_rgba_to_packed``; the numpy version is ``dense_rgba_to_packed_plain``),
-over ``data.num_workers`` threads. The precached-CLIP-feature fields are not
-ported yet (the CLIP heads come in a later slice).
+over ``data.num_workers`` threads. With a CLIP head configured, items also
+carry the model's precached CLIP features (``clip_embeddings_img``,
+``clip_embeddings_text``: (768,) float32) — ``GeneralDataset`` reads them
+from ``clip_embeddings_{split}.npz`` (or the reference's ``.pth``) under
+``data.exp_data_root_path``, ``SyntheticDataset`` draws them — and with the
+CLIP text head ``GeneralDataset`` tokenizes captions with the CLIP BPE.
 """
 
 from __future__ import annotations
@@ -83,12 +87,48 @@ def max_voxel_tiles(vision_data: dict, voxel_size: int) -> int:
     return worst
 
 
+CLIP_KEYS = ("clip_embeddings_img", "clip_embeddings_text")
+
+
+def uses_clip(cfg) -> bool:
+    """Whether the config has a CLIP head, which reads precached features."""
+    return (cfg.model.text_encoder == "CLIPTextEncoder"
+            or cfg.model.image_encoder == "CLIPImageEncoder")
+
+
+def _load_clip_cache(path_base: str) -> dict | None:
+    """``{model_id: {"img", "text"}}`` float32 from ``path_base + ".npz"``
+    (the extractor's, keys ``{model_id}/{kind}``) or, failing that,
+    ``path_base + ".pth"`` (the reference's nested dict of tensors); None
+    when neither exists."""
+    npz_path = path_base + ".npz"
+    if os.path.exists(npz_path):
+        cache: dict[str, dict[str, np.ndarray]] = {}
+        with np.load(npz_path) as data:
+            for key in data.files:
+                model_id, kind = key.rsplit("/", 1)
+                cache.setdefault(model_id, {})[kind] = data[key].astype(np.float32)
+        return cache
+    pth_path = path_base + ".pth"
+    if os.path.exists(pth_path):
+        import torch
+
+        raw = torch.load(pth_path, map_location="cpu", weights_only=True)
+        return {mid: {k: np.asarray(v, dtype=np.float32) for k, v in entry.items()}
+                for mid, entry in raw.items()}
+    return None
+
+
 class _SplitDataset:
-    """Shared item contract (``tricolo_tpu`` GeneralDataset.__getitem__)."""
+    """Shared item contract (``tricolo_tpu`` GeneralDataset.__getitem__):
+    the CLIP features ride along when the model's vision entry holds them,
+    and ``clip_tokenizer`` (set with the CLIP text head) replaces the
+    caption's tokens with its CLIP BPE ids."""
 
     language_data: list
     vision_data: dict
     voxel_size: int
+    clip_tokenizer = None
 
     def __len__(self) -> int:
         return len(self.language_data)
@@ -96,14 +136,19 @@ class _SplitDataset:
     def __getitem__(self, idx: int) -> dict[str, Any]:
         lang = self.language_data[idx]
         vision = self.vision_data[(lang["category"], lang["model_id"])]
-        return {
+        item = {
             "model_id": lang["model_id"],
             "category": lang["category"],
-            "tokens": lang["tokens"],
+            "tokens": lang["tokens"] if self.clip_tokenizer is None
+            else self.clip_tokenizer(lang["text"]),
             "images": vision["images"],
             "voxel_flat": vision["flat"],
             "voxel_rgb": vision["rgb"],
         }
+        for key in CLIP_KEYS:
+            if key in vision:
+                item[key] = vision[key]
+        return item
 
     @property
     def max_voxel_tiles(self) -> int:
@@ -159,14 +204,22 @@ class GeneralDataset(_SplitDataset):
     """One Text2Shape split in RAM (caption map + per-model npz). Each
     unique model loads once (``_load_model``), over ``data.num_workers``
     threads when it is > 1: numpy's npz inflate and the C++ packing
-    release the GIL, so the threads overlap."""
+    release the GIL, so the threads overlap. With a CLIP head, a model
+    found in the split's CLIP cache carries its features; with the CLIP
+    text head, captions are CLIP-tokenized (context 77), which needs the
+    BPE merges file (``TRICOLO_CLIP_BPE``; FileNotFoundError here without
+    it)."""
 
     def __init__(self, cfg, split: str):
         data = cfg.data
-        if cfg.model.text_encoder == "CLIPTextEncoder" or (
-            cfg.model.image_encoder == "CLIPImageEncoder"
-        ):
-            raise NotImplementedError("the CLIP heads are not ported yet")
+        if cfg.model.text_encoder == "CLIPTextEncoder":
+            from ..clip.tokenizer import ClipTokenizer
+
+            self.clip_tokenizer = ClipTokenizer()
+        self.clip_cache = None
+        if uses_clip(cfg):
+            self.clip_cache = _load_clip_cache(
+                os.path.join(data.exp_data_root_path, f"clip_embeddings_{split}"))
         self.data_cfg = data
         self.voxel_size = data.voxel_size
         max_tokens = data.get("max_tokens", 96)
@@ -205,8 +258,12 @@ class GeneralDataset(_SplitDataset):
             flat, rgb = dense_rgba_to_packed(npz[f"voxel{self.voxel_size}"])
             stored = npz["images"]
         sub = np.round(np.linspace(0, len(stored) - 1, data.num_views)).astype(int)
-        return {"flat": flat, "rgb": rgb,
-                "images": _resize_views_bicubic(stored[sub], data.image_size)}
+        entry = {"flat": flat, "rgb": rgb,
+                 "images": _resize_views_bicubic(stored[sub], data.image_size)}
+        if self.clip_cache is not None and model_id in self.clip_cache:
+            entry["clip_embeddings_img"] = self.clip_cache[model_id]["img"]
+            entry["clip_embeddings_text"] = self.clip_cache[model_id]["text"]
+        return entry
 
 
 class SyntheticDataset(_SplitDataset):
@@ -221,9 +278,7 @@ class SyntheticDataset(_SplitDataset):
         captions_per_model = data.get("captions_per_model", 3)
         vocab = data.vocab_size
         rng = np.random.default_rng({"train": 0, "val": 1, "test": 2}.get(split, 3))
-        clip = cfg.model.text_encoder == "CLIPTextEncoder" or (
-            cfg.model.image_encoder == "CLIPImageEncoder"
-        )
+        clip = uses_clip(cfg)
 
         self.language_data = []
         self.vision_data = {}
@@ -246,15 +301,12 @@ class SyntheticDataset(_SplitDataset):
                 (data.num_views, data.image_size, data.image_size, 3),
                 dtype=np.uint8,
             )
-            if clip:
-                # Keep the stream aligned with the JAX package's draws.
-                rng.standard_normal(768)
-                rng.standard_normal(768)
-            self.vision_data[("synthetic", model_id)] = {
-                "flat": flat.astype(np.uint32),
-                "rgb": rgb.astype(np.uint32),
-                "images": images,
-            }
+            entry = {"flat": flat.astype(np.uint32), "rgb": rgb.astype(np.uint32),
+                     "images": images}
+            if clip:  # the CLIP heads' stand-in features (captions keep int tokens)
+                entry["clip_embeddings_img"] = rng.standard_normal(768).astype(np.float32)
+                entry["clip_embeddings_text"] = rng.standard_normal(768).astype(np.float32)
+            self.vision_data[("synthetic", model_id)] = entry
             for c in range(captions_per_model):
                 length = int(rng.integers(4, max_tokens))
                 tokens = np.zeros(max_tokens, dtype=np.int32)

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from .. import native
-from .datasets import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
+from .datasets import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD, CLIP_KEYS
 
 VOXEL_PAD_SENTINEL = np.uint32(0xFFFFFFFF)
 # Byte 3 of a packed RGB word flags the site as occupied (alpha>0).
@@ -116,7 +116,8 @@ def densify_voxels(flat: torch.Tensor, rgb: torch.Tensor, voxel_size: int,
 def prepare_device_batch(batch: dict, voxel_size: int, dtype=torch.float32) -> dict:
     """Expand a device batch (``inference.to_device_batch``) into the
     tensors TriCoLoNet consumes, as the JAX package's namesake does inside
-    its jitted steps: tokens pass through; images are normalised; the
+    its jitted steps: tokens and the precached CLIP features (float32)
+    pass through; images are normalised; the
     windowed transfers' packed rows pass through (the encoder unpacks them
     after its row take); a dense packed grid is unpacked and packed sites
     are densified into ``voxels`` (B, D, D, D, 4: RGB and the occupancy
@@ -135,6 +136,9 @@ def prepare_device_batch(batch: dict, voxel_size: int, dtype=torch.float32) -> d
     elif "voxel_flat" in batch:
         out["voxels"] = densify_voxels(batch["voxel_flat"], batch["voxel_rgb"], voxel_size,
                                        dtype, with_mask=True)
+    for key in CLIP_KEYS:
+        if key in batch:
+            out[key] = batch[key]
     return out
 
 

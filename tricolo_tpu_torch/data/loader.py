@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..ops.tile_sparse import sample_tile_budget, windowed_halo
-from .datasets import build_dataset
+from .datasets import CLIP_KEYS, build_dataset
 from .device_prep import (
     VOXEL_PAD_SENTINEL,
     densify_on_host,
@@ -52,7 +52,8 @@ TRANSFERS = ("packed", "dense", "windowed", "windowed_compact")
 PACKED_KEYS = ("voxel_flat", "voxel_rgb", "voxel_grid", "voxel_windows", "voxel_rows")
 # The arrays of a batch that go to the device, with the dtype each carries.
 ARRAY_DTYPES = {"tokens": np.int32, "images": None, **dict.fromkeys(PACKED_KEYS, np.uint32),
-                "voxel_row_ids": np.int32, "voxel_tile_occ": None}
+                "voxel_row_ids": np.int32, "voxel_tile_occ": None,
+                **dict.fromkeys(CLIP_KEYS, np.float32)}
 
 
 def host_tensor(key: str, value) -> torch.Tensor:
@@ -89,7 +90,9 @@ def collate(
     voxel_flat/voxel_rgb (B, N) u32 (packed), voxel_grid (B, D, D, D) u32
     (dense), voxel_windows (B·tg³, s³) u32 + voxel_tile_occ (B·tg³,) u8
     (windowed), or voxel_rows (B, k, s³) u32 + voxel_row_ids (B, k) int32
-    (windowed_compact)."""
+    (windowed_compact); and the items' precached CLIP features, when they
+    carry them, as clip_embeddings_img / clip_embeddings_text (B, F)
+    float32."""
     batch: dict[str, Any] = {
         "model_id": [item["model_id"] for item in items],
         "category": [item["category"] for item in items],
@@ -132,6 +135,9 @@ def collate(
         else:
             batch["voxel_flat"] = flat
             batch["voxel_rgb"] = rgb
+    for key in CLIP_KEYS:
+        if key in items[0]:
+            batch[key] = np.stack([item[key] for item in items]).astype(np.float32)
     return batch
 
 

@@ -36,13 +36,15 @@ def resolve_device(device=None) -> torch.device:
 
 
 def to_device_batch(batch: dict, device: torch.device) -> dict:
-    """Host batch → tensors on ``device``: tokens, images, and the voxel
-    keys of the batch's transfer (packed u32 words travel as their int32
-    bit view). The arrays are numpy arrays or, from a ``pin_memory``
-    loader, page-locked CPU tensors; a pinned tensor goes to a CUDA device
-    with ``non_blocking=True`` (PyTorch keeps its buffer until the copy has
-    run). ``to_device_batch.copies`` counts the arrays sent to a CUDA
-    device from pinned and from pageable memory."""
+    """Host batch → tensors on ``device``: tokens, images, the voxel keys
+    of the batch's transfer (packed u32 words travel as their int32 bit
+    view) and the precached CLIP features — every key of
+    ``data.loader.ARRAY_DTYPES`` the batch holds. The arrays are numpy
+    arrays or, from a ``pin_memory`` loader, page-locked CPU tensors; a
+    pinned tensor goes to a CUDA device with ``non_blocking=True``
+    (PyTorch keeps its buffer until the copy has run).
+    ``to_device_batch.copies`` counts the arrays sent to a CUDA device from
+    pinned and from pageable memory."""
     out = {}
     for key in ARRAY_DTYPES:
         if key not in batch:

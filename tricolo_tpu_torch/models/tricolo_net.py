@@ -1,12 +1,13 @@
 """TriCoLoNet: the configured modality encoders.
 
-Port of ``tricolo_tpu.models.tricolo_net.TriCoLoNet`` for the BiGRU text
-encoder, the MVCNN image encoder and the voxel encoder: masked BN on every
-voxel input (``voxel_windows``, ``voxel_rows`` or dense ``voxels``), all-site
-BN (``masked_bn=false``) on dense ``voxels``.
-``train()`` / ``eval()`` switch the BatchNorms between batch and running
-statistics; the non-CLIP encoders have no dropout. The CLIP heads are not
-ported yet.
+Port of ``tricolo_tpu.models.tricolo_net.TriCoLoNet``: the text encoder
+is the BiGRU or the CLIP text head, the image encoder the MVCNN or the CLIP
+image head (both heads over precached CLIP features), and the voxel
+encoder runs masked BN on every voxel input (``voxel_windows``,
+``voxel_rows`` or dense ``voxels``) or all-site BN (``masked_bn=false``) on
+dense ``voxels``. ``train()`` / ``eval()`` switch the BatchNorms between
+batch and running statistics and the CLIP heads' dropout on and off; in
+train mode the dropout draws from the ``generator`` passed to ``forward``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from torch import nn
 
 from .bigru import BiGRUEncoder
+from .clip_heads import CLIPImageEncoder, CLIPTextEncoder
 from .mvcnn import MVCNNEncoder
 from .voxel_cnn import VoxelCNNEncoder
 
@@ -36,17 +38,24 @@ class TriCoLoNet(nn.Module):
                  voxel_size: int = 64, ef_dim: int = 32, voxel_z_dim: int = 512,
                  compute_dtype=torch.float32, tile_sparse: bool = False,
                  tile_sparse_blocks: int = 2, tile_budget_frac: float = 0.5,
-                 explicit_dgrad: bool = False, masked_bn: bool = True):
+                 explicit_dgrad: bool = False, masked_bn: bool = True,
+                 clip_feature_dim: int = 768, clip_dropout: float = 0.1,
+                 clip_image_dropout: float = 0.1):
         super().__init__()
-        if text_encoder != "BiGRUEncoder":
-            raise NotImplementedError(f"text encoder {text_encoder!r} is not ported yet")
         self.compute_dtype = compute_dtype
-        self.text_encoder = BiGRUEncoder(vocab_size, out_dim, embed_dim, gru_hidden_dim)
+        if text_encoder == "CLIPTextEncoder":
+            self.text_encoder = CLIPTextEncoder(out_dim, clip_feature_dim, clip_dropout)
+        elif text_encoder == "BiGRUEncoder":
+            self.text_encoder = BiGRUEncoder(vocab_size, out_dim, embed_dim, gru_hidden_dim)
+        else:
+            raise ValueError(f"unknown text encoder: {text_encoder}")
         self.image_encoder = None
-        if image_encoder == "MVCNNEncoder":
+        if image_encoder == "CLIPImageEncoder":
+            self.image_encoder = CLIPImageEncoder(out_dim, clip_feature_dim, clip_image_dropout)
+        elif image_encoder == "MVCNNEncoder":
             self.image_encoder = MVCNNEncoder(num_views, z_dim, out_dim, cnn_name)
         elif image_encoder is not None:
-            raise NotImplementedError(f"image encoder {image_encoder!r} is not ported yet")
+            raise ValueError(f"unknown image encoder: {image_encoder}")
         self.voxel_encoder = None
         if voxel_encoder in _VOXEL_ALIASES:
             self.voxel_encoder = VoxelCNNEncoder(
@@ -96,6 +105,10 @@ class TriCoLoNet(nn.Module):
             tile_budget_frac=float(voxel.get("tile_budget_frac", 0.5)),
             explicit_dgrad=bool(voxel.get("explicit_dgrad", False)),
             masked_bn=bool(voxel.get("masked_bn", False)),
+            clip_feature_dim=modules.clip_feature_dim,
+            clip_dropout=modules.CLIPTextEncoder.dropout,
+            clip_image_dropout=modules.CLIPImageEncoder.get(
+                "dropout", modules.CLIPTextEncoder.dropout),
         )
 
     def set_compute_dtype(self, dtype) -> None:
@@ -103,13 +116,23 @@ class TriCoLoNet(nn.Module):
         if self.voxel_encoder is not None:
             self.voxel_encoder.compute_dtype = dtype
 
-    def forward(self, batch: dict) -> dict:
+    def forward(self, batch: dict, generator: torch.Generator | None = None) -> dict:
         """batch (``data.device_prep.prepare_device_batch``): tokens (B, T)
-        int; images (B, V, H, W, 3) normalized float; and voxel_windows
-        (B·tg³, s³) int32 + voxel_tile_occ (B·tg³,), or voxel_rows (B, k, s³)
-        int32 + voxel_row_ids (B, k) int32, or voxels (B, D, D, D, 4) float."""
-        out = {"text_features": self.text_encoder(batch["tokens"])}
-        if self.image_encoder is not None:
+        int, or clip_embeddings_text (B, F) float for the CLIP text head;
+        images (B, V, H, W, 3) normalized float, or clip_embeddings_img
+        (B, F) float for the CLIP image head; and voxel_windows (B·tg³, s³)
+        int32 + voxel_tile_occ (B·tg³,), or voxel_rows (B, k, s³) int32 +
+        voxel_row_ids (B, k) int32, or voxels (B, D, D, D, 4) float.
+        ``generator`` (train mode, CLIP heads): the dropout masks' source,
+        drawn by the text head, then the image head."""
+        if isinstance(self.text_encoder, CLIPTextEncoder):
+            text = self.text_encoder(batch["clip_embeddings_text"], generator)
+        else:
+            text = self.text_encoder(batch["tokens"])
+        out = {"text_features": text}
+        if isinstance(self.image_encoder, CLIPImageEncoder):
+            out["image_features"] = self.image_encoder(batch["clip_embeddings_img"], generator)
+        elif self.image_encoder is not None:
             out["image_features"] = self.image_encoder(batch["images"])
         enc = self.voxel_encoder
         if enc is not None:

@@ -16,6 +16,11 @@ package's msgpack ``.ckpt``. Runs on the GPU; ``+device=cpu``
 runs on the CPU instead. ``+index_path=index.npz`` caches the built index;
 ``+vocab_path=...`` points at the Text2Shape ``shapenet.json`` for raw-text
 queries (default ``{data.dataset_path}/shapenet.json``).
+
+With ``model.text_encoder=CLIPTextEncoder`` a query (``+query_tokens`` as
+CLIP BPE ids, or ``+query`` with ``TRICOLO_CLIP_BPE`` set) goes through
+the frozen CLIP text encoder of the local HuggingFace checkpoint directory
+``model.modules.clip_model`` on the host, then the trained head.
 """
 
 from __future__ import annotations

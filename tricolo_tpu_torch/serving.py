@@ -1,20 +1,27 @@
 """Text-to-shape retrieval serving: index building and query answering.
 
-Port of ``tricolo_tpu.serving`` for the BiGRU text encoder:
+Port of ``tricolo_tpu.serving``:
 
 * ``RetrievalIndex`` — the deduplicated shape-embedding matrix (one row per
   model, first occurrence wins) with ``.npz`` save/load and provenance;
 * ``TextTokenizer`` — raw text → Text2Shape token ids through the inverted
   ``shapenet.json`` vocabulary;
-* ``RetrievalServer`` — embeds the split with the full Tri(I+V) eval
-  forward, answers token / text queries by the evaluator's raw dot product
-  (L2-normalized text embedding against the unnormalized image+voxel sum)
-  and image queries through the MVCNN; ``serve_http`` exposes it on a
-  stdlib HTTP endpoint (POST /retrieve {"query"|"tokens", "k"}).
+* ``RetrievalServer`` — embeds the split with the full eval forward,
+  answers token / text queries by the evaluator's raw dot product (the
+  text embedding against the unnormalized image+voxel sum) and image
+  queries through the MVCNN; ``serve_http`` exposes it on a stdlib HTTP
+  endpoint (POST /retrieve {"query"|"tokens", "k"}).
+
+A BiGRU query runs on the device. With the CLIP text head a query's 77
+CLIP BPE ids go through the frozen CLIP backend's ``encode_text`` on the
+host (``clip.extract.TransformersClipBackend`` on
+``model.modules.clip_model``, a local checkpoint directory, unless a
+backend is injected), are L2-normalised, as the cached training features
+were, and then go through the trained head on the device; a raw-text
+query is tokenized with the CLIP BPE (``TRICOLO_CLIP_BPE``).
 
 The server runs on ``cuda`` unless it is given ``device="cpu"``; without a
-GPU and without that request it raises. The CLIP-text branch is not
-ported yet.
+GPU and without that request it raises.
 """
 
 from __future__ import annotations
@@ -26,8 +33,11 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from .clip.extract import l2_rows
+from .clip.tokenizer import CONTEXT_LENGTH, ClipTokenizer
 from .data.device_prep import normalize_images
 from .inference import autocast, collect_embeddings, resolve_device
+from .models.mvcnn import MVCNNEncoder
 from .models.tricolo_net import TriCoLoNet
 from .training.checkpoint import load_checkpoint, prune_disabled_encoders
 
@@ -111,18 +121,27 @@ class RetrievalIndex:
 
 
 class RetrievalServer:
-    """Answer text and image queries against a built shape index."""
+    """Answer text and image queries against a built shape index.
+    ``clip_backend`` (the CLIP text head only) encodes token queries; by
+    default a ``TransformersClipBackend`` on ``model.modules.clip_model``."""
 
     def __init__(self, cfg, model: TriCoLoNet, index: RetrievalIndex | None = None,
-                 tokenizer: TextTokenizer | None = None, device=None):
-        if (cfg.model.text_encoder or "BiGRUEncoder") != "BiGRUEncoder":
-            raise NotImplementedError("only the BiGRU text encoder is ported")
+                 tokenizer: TextTokenizer | None = None, device=None, clip_backend=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.index = index
         self.tokenizer = tokenizer
+        self.clip_backend = None
+        self.clip_tokenizer = None
         self.max_tokens = cfg.data.get("max_tokens", 96)
+        if (cfg.model.text_encoder or "BiGRUEncoder") == "CLIPTextEncoder":
+            if clip_backend is None:
+                from .clip.extract import TransformersClipBackend
+
+                clip_backend = TransformersClipBackend(cfg.model.modules.clip_model)
+            self.clip_backend = clip_backend
+            self.max_tokens = CONTEXT_LENGTH
 
     @classmethod
     def from_checkpoint(cls, cfg, ckpt_path: str, device=None, **kw) -> "RetrievalServer":
@@ -150,8 +169,13 @@ class RetrievalServer:
         padded = np.zeros((tokens.shape[0], self.max_tokens), np.int32)
         n = min(tokens.shape[1], self.max_tokens)
         padded[:, :n] = tokens[:, :n]
+        if self.clip_backend is not None:
+            features = l2_rows(self.clip_backend.encode_text(padded)).astype(np.float32)
+            inputs = torch.from_numpy(features)
+        else:
+            inputs = torch.from_numpy(padded)
         with autocast(self.model, self.device.type):
-            out = self.model.text_encoder(torch.from_numpy(padded).to(self.device))
+            out = self.model.text_encoder(inputs.to(self.device))
         return out.float().cpu().numpy()
 
     def query(self, text: str | None = None, tokens=None, k: int = 5):
@@ -161,12 +185,18 @@ class RetrievalServer:
         if tokens is None:
             if text is None:
                 raise ValueError("provide text or tokens")
-            if self.tokenizer is None:
+            if self.clip_backend is not None:
+                # The CLIP BPE ids the frozen backend expects.
+                if self.clip_tokenizer is None:
+                    self.clip_tokenizer = ClipTokenizer()
+                tokens = self.clip_tokenizer(text)
+            elif self.tokenizer is None:
                 raise RuntimeError(
                     "raw-text queries need a vocabulary — pass +vocab_path "
                     "(shapenet.json with idx_to_word) or query with tokens"
                 )
-            tokens = self.tokenizer(text, self.max_tokens)
+            else:
+                tokens = self.tokenizer(text, self.max_tokens)
         return self.index.topk(self.embed_text(np.asarray(tokens))[0], k)
 
     @torch.no_grad()
@@ -174,7 +204,7 @@ class RetrievalServer:
         """Top-k shapes for one sample's (V, H, W, 3) uint8 views."""
         if self.index is None:
             raise RuntimeError("no index built — call build_index() first")
-        if self.model.image_encoder is None:
+        if not isinstance(self.model.image_encoder, MVCNNEncoder):
             raise NotImplementedError(
                 "query_image needs the MVCNN image encoder (model.image_encoder=MVCNNEncoder)"
             )

@@ -12,6 +12,16 @@ on the GPU; ``+device=cpu`` runs on the CPU instead. Checkpoints land in
 log in ``metrics.jsonl`` beside them. ``ckpt_name=<file>`` resumes from
 that file of the training dir; ``+auto_resume=true`` from its newest
 ``epoch=N.ckpt``, or starts afresh when there is none.
+
+The CLIP-head configurations train over precached CLIP features
+(``python -m tricolo_tpu_torch.extract_clip_feats``):
+
+    python -m tricolo_tpu_torch.train data=text2shape_chair_table \
+        experiment_name=clip model.text_encoder=CLIPTextEncoder \
+        model.image_encoder=CLIPImageEncoder \
+        model.voxel_encoder=VoxelCNNEncoder data.image_size=224
+
+As in the reference, ``CLIPImageEncoder`` needs ``data.image_size=224``.
 """
 
 from __future__ import annotations
@@ -29,6 +39,9 @@ def main(argv: list[str] | None = None) -> str | None:
     from .training.checkpoint import latest_checkpoint
 
     cfg = load_config(argv if argv is not None else sys.argv[1:])
+    if cfg.model.image_encoder == "CLIPImageEncoder" and cfg.data.image_size != 224:
+        print("Error: Please set data.image_size to 224 when using CLIPImageEncoder.")
+        raise SystemExit(0)
     if cfg.experiment_name is None:
         cfg.experiment_name = "default"
         resolve_interpolations(cfg)

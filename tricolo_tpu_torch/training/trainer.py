@@ -54,7 +54,7 @@ from .checkpoint import (
 )
 from .logger import MetricsLogger
 from .optim import lr_for_epoch, make_optimizer
-from .steps import make_train_step
+from .steps import dropout_generator, make_train_step
 
 
 class Trainer:
@@ -63,7 +63,8 @@ class Trainer:
     Runs on ``cuda`` unless ``device`` names another device; raises without
     a GPU unless asked for the CPU. Weights are initialised from
     ``cfg.train_seed``. ``train_step`` is the step function ``fit`` calls
-    (``step(device_batch, lr) -> loss_dict``); ``step`` counts the steps
+    (``step(device_batch, lr, generator) -> loss_dict``, the generator from
+    ``dropout_generator(train_seed, step)``); ``step`` counts the steps
     taken; ``metrics`` holds the last validation's retrieval metrics;
     ``timers`` the seconds ``fit`` spent by phase (``data_load``, ``train``
     — loader iteration and steps —, ``validate``, ``checkpoint``), printed
@@ -238,7 +239,9 @@ class Trainer:
             train_loader.set_epoch(epoch)
             tic = time.perf_counter()
             for batch in train_loader:
-                loss_dict = self.train_step(to_device_batch(batch, self.device), lr)
+                loss_dict = self.train_step(
+                    to_device_batch(batch, self.device), lr,
+                    dropout_generator(cfg.train_seed, self.step, self.device))
                 self.step += 1
                 if self.step % log_every == 0:
                     logger.log({**{k: float(v) for k, v in loss_dict.items()}, "lr": lr},

@@ -113,7 +113,28 @@ Phases (any failure exits non-zero and prints no result line):
     bit-exact against their numpy versions on the flagship synthetic-256
     val batch and a structured-300 train batch, each timed (C++ median of
     5, numpy median of 3) beside the host CPU model and thread count;
-12. the kernels line (ten rows: K1-K7, K2's global entry, and K1's and
+12. data parallel (``tricolo_tpu_torch.parallel``), each rank a subprocess
+    of this script (``--dp-rank``): 12a, the flagship Tri(I+V) (synthetic-256,
+    windowed_compact) in a 1-rank NCCL world beside the non-parallel
+    ``Trainer`` in the same process: bf16 steps in turns over the epoch's
+    six batches (step medians of 2-6; 1-rank launches a step exactly K1 5,
+    K2 2, K3 5, pair 3, two-term 6); one bf16 step with
+    ``precision.remat_voxel`` off and on (a remat step: K1 10, K2 4, K3 5,
+    pair 3, two-term 6; peak memory of both); then, from the non-parallel
+    trainer's weights after its six steps, one f32 step each on the first
+    batch (TF32 off, deterministic cuDNN; the non-parallel one twice for the
+    run-to-run floor): bit-equal where that floor is 0, else within phase
+    9's tolerances; and the non-parallel step on its batch reordered, each
+    gradient's rounding spread (also at the seeded init). 12b, two gloo
+    ranks both on cuda:0, global batch 128 (64 a rank): one f32 step on
+    each rank's stripe from those weights against the non-parallel f32
+    step: losses and running variances under phase 9's tolerances, each
+    gradient within phase 9's 1e-3 of max or ``DP_SPREAD`` times its
+    rounding spread; the ranks' gradients equal, launches exactly as above
+    a rank with the loss kernels planned for B = 128; then one bf16 epoch
+    through ``Trainer.fit`` on both ranks (6 steps, launches a step as
+    above, rank 0 alone writing the checkpoint);
+13. the kernels line (ten rows: K1-K7, K2's global entry, and K1's and
     K3's unmasked entries; the row of K4
     counts the pair launches, each of which computes K4 twice, and carries
     the pair entry's times, the rows of K5 and K6 likewise the two-term
@@ -1701,6 +1722,403 @@ def _host_ms(fn) -> float:
     return (time.perf_counter() - tic) * 1e3
 
 
+# -------------------------------------------------------------- phase 12
+
+# Data parallel, one process a rank (``tricolo_tpu_torch.parallel``), each
+# rank a subprocess of this script (``--dp-rank``) so that no process group
+# outlives the phase. 12a: a 1-rank NCCL world beside the non-parallel
+# trainer in the same process; 12b: two gloo ranks sharing cuda:0, global
+# batch 128 (64 a rank).
+DP_DIR = ROOT / "build" / "chip_smoke" / "dp"
+# A rank's train step: its stripe through the voxel kernels, the loss
+# kernels at the global batch over the gathered embeddings.
+DP_TRAIN_LAUNCHES = TRAIN_LAUNCHES
+# 12b against one process. 12a trains the non-parallel trainer six bf16
+# steps and compares there, against the non-parallel f32 step. Some of
+# that step's gradients are the small residue of large cancelling sums
+# (a conv weight under BatchNorm), so any change in the order of the f32
+# sums moves them: the step against itself on its batch reordered moves
+# them by up to several % of their max, at the seeded init as after the
+# six steps (12a measures both; PERF.md §6). The ranks sum in
+# another order and the ResNet's BN takes its global-batch form, so each
+# gradient must be within phase 9's 1e-3 of max, or, where the step's own
+# reorder spread already exceeds that, within DP_SPREAD times the spread.
+DP_SPREAD = 2.0
+
+
+def _dp_cfg(world: int, rank: int, port: str, dtype: str, extra=()):
+    from tricolo_tpu_torch.config import load_config
+
+    return load_config([*FLAGSHIP, *TRAIN, f"precision.compute_dtype={dtype}",
+                        "parallel.multiprocess=true",
+                        f"parallel.coordinator_address=127.0.0.1:{port}",
+                        f"parallel.num_processes={world}", f"parallel.process_id={rank}",
+                        *extra])
+
+
+def _deterministic_f32(torch) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def _f32_step(torch, trainer, state, batch) -> dict:
+    """One f32 train step of ``trainer`` from ``state``: losses, gradients
+    and running variances (on the host)."""
+    from tricolo_tpu_torch.training import dropout_generator
+
+    trainer.model.load_state_dict(state)
+    losses = trainer.train_step(batch, trainer.cfg.optimizer.lr,
+                                dropout_generator(trainer.cfg.train_seed, 0, trainer.device))
+    torch.cuda.synchronize()
+    return {"losses": {k: v.item() for k, v in losses.items()},
+            "grads": {n: p.grad.detach().to("cpu", copy=True)
+                      for n, p in trainer.model.named_parameters()},
+            "vars": {n: b.detach().to("cpu", copy=True) for n, b in trainer.model.named_buffers()
+                     if n.endswith("running_var")}}
+
+
+def _grad_devs(got: dict, ref: dict) -> dict:
+    """Each gradient's max |Δ| over its largest reference magnitude."""
+    return {n: ((got["grads"][n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+            for n, g in ref["grads"].items()}
+
+
+def _f32_deviation(got: dict, ref: dict) -> dict:
+    """Phase 9's measures of one f32 step against another, and max |Δ|."""
+    return {
+        "loss_rel": max(abs(got["losses"][n] / v - 1) for n, v in ref["losses"].items()),
+        "grad_rel_of_max": max(_grad_devs(got, ref).values()),
+        "running_var_abs": max((got["vars"][n] - v).abs().max().item()
+                               for n, v in ref["vars"].items()),
+        "max_abs": max([abs(got["losses"][n] - v) for n, v in ref["losses"].items()]
+                       + [(got["grads"][n] - g).abs().max().item()
+                          for n, g in ref["grads"].items()]
+                       + [(got["vars"][n] - v).abs().max().item()
+                          for n, v in ref["vars"].items()]),
+    }
+
+
+def _reorder_spread(torch, trainer, state, batch, ref) -> dict:
+    """Each gradient's largest move, of its max, when ``trainer``'s f32
+    step from ``state`` takes ``batch`` with its samples reordered (halves
+    swapped, reversed, shuffled): the same step, summed in other orders."""
+    n = batch["tokens"].shape[0]
+    gen = torch.Generator().manual_seed(SEED)
+    spread: dict = {}
+    for order in (torch.arange(n).roll(n // 2), torch.arange(n).flip(0),
+                  torch.randperm(n, generator=gen)):
+        order = order.to(trainer.device)
+        moved = {k: v.index_select(0, order) for k, v in batch.items()}
+        for name, d in _grad_devs(_f32_step(torch, trainer, state, moved), ref).items():
+            spread[name] = max(spread.get(name, 0.0), d)
+    return spread
+
+
+def dp_world1(port: str) -> dict:
+    """12a, in a rank's process: the flagship non-parallel ``Trainer`` and a
+    1-rank NCCL ``Trainer`` from the same seed, bf16 steps in turns on the
+    epoch's six batches; the remat step; then, from the non-parallel
+    trainer's weights after its six steps, one f32 step of each on the
+    first batch (the non-parallel one twice, for the run-to-run floor, and
+    on the batch reordered, for each gradient's rounding spread, also at
+    the seeded init): 12b's reference."""
+    import torch
+
+    from tricolo_tpu_torch import ops
+    from tricolo_tpu_torch.config import load_config
+    from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch.inference import to_device_batch
+    from tricolo_tpu_torch.training import Trainer, dropout_generator
+
+    DP_DIR.mkdir(parents=True, exist_ok=True)
+    plain = Trainer(load_config([*FLAGSHIP, *TRAIN]))
+    init = {k: v.clone() for k, v in plain.model.state_dict().items()}
+    dp = Trainer(_dp_cfg(1, 0, port, "bfloat16"))
+    require(dp.world is not None and dp.world.size == 1
+            and torch.distributed.get_backend() == "nccl", "12a: no 1-rank NCCL world")
+    dm = DataModule(dp.cfg)
+    dm.setup("fit")
+    loader = dm.train_loader(pin_memory=True)
+    first = loader.peek()
+    rows = {"plain": [], "dp": []}
+    launches = []
+    for i, host in enumerate(loader):
+        batch = to_device_batch(host, dp.device)
+        for name, trainer in (("plain", plain), ("dp", dp)):
+            generator = dropout_generator(trainer.cfg.train_seed, i, trainer.device)
+            before = ops.launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses = trainer.train_step(batch, trainer.cfg.optimizer.lr, generator)
+            end.record()
+            end.synchronize()
+            after = ops.launches()
+            rows[name].append({"ms": start.elapsed_time(end),
+                               "total_loss": losses["train_loss/total_loss"].item()})
+            if name == "dp":
+                launches.append({k: after[k] - before[k] for k in after})
+    out = {"rows": rows, "launches_per_step": launches,
+           "step_ms_median_2_6": {k: statistics.median(r["ms"] for r in v[1:])
+                                  for k, v in rows.items()}}
+    state = {k: v.clone() for k, v in plain.model.state_dict().items()}
+    torch.save(state, DP_DIR / "state.pt")
+    del plain, dp, batch
+    torch.cuda.empty_cache()
+    out["remat"] = remat_step(torch, host)
+
+    _deterministic_f32(torch)
+    plain = Trainer(load_config([*FLAGSHIP, *TRAIN, "precision.compute_dtype=float32"]))
+    dp = Trainer(_dp_cfg(1, 0, port, "float32"))
+    batch = to_device_batch(first, plain.device)
+    ref = _f32_step(torch, plain, state, batch)
+    again = _f32_step(torch, plain, state, batch)
+    got = _f32_step(torch, dp, state, batch)
+    spread = _reorder_spread(torch, plain, state, batch, ref)
+    ref_init = _f32_step(torch, plain, init, batch)
+    spread_init = _reorder_spread(torch, plain, init, batch, ref_init)
+    torch.save({**ref, "model_ids": first["model_id"], "spread": spread}, DP_DIR / "ref_f32.pt")
+    torch.backends.cudnn.deterministic = False
+
+    def summary(s):
+        return {"max": max(s.values()),
+                "within_1e3": sum(d <= TRAIN_GRAD_TOL for d in s.values()),
+                "tensors": len(s), "worst": sorted(s.items(), key=lambda kv: -kv[1])[:4]}
+
+    out.update(f32_vs_plain=_f32_deviation(got, ref),
+               f32_floor_plain_twice=_f32_deviation(again, ref),
+               losses_f32=got["losses"], losses_f32_init=ref_init["losses"],
+               reorder_spread={"trained": summary(spread), "init": summary(spread_init)})
+    return out
+
+
+# precision.remat_voxel: the voxel encoder runs again in the backward, so
+# K1 and the per-sample K2 launch twice as often; K3 and the loss kernels
+# do not.
+REMAT_LAUNCHES = dict(TRAIN_LAUNCHES, bn_relu_pool=10, scatter_tiles_ps=4)
+
+
+def remat_step(torch, host) -> dict:
+    """One bf16 flagship step with ``precision.remat_voxel`` off and on from
+    the same weights: losses, launches and peak memory of each."""
+    from tricolo_tpu_torch import ops
+    from tricolo_tpu_torch.config import load_config
+    from tricolo_tpu_torch.inference import to_device_batch
+    from tricolo_tpu_torch.training import Trainer
+
+    out = {}
+    for remat in (False, True):
+        trainer = Trainer(load_config([*FLAGSHIP, *TRAIN,
+                                       f"precision.remat_voxel={str(remat).lower()}"]))
+        batch = to_device_batch(host, trainer.device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        losses = trainer.train_step(batch, trainer.cfg.optimizer.lr)
+        torch.cuda.synchronize()
+        out["on" if remat else "off"] = {
+            "total_loss": losses["train_loss/total_loss"].item(), "launches": ops.launches(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del trainer, batch, losses
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_two_ranks(rank: int, port: str) -> dict:
+    """12b, in rank ``rank`` of two gloo ranks on cuda:0: one f32 step on
+    the rank's stripe of the first batch from 12a's trained weights, with the
+    launch counts and the batch the loss kernels were planned for; then one
+    bf16 epoch through ``Trainer.fit`` (the main path), launches a step."""
+    import torch
+
+    from tricolo_tpu_torch import ops
+    from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch.inference import to_device_batch
+    from tricolo_tpu_torch.ops import nt_xent
+    from tricolo_tpu_torch.training import Trainer
+
+    planned = []
+    for name in ("fwd_launch_plan", "bwd_launch_plan"):
+        plan = getattr(nt_xent, name)
+
+        def recording(B, *args, _plan=plan):
+            planned.append(B)
+            return _plan(B, *args)
+
+        setattr(nt_xent, name, recording)
+
+    _deterministic_f32(torch)
+    trainer = Trainer(_dp_cfg(2, rank, port, "float32"), device="cuda:0", backend="gloo")
+    require(torch.distributed.get_backend() == "gloo" and trainer.world.size == 2,
+            "12b: no 2-rank gloo world")
+    dm = DataModule(trainer.cfg)
+    dm.setup("fit")
+    host = dm.train_loader().peek()
+    state = torch.load(DP_DIR / "state.pt", map_location=trainer.device)
+    ops.reset_launches()
+    got = _f32_step(torch, trainer, state, to_device_batch(host, trainer.device))
+    out = {"step_f32": got, "launches_f32": ops.launches(), "planned_B": sorted(set(planned)),
+           "model_ids": host["model_id"], "local_batch": len(host["model_id"])}
+    del trainer
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+
+    trainer = Trainer(_dp_cfg(2, rank, port, "bfloat16", ["experiment_name=chip_smoke_dp"]),
+                      device="cuda:0", backend="gloo")
+    steps: list = []
+    trainer.train_step = timed_step(torch, trainer.train_step, steps)
+    ops.reset_launches()
+    tic = time.perf_counter()
+    best = trainer.fit(DataModule(trainer.cfg)).best_path
+    torch.cuda.synchronize()
+    out.update(fit_s=time.perf_counter() - tic, launches_fit=ops.launches(), steps=steps,
+               best_path=best, val_rr5=trainer.metrics.summary("")["RR@5"])
+    return out
+
+
+def dp_rank_main(argv: list[str]) -> int:
+    """``chip_smoke.py --dp-rank <12a|12b> <rank> <port>``: one rank of
+    phase 12; its result goes to ``DP_DIR/<case>_rank<rank>.pt``."""
+    import torch
+
+    case, rank, port = argv[0], int(argv[1]), argv[2]
+    sys.path.insert(0, str(ROOT))
+    out = dp_world1(port) if case == "12a" else dp_two_ranks(rank, port)
+    torch.save(out, DP_DIR / f"{case}_rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _free_port() -> str:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return str(s.getsockname()[1])
+
+
+def run_ranks(torch, case: str, ranks: int, timeout: float) -> list:
+    """Start ``ranks`` rank processes of ``case`` and wait for all; a rank
+    that fails fails the phase (its output's tail in the error)."""
+    port = _free_port()
+    logs = [DP_DIR / f"{case}_rank{r}.log" for r in range(ranks)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank",
+                               case, str(r), port],
+                              stdout=open(log, "w"), stderr=subprocess.STDOUT, cwd=ROOT)
+             for r, log in enumerate(logs)]
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0,
+                f"phase {case} rank {r} exited {p.returncode}:\n{log.read_text()[-3000:]}")
+    return [torch.load(DP_DIR / f"{case}_rank{r}.pt", weights_only=False) for r in range(ranks)]
+
+
+def data_parallel(torch, card) -> tuple[dict, dict]:
+    """Phase 12: (report, launches of the 2-rank fit's ranks and of the
+    1-rank steps)."""
+    import numpy as np
+
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    out: dict = {}
+    (w1,) = run_ranks(torch, "12a", 1, 600)
+    cmp = w1["f32_vs_plain"]
+    out["world1"] = w1
+    log(f"12a 1-rank NCCL f32 step vs the non-parallel step: max |d| {cmp['max_abs']} "
+        f"(losses rel {cmp['loss_rel']:.3g}, grads rel-of-max {cmp['grad_rel_of_max']:.3g}, "
+        f"running_var |d| {cmp['running_var_abs']:.3g}); the non-parallel step twice: max |d| "
+        f"{w1['f32_floor_plain_twice']['max_abs']}")
+    # World 1 makes every collective a copy: where the non-parallel step
+    # repeats bit for bit, the 1-rank step must equal it bit for bit.
+    if w1["f32_floor_plain_twice"]["max_abs"] == 0.0:
+        require(cmp["max_abs"] == 0.0, f"12a: 1-rank step vs non-parallel |d| {cmp['max_abs']}")
+    require(cmp["loss_rel"] <= TRAIN_LOSS_RTOL and cmp["grad_rel_of_max"] <= TRAIN_GRAD_TOL
+            and cmp["running_var_abs"] <= TRAIN_VAR_TOL, f"12a: 1-rank step vs non-parallel {cmp}")
+    for state, spread in w1["reorder_spread"].items():
+        log(f"12a: the non-parallel f32 step against itself on its batch reordered ({state} "
+            f"weights): gradients move up to {spread['max']:.3g} of max, {spread['within_1e3']} "
+            f"of {spread['tensors']} tensors within {TRAIN_GRAD_TOL}; worst {spread['worst']}")
+    for i, counts in enumerate(w1["launches_per_step"]):
+        require(counts == DP_TRAIN_LAUNCHES, f"12a step {i}: launches {counts}")
+    remat = w1["remat"]
+    for key, want in (("off", TRAIN_LAUNCHES), ("on", REMAT_LAUNCHES)):
+        require(remat[key]["launches"] == want, f"remat {key}: launches {remat[key]['launches']}")
+        require(bool(np.isfinite(remat[key]["total_loss"])), f"remat {key}: non-finite loss")
+    log(f"remat_voxel off / on, one bf16 step: total loss {remat['off']['total_loss']:.6f} / "
+        f"{remat['on']['total_loss']:.6f}, peak {remat['off']['peak_gib']:.2f} / "
+        f"{remat['on']['peak_gib']:.2f} GiB, K1 {remat['off']['launches']['bn_relu_pool']} / "
+        f"{remat['on']['launches']['bn_relu_pool']} [{card}]")
+    med = w1["step_ms_median_2_6"]
+    log(f"12a bf16 step median (2-6): non-parallel {med['plain']:.3f} ms, 1-rank NCCL "
+        f"{med['dp']:.3f} ms (+{med['dp'] - med['plain']:.3f} ms) [{card}]")
+
+    ranks = run_ranks(torch, "12b", 2, 900)
+    ref = torch.load(DP_DIR / "ref_f32.pt", weights_only=False)
+    out["two_ranks"] = two = {}
+    require(ranks[0]["model_ids"] + ranks[1]["model_ids"] == ref["model_ids"],
+            "12b: the stripes are not the single-process batch")
+    for r, res in enumerate(ranks):
+        global_b = len(ref["model_ids"])  # the flagship's 128
+        require(res["local_batch"] == global_b // 2,
+                f"12b rank {r}: local batch {res['local_batch']}")
+        require(res["planned_B"] == [global_b], f"12b rank {r}: loss kernels planned for "
+                                                f"B {res['planned_B']}, not {global_b}")
+        require(res["launches_f32"] == DP_TRAIN_LAUNCHES,
+                f"12b rank {r}: f32 step launches {res['launches_f32']}")
+        dev = _f32_deviation(res["step_f32"], ref)
+        spread = ref["spread"]
+        per = _grad_devs(res["step_f32"], ref)
+        over = {n: d for n, d in per.items() if d > max(TRAIN_GRAD_TOL, DP_SPREAD * spread[n])}
+        ratios = {n: d / max(spread[n], 1e-30) for n, d in per.items() if d > TRAIN_GRAD_TOL}
+        dev.update(within_1e3=sum(d <= TRAIN_GRAD_TOL for d in per.values()),
+                   tensors=len(per), max_ratio_to_spread=max(ratios.values(), default=0.0),
+                   worst=[(n, d, spread[n]) for n, d in
+                          sorted(per.items(), key=lambda kv: -kv[1])[:8]])
+        two[f"rank{r}_f32_vs_single"] = dev
+        log(f"12b rank {r}: worst gradients (name, rel-of-max, reorder spread) {dev['worst']}")
+        require(dev["loss_rel"] <= TRAIN_LOSS_RTOL, f"12b rank {r}: losses {dev['loss_rel']}")
+        require(not over, f"12b rank {r}: gradients past max(1e-3, {DP_SPREAD} x spread): "
+                          f"{[(n, d, spread[n]) for n, d in over.items()]}")
+        require(dev["running_var_abs"] <= TRAIN_VAR_TOL,
+                f"12b rank {r}: running_var {dev['running_var_abs']}")
+        require(len(res["steps"]) == 6, f"12b rank {r}: the fit ran {len(res['steps'])} steps")
+        for i, row in enumerate(res["steps"]):
+            require(all(np.isfinite(v) for v in row["losses"].values()),
+                    f"12b rank {r} step {i}: non-finite losses")
+            require(row["launches"] == DP_TRAIN_LAUNCHES,
+                    f"12b rank {r} step {i}: launches {row['launches']}")
+        log(f"12b rank {r}: f32 step vs the non-parallel step at B = {global_b}: losses rel "
+            f"{dev['loss_rel']:.3g} (tol {TRAIN_LOSS_RTOL}), grads rel-of-max "
+            f"{dev['grad_rel_of_max']:.3g}: {dev['within_1e3']} of {dev['tensors']} within "
+            f"{TRAIN_GRAD_TOL}, the others at most {dev['max_ratio_to_spread']:.3g} x their "
+            f"reorder spread (tol {DP_SPREAD}), running_var |d| {dev['running_var_abs']:.3g} "
+            f"(tol {TRAIN_VAR_TOL}); loss kernels at B {res['planned_B']}; fit "
+            f"{res['fit_s']:.1f} s, step median (2-6) "
+            f"{statistics.median(s['ms'] for s in res['steps'][1:]):.3f} ms [{card}]")
+    same = all(torch.equal(ranks[0]["step_f32"]["grads"][n], g)
+               for n, g in ranks[1]["step_f32"]["grads"].items())
+    require(same, "12b: the ranks' summed gradients differ")
+    require(ranks[1]["best_path"] is None and ranks[0]["best_path"] is not None,
+            "12b: rank 0 alone must write the checkpoint")
+    for res in ranks:
+        del res["step_f32"]  # gradients: not for the report
+    two.update(ranks=ranks)
+    return out, {"dp_world1": {k: sum(s[k] for s in w1["launches_per_step"])
+                               for k in DP_TRAIN_LAUNCHES},
+                 "dp_rank0_fit": ranks[0]["launches_fit"], "dp_rank1_fit": ranks[1]["launches_fit"]}
+
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -2079,14 +2497,20 @@ def main() -> int:
         + ", ".join(f"{path} {c['copies']['pinned']}/{c['copies']['pageable']}"
                     for path, c in host["pinned_paths"].items()) + f" [{card}]")
 
-    # 12. kernels line, card line, result
+    # 12. data parallel in rank subprocesses: a 1-rank NCCL world against the
+    # non-parallel step, two gloo ranks on the card against one process.
+    tic = time.perf_counter()
+    report["data_parallel"], dp_paths = data_parallel(torch, card)
+    walls["data_parallel_s"] = time.perf_counter() - tic
+
+    # 13. kernels line, card line, result
     def total(rows, key):
         return sum(r[key] for r in rows)
 
     paths = {"serving": launches, "train": train_launches,
              "dense_serving": report["dense_serving"]["launches"],
              "dense_train": dense_train["launches_fit"], **lifecycle_paths, **unmasked_paths,
-             **clip_paths}
+             **clip_paths, **dp_paths}
 
     def both(name):
         return {path: counts[name] for path, counts in paths.items()}
@@ -2202,6 +2626,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--dp-rank"]:  # one rank of phase 12
+            sys.exit(dp_rank_main(sys.argv[2:]))
         sys.exit(main())
     except Exception:  # any phase: report and fail, never print a result
         import traceback

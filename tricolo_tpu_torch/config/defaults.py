@@ -8,9 +8,12 @@ and ``precision``; neither changes reference-default behavior.
 
 This is the PyTorch port's own copy of ``tricolo_tpu.config.defaults``
 (the port imports nothing of the JAX package), kept key-for-key identical
-so one command line configures both packages. Keys that only the JAX
-package reads (``parallel``, ``precision.scoped_vmem_kib``, the Pallas
-toggles) are accepted and ignored here.
+so one command line configures both packages. ``parallel.*`` is read by
+``tricolo_tpu_torch.parallel``: one process per GPU, ``data_parallel`` the
+world size, the rank triple from the keys or torchrun's environment,
+``param_sharding=fsdp`` refused. Keys that only the JAX package reads
+(``precision.scoped_vmem_kib``, the Pallas toggles) are accepted and
+ignored here.
 """
 
 from __future__ import annotations
@@ -229,6 +232,8 @@ def default_config() -> ConfigNode:
             # --- TPU-native additions -------------------------------------
             "parallel": {
                 # Number of data-parallel devices; "auto" = all local devices.
+                # The port: the world size, one process per GPU ("auto";
+                # an int must equal it).
                 "data_parallel": "auto",
                 # Gather embeddings across the mesh inside the contrastive
                 # loss so negatives span the global batch. At global batch ==
@@ -249,7 +254,9 @@ def default_config() -> ConfigNode:
                 # batch (parallel/multiprocess.py). The coordinator triple
                 # may come from these keys, the JAX_* env vars, or TPU-pod
                 # auto-detection (all three None). data.batch_size stays the
-                # GLOBAL batch.
+                # GLOBAL batch. The port: torch.distributed, the triple from
+                # these keys or torchrun's MASTER_ADDR/MASTER_PORT/
+                # WORLD_SIZE/RANK.
                 "multiprocess": False,
                 "coordinator_address": None,
                 "num_processes": None,

@@ -23,8 +23,17 @@ the trainer and the server when their device is CUDA) the producer also
 copies each batch's arrays into page-locked CPU tensors
 (``pin_batch``), which ``inference.to_device_batch`` then copies to the
 card with ``non_blocking=True``. ``peek`` collates one batch in the
-caller's thread, unpinned. Multi-process striping comes with data
-parallelism.
+caller's thread, unpinned.
+
+Multi-process striping (``parallel.multiprocess``; JAX loader l.144-257):
+``BatchIterator(process_index=, process_count=)`` runs the same seeded
+permutation on every rank and yields the rank's ``process_index``-th slice
+of each global batch (``batch_size`` stays the global batch), so the
+stripes' union is the single-process batch stream. windowed_compact's k is
+the split's maximum on every rank, so every stripe has the same shapes.
+``DataModule.train_loader`` stripes under ``parallel.multiprocess``; the
+validation and test loaders stay process-local (every rank evaluates the
+whole split).
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import numpy as np
 import torch
 
 from ..ops.tile_sparse import sample_tile_budget, windowed_halo
+from ..parallel.multiprocess import local_batch_size, process_count, process_index
 from .datasets import CLIP_KEYS, build_dataset
 from .device_prep import (
     VOXEL_PAD_SENTINEL,
@@ -162,7 +172,12 @@ class BatchIterator:
         tile_overflow: str = "error",
         prefetch: bool = True,
         pin_memory: bool = False,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
+        if process_count > 1 and not drop_last:
+            raise ValueError("multi-process striping needs drop_last=True (evaluate "
+                             "process-locally instead)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -178,6 +193,9 @@ class BatchIterator:
         self.tile_overflow = tile_overflow
         self.prefetch = prefetch
         self.pin_memory = pin_memory
+        self.process_index = process_index
+        self.process_count = process_count
+        self.local_batch_size = local_batch_size(batch_size, process_count)
         self._tile_budget_rows: int | None = None
 
     @property
@@ -218,6 +236,10 @@ class BatchIterator:
                 chunk = np.concatenate(
                     [chunk, np.full(self.batch_size - valid, chunk[-1])]
                 )
+            if self.process_count > 1:
+                local = self.local_batch_size
+                chunk = chunk[self.process_index * local:(self.process_index + 1) * local]
+                valid = local
             compact = self.with_voxels and self.voxel_transfer == "windowed_compact"
             batch = collate(
                 [self.dataset[int(i)] for i in chunk],
@@ -335,9 +357,14 @@ class DataModule:
         )
 
     def train_loader(self, pin_memory: bool = False) -> BatchIterator:
+        """The shuffled train batches; under ``parallel.multiprocess`` this
+        rank's stripe of each."""
+        stripe = {}
+        if self.cfg.parallel.get("multiprocess", False):
+            stripe = dict(process_index=process_index(), process_count=process_count())
         return BatchIterator(self.train_set, shuffle=True, drop_last=True,
                              seed=self.cfg.train_seed, pin_memory=pin_memory,
-                             **self._loader_kwargs())
+                             **self._loader_kwargs(), **stripe)
 
     def val_loader(self, pin_memory: bool = False) -> BatchIterator:
         return BatchIterator(self.val_set, pin_memory=pin_memory, **self._loader_kwargs())

@@ -21,10 +21,11 @@ from .nt_xent import nt_xent_loss, soft_xent
 __all__ = ["make_loss_fn", "nt_xent_loss", "pairwise_losses", "soft_xent"]
 
 
-def make_loss_fn(cfg, use_kernels: bool = True) -> Callable[[torch.Tensor, torch.Tensor],
-                                                            torch.Tensor]:
+def make_loss_fn(cfg, use_kernels: bool = True,
+                 norm: bool = True) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """The configured pairwise loss. ``use_kernels=False`` keeps the blocked
-    loss on its kernels' plain versions (the reference path on the card)."""
+    loss on its kernels' plain versions (the reference path on the card);
+    ``norm=False`` takes embeddings already L2-normalised."""
     name = cfg.loss.name
     if name != "NTXentLoss":
         raise NotImplementedError(f"loss {name!r} is not ported yet")
@@ -33,9 +34,9 @@ def make_loss_fn(cfg, use_kernels: bool = True) -> Callable[[torch.Tensor, torch
     if params.get("use_pallas", False):
         from ..ops.nt_xent import blocked_nt_xent_loss
 
-        return lambda a, b: blocked_nt_xent_loss(a, b, temperature, alpha,
+        return lambda a, b: blocked_nt_xent_loss(a, b, temperature, alpha, norm,
                                                  use_kernels=use_kernels)
-    return lambda a, b: nt_xent_loss(a, b, temperature, alpha)
+    return lambda a, b: nt_xent_loss(a, b, temperature, alpha, norm)
 
 
 def pairwise_losses(loss_fn, output: dict, prefix: str) -> dict:

@@ -19,7 +19,10 @@ class MLPHead(nn.Module):
     The MVCNN and voxel heads have ``dropout`` 0; the CLIP heads 0.1. The
     dropout acts in train mode only, with masks drawn from the ``generator``
     passed to ``forward`` (never the global RNG); in eval mode, and at 0,
-    it is the identity."""
+    it is the identity. ``rows`` = (rank, ranks): the masks are drawn for
+    the global batch and this rank's rows kept (``parallel.attach``)."""
+
+    rows = (0, 1)
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, dropout: float = 0.0):
         super().__init__()
@@ -30,20 +33,27 @@ class MLPHead(nn.Module):
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         x = torch.relu(self.fc1(x))
         if self.training and self.dropout > 0.0:
-            x = dropout(x, self.dropout, generator)
+            x = dropout(x, self.dropout, generator, self.rows)
         return self.fc2(x)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            rows: tuple[int, int] = (0, 1)) -> torch.Tensor:
     """flax ``nn.Dropout`` in train mode: keep each element with probability
     1 − ``rate``, scaled by 1 / (1 − ``rate``); the uniform draws come from
-    ``generator`` (on ``x``'s device), which a train-mode caller must pass."""
+    ``generator`` (on ``x``'s device), which a train-mode caller must pass.
+    ``rows`` = (rank, ranks): ``x`` is rank's stripe of a global batch of
+    ranks·len(x) rows, whose draws are made whole and sliced, so the ranks
+    together draw the masks of one process on the global batch."""
     if generator is None:
         raise ValueError("dropout in train mode draws from an explicit torch.Generator; "
                          "pass one (training.steps.dropout_generator)")
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    rank, ranks = rows
+    n = x.shape[0]
+    draws = torch.rand((n * ranks, *x.shape[1:]), generator=generator, device=x.device)
+    keep = draws[rank * n:(rank + 1) * n] >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -11,13 +11,20 @@ BatchNorm is ``BatchNorm2d``: in eval mode torch's own (running
 statistics); in train mode it normalises with the batch statistics and
 updates its running buffers as flax ``nn.BatchNorm`` does — momentum 0.9
 and the *biased* batch variance (torch's module would use the unbiased one).
+With a ``bn_group`` (``parallel.attach``, more than one rank) the
+statistics are the global batch's, as pjit computes them, in f32 plain
+torch and two passes: the mean from Σx, then the biased variance from
+Σ(x − mean)², each sum through a differentiable all-reduce (whose
+backward sums the ranks' cotangents); each rank's dγ, dβ stay its own
+sums. Two passes, because E[x²] − mean² loses the variance to
+cancellation where a channel's mean dwarfs its spread over the batch.
 
 ``load_pretrained`` reads the backbone weights that the JAX package's
 ``models/resnet.py::save_pretrained`` writes (converted torchvision
 weights); the trainer grafts them over the random init.
 
 ResNet34/50, EfficientNet and the stem opt-ins (hybrid/space-to-depth) are
-not ported yet.
+not ported yet (``TriCoLoNet.from_config`` refuses the stems).
 """
 
 from __future__ import annotations
@@ -31,17 +38,40 @@ _MOMENTUM = 0.9  # flax convention: running = 0.9·running + 0.1·batch
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose train mode follows flax ``nn.BatchNorm``."""
+    """``nn.BatchNorm2d`` whose train mode follows flax ``nn.BatchNorm``;
+    ``bn_group``: the process group whose global batch its statistics span."""
+
+    bn_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.bn_group is not None:
+            return self._global_batch_norm(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
             self.running_mean.copy_(_MOMENTUM * self.running_mean + (1.0 - _MOMENTUM) * mean)
             self.running_var.copy_(_MOMENTUM * self.running_var + (1.0 - _MOMENTUM) * var)
         return F.batch_norm(x, None, None, self.weight, self.bias, training=True,
                             eps=self.eps)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        from ..parallel.collectives import all_reduce_sum
+
+        dims, shape = (0, 2, 3), (1, -1, 1, 1)
+        x32 = x.float()
+        total = all_reduce_sum(torch.cat([x32.sum(dim=dims),
+                                          x32.new_tensor([x.numel() // x.shape[1]])]),
+                               self.bn_group)
+        count = total[-1].detach()
+        mean = total[:-1] / count
+        centred = x32 - mean.view(shape)
+        var = all_reduce_sum(centred.square().sum(dim=dims), self.bn_group) / count
+        with torch.no_grad():
+            self.running_mean.copy_(_MOMENTUM * self.running_mean + (1.0 - _MOMENTUM) * mean)
+            self.running_var.copy_(_MOMENTUM * self.running_var + (1.0 - _MOMENTUM) * var)
+        out = centred * torch.rsqrt(var + self.eps).view(shape)
+        return (out * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
 
 
 def _conv(cin: int, cout: int, k: int, stride: int) -> nn.Conv2d:

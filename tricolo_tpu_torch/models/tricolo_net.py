@@ -8,6 +8,9 @@ encoder runs masked BN on every voxel input (``voxel_windows``,
 dense ``voxels``. ``train()`` / ``eval()`` switch the BatchNorms between
 batch and running statistics and the CLIP heads' dropout on and off; in
 train mode the dropout draws from the ``generator`` passed to ``forward``.
+``precision.remat_voxel`` rematerialises the voxel encoder's train forward
+(``torch.utils.checkpoint``, as JAX's ``nn.remat``); the ResNet stem
+opt-ins ``hybrid_stem`` and ``s2d_stem`` are refused (not ported).
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ class TriCoLoNet(nn.Module):
                  tile_sparse_blocks: int = 2, tile_budget_frac: float = 0.5,
                  explicit_dgrad: bool = False, masked_bn: bool = True,
                  clip_feature_dim: int = 768, clip_dropout: float = 0.1,
-                 clip_image_dropout: float = 0.1):
+                 clip_image_dropout: float = 0.1, remat_voxel: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
         if text_encoder == "CLIPTextEncoder":
@@ -62,7 +65,7 @@ class TriCoLoNet(nn.Module):
                 voxel_size, ef_dim, voxel_z_dim, out_dim, compute_dtype,
                 tile_sparse=tile_sparse, tile_sparse_blocks=tile_sparse_blocks,
                 tile_budget_frac=tile_budget_frac, explicit_dgrad=explicit_dgrad,
-                masked_bn=masked_bn,
+                masked_bn=masked_bn, remat=remat_voxel,
             )
         elif voxel_encoder is not None:
             raise ValueError(f"unknown voxel encoder: {voxel_encoder}")
@@ -75,6 +78,11 @@ class TriCoLoNet(nn.Module):
             raise NotImplementedError(
                 f"precision.param_dtype={cfg.precision.param_dtype}: the port builds float32 "
                 "parameters only")
+        for stem in ("hybrid_stem", "s2d_stem"):
+            if modules.MVCNNEncoder.get(stem, False):
+                raise NotImplementedError(
+                    f"model.modules.MVCNNEncoder.{stem}=true: the port runs the plain ResNet "
+                    "stem only (the JAX package measured this stem as no faster)")
         # Every layout of the JAX package computes the same scatter, which K2
         # does one way: the key is checked and has no other effect.
         layout = voxel.get("scatter_layout", None)
@@ -109,6 +117,7 @@ class TriCoLoNet(nn.Module):
             clip_dropout=modules.CLIPTextEncoder.dropout,
             clip_image_dropout=modules.CLIPImageEncoder.get(
                 "dropout", modules.CLIPTextEncoder.dropout),
+            remat_voxel=bool(cfg.precision.get("remat_voxel", False)),
         )
 
     def set_compute_dtype(self, dtype) -> None:

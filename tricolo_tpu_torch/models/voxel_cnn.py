@@ -47,6 +47,18 @@ hand: flax momentum 0.9 and the *biased* batch variance, as the JAX
 package does (``nn.BatchNorm3d``'s own update would use the unbiased
 variance). K2 and K7 run through their autograd Functions.
 
+Under ``parallel.attach`` with more than one rank (``bn_group``), the
+train-mode statistics and the backward's per-channel sums are all-reduced
+over the ranks: the global batch's BatchNorm, as pjit computes it.
+
+With ``remat`` (``precision.remat_voxel``; JAX wraps the class in
+``nn.remat``) the train-mode forward runs under
+``torch.utils.checkpoint`` (non-reentrant): it keeps only its inputs and
+runs again in the backward, so a remat step launches K1 10 times and the
+per-sample K2 4 times (K3 still 5). The blocks then hand their batch
+statistics out of the checkpointed region and the encoder updates the
+running statistics once, from the first pass.
+
 Convolutions are ``F.conv3d`` on channels-last-3d views (cuDNN on the
 card), as the JAX package leaves them to XLA; ``explicit_dgrad`` writes the
 VALID convs' input gradient as a forward conv (``ops.conv3d``), as the JAX
@@ -62,6 +74,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..data.device_prep import unpack_windowed_rows
 from ..ops.bn_relu_pool import (
@@ -81,9 +94,21 @@ _TILE = 8
 _MOMENTUM = 0.9  # flax convention: running = 0.9·running + 0.1·batch
 
 
+def _update_running(bn, mean, var) -> None:
+    with torch.no_grad():
+        bn.running_mean.copy_(_MOMENTUM * bn.running_mean + (1.0 - _MOMENTUM) * mean)
+        bn.running_var.copy_(_MOMENTUM * bn.running_var + (1.0 - _MOMENTUM) * var)
+
+
 class ConvBlock(nn.Module):
     """Conv3D(3³, no bias) → BN → ReLU [→ zero] → MaxPool(2³): masked BN
-    with a ``zero_mask``, all-site BN without one."""
+    with a ``zero_mask``, all-site BN without one. ``bn_group``: the
+    process group whose global batch the train-mode statistics span (None:
+    this process's batch). ``stats_sink``: a list that takes (mean, var)
+    instead of the running statistics' update (the remat forward)."""
+
+    bn_group = None
+    stats_sink = None
 
     def __init__(self, cin: int, features: int):
         super().__init__()
@@ -108,18 +133,19 @@ class ConvBlock(nn.Module):
         if self.training:
             if zero_mask is None:
                 pooled, mean, var = bn_relu_pool_train(y, bn.weight, bn.bias, bn.eps,
-                                                       use_kernels)
+                                                       use_kernels, self.bn_group)
                 out = pooled
             else:
                 # Two masks: statistics over stats_mask, zeroing over zero_mask.
                 stats = zero_mask if stats_mask is None else stats_mask
                 pooled, mean, var, pooled_mask = masked_bn_relu_pool_train(
-                    y, bn.weight, bn.bias, stats, zero_mask, bn.eps, use_kernels
+                    y, bn.weight, bn.bias, stats, zero_mask, bn.eps, use_kernels, self.bn_group
                 )
                 out = pooled, pooled_mask
-            with torch.no_grad():
-                bn.running_mean.copy_(_MOMENTUM * bn.running_mean + (1.0 - _MOMENTUM) * mean)
-                bn.running_var.copy_(_MOMENTUM * bn.running_var + (1.0 - _MOMENTUM) * var)
+            if self.stats_sink is None:
+                _update_running(bn, mean, var)
+            else:
+                self.stats_sink.append((mean, var))
             return out
         mul, add = fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var,
                            bn.eps, y.dtype)
@@ -133,12 +159,13 @@ class VoxelCNNEncoder(nn.Module):
     def __init__(self, voxel_size: int = 64, ef_dim: int = 32, z_dim: int = 512,
                  out_dim: int = 512, compute_dtype=torch.float32, tile_sparse: bool = False,
                  tile_sparse_blocks: int = 2, tile_budget_frac: float = 0.5,
-                 explicit_dgrad: bool = False, masked_bn: bool = True):
+                 explicit_dgrad: bool = False, masked_bn: bool = True, remat: bool = False):
         super().__init__()
         if voxel_size % 32:
             raise ValueError(f"voxel_size must be a multiple of 32, got {voxel_size}")
         self.voxel_size = voxel_size
         self.masked_bn = masked_bn
+        self.remat = remat
         self.compute_dtype = compute_dtype
         self.use_kernels = True
         self.tile_sparse = tile_sparse
@@ -161,6 +188,36 @@ class VoxelCNNEncoder(nn.Module):
         """One of: ``rows`` (B, k, s³) int32 + ``row_ids`` (B, k) int32
         (windowed_compact); ``windows`` (B·tg³, s³) int32 + ``tile_occ``
         (B·tg³,) (windowed); ``voxels`` (B, D, D, D, 3 or 4) float (dense)."""
+        inputs = dict(rows=rows, row_ids=row_ids, voxels=voxels, windows=windows,
+                      tile_occ=tile_occ)
+        if self.remat and self.training and torch.is_grad_enabled():
+            return self._remat_forward(inputs)
+        return self._forward(**inputs)
+
+    def _remat_forward(self, inputs: dict):
+        """The forward under ``checkpoint``; every path runs the five blocks
+        once, in order, and their statistics come out of it as outputs to
+        update the running statistics here, once (the recompute in the
+        backward fills a sink nobody reads)."""
+        names = [name for name, value in inputs.items() if value is not None]
+
+        def run(*tensors):
+            sink: list = []
+            for block in self.blocks:
+                block.stats_sink = sink
+            try:
+                out = self._forward(**dict(zip(names, tensors)))
+            finally:
+                for block in self.blocks:
+                    block.stats_sink = None
+            return (out, *(t for pair in sink for t in pair))
+
+        out, *stats = checkpoint(run, *(inputs[name] for name in names), use_reentrant=False)
+        for i, block in enumerate(self.blocks):
+            _update_running(block.bn, stats[2 * i].detach(), stats[2 * i + 1].detach())
+        return out
+
+    def _forward(self, rows=None, row_ids=None, voxels=None, windows=None, tile_occ=None):
         if voxels is not None:
             return self._dense_forward(voxels)
         if not self.masked_bn:

@@ -46,6 +46,7 @@ import functools
 
 import torch
 
+from ..parallel.collectives import sum_over_ranks
 from . import _build
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -339,17 +340,20 @@ bn_relu_pool_bwd_unmasked.launches = 0
 _SITE_DIMS = (0, 1, 2, 3)
 
 
-def masked_stats(y, stats_mask, eps: float):
+def masked_stats(y, stats_mask, eps: float, group=None):
     """(mean, var, invstd, count) over the ``stats_mask`` sites, in f32 —
     the JAX package's ``_masked_stats``: count = max(Σm, 1), the biased
-    variance Σy²m/count − mean², clipped at 0."""
+    variance Σy²m/count − mean², clipped at 0. With a process ``group``
+    the sums Σy·m, Σy²·m and Σm are all-reduced first: the statistics of
+    the global batch, as pjit computes them."""
     m = stats_mask.float()
-    count = torch.clamp(m.sum(), min=1.0)
     ym = y.float() * m
     total = ym.sum(dim=_SITE_DIMS)
     ym.mul_(y)  # y²·m (exactly square(y)·m: m is 0 or 1)
     total_sq = ym.sum(dim=_SITE_DIMS)
     del ym
+    total, total_sq, sites = sum_over_ranks((total, total_sq, m.sum()), group)
+    count = torch.clamp(sites, min=1.0)
     mean = total / count
     var = torch.clamp(total_sq / count - mean.square(), min=0.0)
     return mean, var, torch.rsqrt(var + eps), count
@@ -358,13 +362,14 @@ def masked_stats(y, stats_mask, eps: float):
 _SLAB_ELEMS = 1 << 26  # f32 elements batch_stats widens at once (256 MB)
 
 
-def batch_stats(y, eps: float):
-    """(mean, var, invstd) over every site in f32 — the JAX package's
+def batch_stats(y, eps: float, group=None):
+    """(mean, var, invstd, n) over every site in f32 — the JAX package's
     ``_stats``: mean of y, the biased variance E[y²] − mean² clipped at 0,
-    rsqrt(var + eps). y is widened and squared in f32 one slab of the batch
-    at a time, so no whole f32 copy of y exists (4.3 GB at the flagship's
-    block 1)."""
-    n = y.numel() // y.shape[-1]
+    rsqrt(var + eps), over n sites. y is widened and squared in f32 one
+    slab of the batch at a time, so no whole f32 copy of y exists (4.3 GB
+    at the flagship's block 1). With a process ``group`` Σy, Σy² and n are
+    all-reduced first (the global batch's statistics)."""
+    n = float(y.numel() // y.shape[-1])
     per_sample = max(1, y[0].numel())
     total = torch.zeros(y.shape[-1], dtype=torch.float32, device=y.device)
     total_sq = torch.zeros_like(total)
@@ -373,17 +378,24 @@ def batch_stats(y, eps: float):
         total += s.sum(dim=_SITE_DIMS)
         total_sq += s.mul_(s).sum(dim=_SITE_DIMS)
         del s
+    if group is not None:
+        total, total_sq, n = sum_over_ranks((total, total_sq, total.new_tensor(n)), group)
     mean = total / n
     var = torch.clamp(total_sq / n - mean.square(), min=0.0)
-    return mean, var, torch.rsqrt(var + eps)
+    return mean, var, torch.rsqrt(var + eps), n
 
 
-def _pooled_pieces(g_out, g_mean, g_var, pooled, scale, bias, invstd, count, dtype):
+def _pooled_pieces(g_out, g_mean, g_var, pooled, scale, bias, invstd, count, dtype,
+                   group=None):
     """The backward's pooled-resolution pieces (``_bwd_pieces`` /
     ``_hybrid_bwd``): dγ, dβ from the argmax record — a live pooled cell's
     argmax site is relu-positive (and unmasked), where m = γ·ẑ + β — the
     routed cotangent ga = A·g·[m > 0] in ``dtype``, and the f32 per-channel
-    B and C of dy = route(ga) + B + C·ẑ, over ``count`` sites."""
+    B and C of dy = route(ga) + B + C·ẑ, over ``count`` sites. With a
+    process ``group`` B and C come from dβ, dγ and the statistics'
+    cotangents summed over the ranks (``count`` is then the global one);
+    the returned dγ, dβ stay the rank's own sums, which the gradient
+    reduction adds up."""
     g32 = g_out.float() * (pooled > 0)
     scale32 = scale.float()
     safe = torch.where(scale32 == 0.0, 1.0, scale32)
@@ -391,9 +403,15 @@ def _pooled_pieces(g_out, g_mean, g_var, pooled, scale, bias, invstd, count, dty
     zmax = torch.where(scale32 == 0.0, 0.0, zmax)
     dbeta = g32.sum(dim=_SITE_DIMS)
     dgamma = (g32 * zmax).sum(dim=_SITE_DIMS)
+    sum_beta, sum_gamma = dbeta, dgamma
+    if group is not None:
+        g_mean = torch.zeros_like(dbeta) if g_mean is None else g_mean.float()
+        g_var = torch.zeros_like(dbeta) if g_var is None else g_var.float()
+        sum_beta, sum_gamma, g_mean, g_var = sum_over_ranks((dbeta, dgamma, g_mean, g_var),
+                                                            group)
     a32 = scale32 * invstd
-    b32 = -a32 * dbeta / count
-    c32 = -a32 * dgamma / count
+    b32 = -a32 * sum_beta / count
+    c32 = -a32 * sum_gamma / count
     if g_mean is not None:
         b32 = b32 + g_mean / count
     if g_var is not None:
@@ -409,13 +427,13 @@ class _MaskedBNReLUPoolTrain(torch.autograd.Function):
     the full-resolution activation the JAX package keeps: idx routes."""
 
     @staticmethod
-    def forward(ctx, y, scale, bias, stats_mask, zero_mask, eps, use_kernels):
-        mean, var, invstd, count = masked_stats(y, stats_mask, eps)
+    def forward(ctx, y, scale, bias, stats_mask, zero_mask, eps, use_kernels, group):
+        mean, var, invstd, count = masked_stats(y, stats_mask, eps, group)
         mul, add = fold_bn(scale, bias, mean, var, eps, y.dtype)
         fwd = bn_relu_pool if use_kernels else bn_relu_pool_plain
         pooled, pooled_mask, idx = fwd(y, mul, add, zero_mask, stats_mask, want_idx=True)
         ctx.save_for_backward(y, idx, pooled, stats_mask, scale, bias, mean, invstd, count)
-        ctx.use_kernels = use_kernels
+        ctx.use_kernels, ctx.group = use_kernels, group
         ctx.mark_non_differentiable(pooled_mask)
         return pooled, mean, var, pooled_mask
 
@@ -423,15 +441,15 @@ class _MaskedBNReLUPoolTrain(torch.autograd.Function):
     def backward(ctx, g_out, g_mean, g_var, _g_pmask):
         y, idx, pooled, stats_mask, scale, bias, mean, invstd, count = ctx.saved_tensors
         dgamma, dbeta, ga, b32, c32 = _pooled_pieces(
-            g_out, g_mean, g_var, pooled, scale, bias, invstd, count, y.dtype)
+            g_out, g_mean, g_var, pooled, scale, bias, invstd, count, y.dtype, ctx.group)
         bwd = bn_relu_pool_bwd if ctx.use_kernels else bn_relu_pool_bwd_plain
         dy = bwd(y, ga, idx, stats_mask, b32, c32, invstd.contiguous(),
                  (mean * invstd).contiguous())
-        return dy, dgamma.to(scale.dtype), dbeta.to(bias.dtype), None, None, None, None
+        return dy, dgamma.to(scale.dtype), dbeta.to(bias.dtype), None, None, None, None, None
 
 
 def masked_bn_relu_pool_train(y, scale, bias, stats_mask, zero_mask=None, eps: float = 1e-5,
-                              use_kernels: bool = True):
+                              use_kernels: bool = True, group=None):
     """Train-mode masked BN (batch statistics) → ReLU → zero → MaxPool(2³).
 
     y (N, D, H, W, C) bf16 or f32 channels-last; scale/bias (C,) f32;
@@ -439,12 +457,14 @@ def masked_bn_relu_pool_train(y, scale, bias, stats_mask, zero_mask=None, eps: f
     ``stats_mask`` (the single-mask blocks). Returns (pooled, mean, var,
     pooled_mask) with f32 mean and biased var over the ``stats_mask``
     sites. Differentiable in y, scale and bias. ``use_kernels=False`` runs
-    the kernels' plain versions on any device.
+    the kernels' plain versions on any device. With a process ``group``
+    the statistics are the global batch's (``masked_stats``) and the
+    backward's per-channel sums too; each rank's dγ, dβ stay its own.
     """
     zero_mask = stats_mask if zero_mask is None else zero_mask
     _check(y, scale, bias, zero_mask, stats_mask)
     return _MaskedBNReLUPoolTrain.apply(y, scale, bias, stats_mask, zero_mask, eps,
-                                        use_kernels)
+                                        use_kernels, group)
 
 
 class _BNReLUPoolTrain(torch.autograd.Function):
@@ -454,30 +474,30 @@ class _BNReLUPoolTrain(torch.autograd.Function):
     K3's unmasked entry. Saves y, idx, pooled and the f32 statistics."""
 
     @staticmethod
-    def forward(ctx, y, scale, bias, eps, use_kernels):
-        mean, var, invstd = batch_stats(y, eps)
+    def forward(ctx, y, scale, bias, eps, use_kernels, group):
+        mean, var, invstd, count = batch_stats(y, eps, group)
         mul, add = fold_bn(scale, bias, mean, var, eps, y.dtype)
         fwd = bn_relu_pool_unmasked if use_kernels else bn_relu_pool_plain
         pooled, idx = fwd(y, mul, add, want_idx=True)
         ctx.save_for_backward(y, idx, pooled, scale, bias, mean, invstd)
-        ctx.count = float(y.numel() // y.shape[-1])
-        ctx.use_kernels = use_kernels
+        ctx.count, ctx.use_kernels, ctx.group = count, use_kernels, group
         return pooled, mean, var
 
     @staticmethod
     def backward(ctx, g_out, g_mean, g_var):
         y, idx, pooled, scale, bias, mean, invstd = ctx.saved_tensors
         dgamma, dbeta, ga, b32, c32 = _pooled_pieces(
-            g_out, g_mean, g_var, pooled, scale, bias, invstd, ctx.count, y.dtype)
+            g_out, g_mean, g_var, pooled, scale, bias, invstd, ctx.count, y.dtype, ctx.group)
         vectors = (b32, c32, invstd.contiguous(), (mean * invstd).contiguous())
         if ctx.use_kernels:
             dy = bn_relu_pool_bwd_unmasked(y, ga, idx, *vectors)
         else:
             dy = bn_relu_pool_bwd_plain(y, ga, idx, None, *vectors)
-        return dy, dgamma.to(scale.dtype), dbeta.to(bias.dtype), None, None
+        return dy, dgamma.to(scale.dtype), dbeta.to(bias.dtype), None, None, None
 
 
-def bn_relu_pool_train(y, scale, bias, eps: float = 1e-5, use_kernels: bool = True):
+def bn_relu_pool_train(y, scale, bias, eps: float = 1e-5, use_kernels: bool = True,
+                       group=None):
     """Train-mode all-site BN (batch statistics) → ReLU → MaxPool(2³), the
     counterpart of ``fused_bn_relu_pool`` / ``hybrid_bn_relu_pool``.
 
@@ -485,6 +505,7 @@ def bn_relu_pool_train(y, scale, bias, eps: float = 1e-5, use_kernels: bool = Tr
     Returns (pooled, mean, var) with f32 mean and biased var over every
     site. Differentiable in y, scale and bias (and through mean and var).
     ``use_kernels=False`` runs the kernels' plain versions on any device.
+    ``group``: as for ``masked_bn_relu_pool_train``.
     """
     _check(y, scale, bias, None, None)
-    return _BNReLUPoolTrain.apply(y, scale, bias, eps, use_kernels)
+    return _BNReLUPoolTrain.apply(y, scale, bias, eps, use_kernels, group)

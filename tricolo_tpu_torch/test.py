@@ -10,6 +10,9 @@ the ``inference.split`` split, prints "RR@1 RR@5 NDCG@5 MRR", writes
 ``nearest.jsonl`` in the CWD and ``output.p`` under
 ``inference.output_dir`` (the JAX package's pickle: either package's eval
 CLI reads it). Runs on the GPU; ``+device=cpu`` runs on the CPU instead.
+Under ``parallel.multiprocess=true`` (torchrun or the ``parallel.*`` rank
+keys, as for the train CLI) every rank tests the whole split and rank 0
+prints and writes.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import sys
 
 
 def main(argv: list[str] | None = None):
+    import torch
+
     from .config import load_config, resolve_interpolations
     from .data import DataModule
     from .training import Trainer
@@ -32,7 +37,11 @@ def main(argv: list[str] | None = None):
         raise AssertionError("Error: Checkpoint path does not exists.")
     os.makedirs(cfg.inference.output_dir, exist_ok=True)
     trainer = Trainer(cfg, device=cfg.get("device", None))
-    return trainer.test(DataModule(cfg), ckpt_path)
+    try:
+        return trainer.test(DataModule(cfg), ckpt_path)
+    finally:
+        if trainer.world is not None:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -22,6 +22,16 @@ The CLIP-head configurations train over precached CLIP features
         model.voxel_encoder=VoxelCNNEncoder data.image_size=224
 
 As in the reference, ``CLIPImageEncoder`` needs ``data.image_size=224``.
+
+Data parallel, one process per GPU, ``data.batch_size`` the global batch:
+
+    torchrun --nproc_per_node=4 -m tricolo_tpu_torch.train <overrides> \
+        parallel.multiprocess=true
+
+or, without torchrun, the rank triple as keys in each of N processes:
+``parallel.multiprocess=true parallel.coordinator_address=host:port
+parallel.num_processes=N parallel.process_id=<rank>``. Rank 0 writes the
+checkpoints and the metrics log.
 """
 
 from __future__ import annotations
@@ -32,7 +42,9 @@ import sys
 
 def main(argv: list[str] | None = None) -> str | None:
     """Train; the best checkpoint's path (the last save's when top-k
-    saving is off, None when nothing was saved)."""
+    saving is off, None when nothing was saved or on a rank other than 0)."""
+    import torch
+
     from .config import load_config, resolve_interpolations
     from .data import DataModule
     from .training import Trainer
@@ -59,7 +71,13 @@ def main(argv: list[str] | None = None) -> str | None:
             print(f"auto_resume: resuming from {ckpt_path}")
 
     trainer = Trainer(cfg, device=cfg.get("device", None))
-    manager = trainer.fit(DataModule(cfg), resume_ckpt=ckpt_path)
+    try:
+        manager = trainer.fit(DataModule(cfg), resume_ckpt=ckpt_path)
+    finally:
+        if trainer.world is not None:
+            torch.distributed.destroy_process_group()
+    if not trainer.is_main:
+        return None
     path = manager.best_path
     if path is None and manager.save_last:
         path = os.path.join(manager.dirpath, "last.ckpt")

@@ -12,6 +12,14 @@ generator the caller passes; ``dropout_generator(train_seed, step)`` seeds
 one from the global step count, as the JAX step folds ``state.step`` into
 its dropout key, so a resumed run draws the masks of an uninterrupted one.
 The masks are the port's own stream, not the JAX package's threefry bits.
+
+With a data-parallel ``world`` (``parallel.maybe_initialize``) each rank
+runs the step on its stripe of the global batch: the pair loss is
+``parallel.make_parallel_loss_fn``'s form of ``cfg.parallel`` (by default
+the loss at the global batch over the gathered embeddings), the model's
+BatchNorms and dropout span the global batch (``parallel.attach``), and
+after the backward one all-reduce sums the gradients over the ranks, so
+every rank takes the same Adam step as one process on the global batch.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 
 from ..inference import autocast, prepare_inputs
 from ..losses import make_loss_fn, pairwise_losses
+from ..parallel import all_reduce_gradients, make_parallel_loss_fn
 
 
 def dropout_generator(seed: int, step: int, device) -> torch.Generator:
@@ -31,14 +40,21 @@ def dropout_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(words[0]) << 32 | int(words[1]))
 
 
-def make_train_step(model, optimizer, cfg, use_kernels: bool = True) -> Callable:
+def make_train_step(model, optimizer, cfg, use_kernels: bool = True,
+                    world=None) -> Callable:
     """``step(device_batch, lr, generator=None) -> loss_dict`` (detached
     f32 scalars named ``train_loss/{a}_{b}_loss`` and
     ``train_loss/total_loss``); ``generator`` is the dropout masks' source,
     which a model with the CLIP heads needs (``dropout_generator``).
     ``use_kernels=False`` keeps the loss on the blocked kernels' plain
-    versions (the voxel encoder has its own ``use_kernels``)."""
-    loss_pair = make_loss_fn(cfg, use_kernels=use_kernels)
+    versions (the voxel encoder has its own ``use_kernels``). ``world``:
+    the data-parallel world (module docstring; the model must be
+    ``parallel.attach``-ed to it)."""
+    if world is not None:
+        loss_pair = make_parallel_loss_fn(cfg, world, use_kernels=use_kernels)
+    else:
+        loss_pair = make_loss_fn(cfg, use_kernels=use_kernels)
+    params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(batch: dict, lr: float, generator: torch.Generator | None = None) -> dict:
         model.train()
@@ -49,6 +65,8 @@ def make_train_step(model, optimizer, cfg, use_kernels: bool = True) -> Callable
         loss_dict = pairwise_losses(loss_pair, output, "train_loss")
         optimizer.zero_grad(set_to_none=True)
         loss_dict["train_loss/total_loss"].backward()
+        if world is not None:
+            all_reduce_gradients(params, world)
         for group in optimizer.param_groups:
             group["lr"] = lr
         optimizer.step()

@@ -20,6 +20,23 @@ Port of ``tricolo_tpu.training.Trainer``:
   in the CWD, and ``output.p`` (the JAX package's pickle) under
   ``inference.output_dir``.
 
+``trainer.profiler=xplane`` wraps the epochs in a ``torch.profiler``
+trace written under ``{logger.save_dir}/xplane``, as the JAX package's
+``profile_trace`` does with ``jax.profiler``; the file is PyTorch's own
+Chrome trace (``*.pt.trace.json``, for Perfetto or chrome://tracing), not
+an XPlane protobuf.
+
+Under ``parallel.multiprocess=true`` (``tricolo_tpu_torch.parallel``)
+every rank runs this loop on its stripe of each global batch, with the
+process group brought up before the model is placed, parameters checked
+equal across ranks, and the step of ``make_train_step(world=...)``. Rank 0
+alone owns ``metrics.jsonl``, the checkpoints, the async writer, the trace
+and the printed lines; the other ranks run the same loop with null sinks.
+Validation is process-local (every rank embeds the whole split in eval
+mode, no collectives), and a resume loads the same checkpoint on every
+rank. The dense-input plan's tile budget is reckoned from the local batch,
+so a 2-rank run equals one process where no rank truncates.
+
 With ``model.modules.MVCNNEncoder.pretrained_path`` set, the image
 backbone starts from that ``save_pretrained`` npz instead of its random
 init, as in the JAX ``Trainer.init_state``. Before the first epoch,
@@ -30,6 +47,7 @@ dense-input plan, the full windowed transfer).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import time
@@ -46,6 +64,13 @@ from ..losses import make_loss_fn
 from ..models.resnet import load_pretrained
 from ..models.tricolo_net import TriCoLoNet
 from ..ops.tile_sparse import host_tile_count, tile_budget
+from ..parallel import (
+    attach,
+    broadcast_state,
+    check_parallel_config,
+    default_device,
+    maybe_initialize,
+)
 from .checkpoint import (
     AsyncCheckpointWriter,
     CheckpointManager,
@@ -57,12 +82,56 @@ from .optim import lr_for_epoch, make_optimizer
 from .steps import dropout_generator, make_train_step
 
 
+@contextlib.contextmanager
+def profile_trace(log_dir: str | None, device: torch.device):
+    """A ``torch.profiler`` trace of the block (host, and the card on CUDA)
+    exported as a Chrome trace under ``log_dir``; a no-op without one."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, f"fit.{time.time_ns()}.pt.trace.json"))
+
+
+class _NullLogger:
+    """Metrics sink of the ranks other than 0: no files."""
+
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+class _NullManager:
+    """Checkpoint sink of the ranks other than 0 (rank 0 owns the files)."""
+
+    best_path = None
+
+    def save(self, *args, **kwargs) -> None:
+        pass
+
+    def wait(self) -> None:
+        pass
+
+
 class Trainer:
     """``Trainer(cfg, device=None).fit(data_module)`` → ``CheckpointManager``.
 
     Runs on ``cuda`` unless ``device`` names another device; raises without
-    a GPU unless asked for the CPU. Weights are initialised from
-    ``cfg.train_seed``. ``train_step`` is the step function ``fit`` calls
+    a GPU unless asked for the CPU. Under ``parallel.multiprocess`` the
+    default device is the rank's GPU (``parallel.default_device``) and
+    ``backend`` may override the process group's (NCCL on CUDA, gloo on
+    the CPU); ``world`` is the rank's ``parallel.World`` (None in one
+    process) and ``is_main`` whether it is rank 0. Weights are initialised
+    from ``cfg.train_seed``. ``train_step`` is the step function ``fit`` calls
     (``step(device_batch, lr, generator) -> loss_dict``, the generator from
     ``dropout_generator(train_seed, step)``); ``step`` counts the steps
     taken; ``metrics`` holds the last validation's retrieval metrics;
@@ -71,14 +140,20 @@ class Trainer:
     after the fit with ``trainer.profiler=simple``.
     """
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, backend: str | None = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = resolve_device(default_device(cfg, device))
+        self.world = maybe_initialize(cfg, self.device, backend=backend)
+        check_parallel_config(cfg, self.world)
+        self.is_main = self.world is None or self.world.rank == 0
         torch.manual_seed(cfg.train_seed)
         self.model = TriCoLoNet.from_config(cfg).to(self.device)
         self._graft_pretrained_backbone()
+        if self.world is not None:
+            attach(self.model, self.world)
+            broadcast_state(self.model, self.world)
         self.optimizer = make_optimizer(cfg, self.model)
-        self.train_step = make_train_step(self.model, self.optimizer, cfg)
+        self.train_step = make_train_step(self.model, self.optimizer, cfg, world=self.world)
         self.val_loss = make_loss_fn(cfg)
         self.step = 0
         self.metrics = None
@@ -196,18 +271,24 @@ class Trainer:
         val_loader = data_module.val_loader(pin_memory=pin)
 
         monitor = cfg.checkpoint_monitor
-        writer = AsyncCheckpointWriter() if monitor.get("async_save", False) else None
-        manager = CheckpointManager(monitor.dirpath, monitor=monitor.monitor, mode=monitor.mode,
-                                    save_top_k=monitor.save_top_k,
-                                    save_last=bool(monitor.get("save_last", False)),
-                                    writer=writer)
+        writer = None
+        manager = _NullManager()
+        if self.is_main:
+            writer = AsyncCheckpointWriter() if monitor.get("async_save", False) else None
+            manager = CheckpointManager(monitor.dirpath, monitor=monitor.monitor,
+                                        mode=monitor.mode, save_top_k=monitor.save_top_k,
+                                        save_last=bool(monitor.get("save_last", False)),
+                                        writer=writer)
         start_epoch = 0
         if resume_ckpt is not None:
             start_epoch = self.load_state(resume_ckpt) + 1
         self._check_tile_budget(train_loader)
-        logger = MetricsLogger(cfg)
+        logger = MetricsLogger(cfg) if self.is_main else _NullLogger()
         try:
-            self._fit_epochs(train_loader, val_loader, logger, manager, start_epoch)
+            trace = cfg.trainer.profiler == "xplane" and self.is_main
+            with profile_trace(os.path.join(logger.save_dir, "xplane") if trace else None,
+                               self.device):
+                self._fit_epochs(train_loader, val_loader, logger, manager, start_epoch)
             tic = time.perf_counter()
             manager.wait()  # the async writes land before fit returns
             self.timers["checkpoint"] += time.perf_counter() - tic
@@ -217,7 +298,7 @@ class Trainer:
                 manager.writer = None  # later saves by the caller run synchronously
             logger.close()
 
-        if cfg.trainer.profiler == "simple":
+        if cfg.trainer.profiler == "simple" and self.is_main:
             total = sum(self.timers.values()) or 1.0
             print("\nProfiler (simple) — wall clock by phase:")
             for phase, seconds in sorted(self.timers.items(), key=lambda kv: -kv[1]):
@@ -253,12 +334,14 @@ class Trainer:
                 tic = time.perf_counter()
                 embeddings, val_losses = collect_embeddings(
                     self.model, val_loader, self.device, loss_fn=self.val_loss)
-                self.metrics = self._run_retrieval_eval(
-                    embeddings, nearest_path=os.path.join(logger.save_dir, "nearest.jsonl"))
+                nearest = (os.path.join(logger.save_dir, "nearest.jsonl") if self.is_main
+                           else None)
+                self.metrics = self._run_retrieval_eval(embeddings, nearest_path=nearest)
                 summary = self.metrics.summary("val_eval/")
                 logger.log({**summary, **val_losses}, self.step, epoch)
-                print(f"epoch {epoch}: " + " ".join(
-                    f"{k.split('/')[-1]}={v:.2f}" for k, v in summary.items()))
+                if self.is_main:
+                    print(f"epoch {epoch}: " + " ".join(
+                        f"{k.split('/')[-1]}={v:.2f}" for k, v in summary.items()))
                 self.timers["validate"] += time.perf_counter() - tic
 
                 if (epoch + 1) % ckpt_every == 0 or epoch == last:
@@ -287,7 +370,8 @@ class Trainer:
     def test(self, data_module, ckpt_path: str):
         """The reference test path: load → embed the split → metrics →
         artifacts. Returns the metrics (None without
-        ``inference.evaluate``)."""
+        ``inference.evaluate``). Every rank of a multi-process world tests
+        the whole split; rank 0 alone prints and writes the artifacts."""
         cfg = self.cfg
         np.random.seed(cfg.test_seed)
         data_module.setup("test")
@@ -297,9 +381,10 @@ class Trainer:
         metrics = None
         if cfg.inference.evaluate:
             # nearest.jsonl lands in the CWD, as upstream writes it.
-            metrics = self._run_retrieval_eval(embeddings, nearest_path="nearest.jsonl",
-                                               print_results=True)
-        if cfg.inference.save_predictions:
+            metrics = self._run_retrieval_eval(
+                embeddings, nearest_path="nearest.jsonl" if self.is_main else None,
+                print_results=self.is_main)
+        if cfg.inference.save_predictions and self.is_main:
             os.makedirs(cfg.inference.output_dir, exist_ok=True)
             out_path = os.path.join(cfg.inference.output_dir, "output.p")
             with open(out_path, "wb") as f:

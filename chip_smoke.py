@@ -112,7 +112,7 @@ Phases (any failure exits non-zero and prints no result line):
     halo 1 and 3, dense, and the RGBA packing of each sample's grid)
     bit-exact against their numpy versions on the flagship synthetic-256
     val batch and a structured-300 train batch, each timed (C++ median of
-    5, numpy median of 3) beside the host CPU model and thread count;
+    5, numpy the one run that is compared) beside the host CPU model and thread count;
 12. data parallel (``tricolo_tpu_torch.parallel``), each rank a subprocess
     of this script (``--dp-rank``): 12a, the flagship Tri(I+V) (synthetic-256,
     windowed_compact) in a 1-rank NCCL world beside the non-parallel
@@ -134,7 +134,22 @@ Phases (any failure exits non-zero and prints no result line):
     a rank with the loss kernels planned for B = 128; then one bf16 epoch
     through ``Trainer.fit`` on both ranks (6 steps, launches a step as
     above, rank 0 alone writing the checkpoint);
-13. the kernels line (ten rows: K1-K7, K2's global entry, and K1's and
+13. the reference's other image backbones and the triplet loss, Tri(I+V)
+    at the flagship widths (synthetic-256, B = 128, 6×128² views, 64³
+    voxels windowed_compact, bf16, random weights): 13a ResNet50 with
+    ``loss.name=TripletLoss`` and 13b EfficientNet-B3 with NT-Xent, each
+    through the index (launches per batch exactly K1 5 and K2 2, every
+    other kernel 0; four token queries and one image query; the f32 index
+    kernel-vs-plain, 1e-5), ``Trainer.fit`` for one epoch (a step exactly
+    K1 5, K2 2, K3 5 and, for NT-Xent, pair 3 and two-term 6; finite
+    losses, step median, peak memory; every stochastic-depth draw from the
+    step's generator), the fit's checkpoint served with an image query, the
+    f32 step kernel-vs-plain under phase 9's tolerances (with its max |Δ|;
+    a gradient below ``ZERO_GRAD`` of the step's largest, an exact 0, must
+    stay below it on both paths) and a profiled step; 13c ResNet34 and
+    EfficientNet-B0: the index (launches as above), the CUDA-event median
+    of 10 eval batches and two bf16 train steps with finite losses;
+14. the kernels line (ten rows: K1-K7, K2's global entry, and K1's and
     K3's unmasked entries; the row of K4
     counts the pair launches, each of which computes K4 twice, and carries
     the pair entry's times, the rows of K5 and K6 likewise the two-term
@@ -178,6 +193,12 @@ INV_TAU = 10.0
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = 1e-3
 TRAIN_VAR_TOL = 1e-6
+# A gradient whose largest magnitude is below this share of the step's
+# largest gradient is an exact 0 in f32 rounding noise (EfficientNet-B3's
+# bn_project biases: 5e-9 to 4.3e-7 of it): both paths must keep it below
+# this floor, where a deviation relative to its own max would be noise
+# over noise.
+ZERO_GRAD = 1e-5
 FLAGSHIP = [
     "data=synthetic",
     "model.image_encoder=MVCNNEncoder",
@@ -802,8 +823,9 @@ def timed_step(torch, step, rows):
 def train_plain_compare(torch, cfg, batch) -> dict:
     """One f32 train step from the same state through the kernels and
     through their plain versions (TF32 off, deterministic cuDNN), each
-    drawing its dropout masks (the CLIP heads') from a generator of the
-    same seed."""
+    drawing its dropout and stochastic-depth masks from a generator of the
+    same seed. Each gradient's deviation is of its own max, except for the
+    exact zeros below ``ZERO_GRAD`` of the step's largest gradient."""
     from tricolo_tpu_torch.models.tricolo_net import TriCoLoNet
     from tricolo_tpu_torch.training import dropout_generator, make_optimizer, make_train_step
 
@@ -826,14 +848,31 @@ def train_plain_compare(torch, cfg, batch) -> dict:
         del step
     (loss_k, grad_k, var_k), (loss_p, grad_p, var_p) = runs[True], runs[False]
     loss_dev = max(abs(loss_k[n] / loss_p[n] - 1) for n in loss_p)
-    grad_dev = max(((grad_k[n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
-                   for n, g in grad_p.items())
+    top = max(g.abs().max().item() for g in grad_p.values())
+    # A gradient below ZERO_GRAD of the step's largest is an exact 0 in f32
+    # noise (EfficientNet's bn_project biases feed only later BNs' mean
+    # subtraction): both paths must keep it below that floor; every other
+    # gradient is held to its own max.
+    floor = ZERO_GRAD * top
+    zeros = {n: max(g.abs().max().item(), grad_k[n].abs().max().item()) / top
+             for n, g in grad_p.items() if g.abs().max().item() < floor}
+    per = {n: ((grad_k[n] - g).abs().max() / g.abs().max()).item()
+           for n, g in grad_p.items() if n not in zeros}
+    grad_dev = max(per.values())
+    worst = [(n, d, grad_p[n].abs().max().item(), (grad_k[n] - grad_p[n]).abs().max().item())
+             for n, d in sorted(per.items(), key=lambda kv: -kv[1])[:6]]
     var_dev = max((var_k[n] - v).abs().max().item() for n, v in var_p.items())
+    max_abs = max([abs(loss_k[n] - v) for n, v in loss_p.items()]
+                  + [(grad_k[n] - g).abs().max().item() for n, g in grad_p.items()]
+                  + [(var_k[n] - v).abs().max().item() for n, v in var_p.items()])
     require(loss_dev <= TRAIN_LOSS_RTOL, f"train step losses: kernel vs plain {loss_dev}")
     require(grad_dev <= TRAIN_GRAD_TOL, f"train step gradients: kernel vs plain {grad_dev}")
+    require(all(v < ZERO_GRAD for v in zeros.values()),
+            f"train step exact-zero gradients past {ZERO_GRAD} of the largest: {zeros}")
     require(var_dev <= TRAIN_VAR_TOL, f"train step running_var: kernel vs plain {var_dev}")
     torch.backends.cudnn.deterministic = False
     return {"loss_rel": loss_dev, "grad_rel_of_max": grad_dev, "running_var_abs": var_dev,
+            "max_abs": max_abs, "grad_max": top, "worst": worst, "zero_grads": zeros,
             "losses_kernel": loss_k, "losses_plain": loss_p}
 
 
@@ -1645,7 +1684,8 @@ def rgba_grids(flat, rgb, d):
 def host_path(torch, card, dm) -> dict:
     """The host loader's build on this host, then its four sweeps against
     their numpy versions, bit-exact, on the first flagship val batch and
-    the first structured-300 train batch, with host times."""
+    the first structured-300 train batch, with host times (C++ the median
+    of 5, numpy the one run that is compared)."""
     import numpy as np
 
     from tricolo_tpu_torch import native
@@ -1684,7 +1724,10 @@ def host_path(torch, card, dm) -> dict:
         ]
         rows = []
         for label, fast, plain in cases:
-            got, want = _arrays(fast()), _arrays(plain())
+            tic = time.perf_counter()
+            want = _arrays(plain())
+            plain_ms = (time.perf_counter() - tic) * 1e3  # one run: numpy takes up to 2 s
+            got = _arrays(fast())
             exact = len(got) == len(want) and all(
                 a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(got, want))
             require(exact, f"host sweep {label} on the {name} batch differs from numpy")
@@ -1696,7 +1739,6 @@ def host_path(torch, card, dm) -> dict:
                         f"RGBA packing does not give back the {name} batch's words")
             del got, want
             ms = statistics.median(_host_ms(fast) for _ in range(5))
-            plain_ms = statistics.median(_host_ms(plain) for _ in range(3))
             rows.append({"sweep": label, "ms": ms, "plain_ms": plain_ms, "bit_exact": True})
             log(f"  host sweep, {name} batch (B={len(flat)}, N={flat.shape[1]}, k={k}), "
                 f"{label}: C++ {ms:.2f} ms vs numpy {plain_ms:.1f} ms, bit-exact "
@@ -2119,6 +2161,262 @@ def data_parallel(torch, card) -> tuple[dict, dict]:
 
 
 
+# -------------------------------------------------------------- phase 13
+
+# The reference's other image backbones and the triplet loss, Tri(I+V) at
+# the flagship widths with the voxel encoder of phase 7 (windowed_compact,
+# masked BN). An index batch launches K1 5 and K2 2 (the voxel encoder);
+# a triplet step K1 5, K2 2, K3 5 and no loss kernel (the triplet loss is
+# plain torch); an NT-Xent step also the pair and two-term kernels.
+BACKBONE = "model.modules.MVCNNEncoder.cnn_name="
+BACKBONE_EVAL_LAUNCHES = CLIP_EVAL_LAUNCHES
+TRIPLET_TRAIN_LAUNCHES = dict(TRAIN_LAUNCHES, nt_xent_fwd_pair=0, nt_xent_bwd=0)
+
+
+def backbone_index(torch, card, label, cfg, queries=True) -> tuple[dict, object, object]:
+    """The synthetic-256 index of ``cfg`` (bf16, random weights from the
+    seed) with launches per batch, the text and image queries, and the f32
+    index through the kernels against the plain path. Returns (report,
+    server, data module)."""
+    import numpy as np
+
+    from tricolo_tpu_torch import ops
+    from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch.models.tricolo_net import TriCoLoNet
+    from tricolo_tpu_torch.serving import RetrievalServer
+
+    out: dict = {}
+    dm = DataModule(cfg)
+    dm.setup("test")
+    torch.manual_seed(SEED)
+    server = RetrievalServer(cfg, TriCoLoNet.from_config(cfg))  # device: cuda
+    model = server.model
+    n_batches = len(dm.test_loader())
+    ops.reset_launches()
+    reset_host_counts()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    index = server.build_index(dm)
+    torch.cuda.synchronize()
+    out["index_build_s"] = time.perf_counter() - tic
+    out["launches"] = launches = ops.launches()
+    out["host_path"] = check_host_path(f"{label} index build", n_batches)
+    want = {name: n * n_batches for name, n in BACKBONE_EVAL_LAUNCHES.items()}
+    require(launches == want, f"{label} index launches {launches} != {want}")
+    require(index.matrix.shape == (256, cfg.model.out_dim), f"{label} index {index.matrix.shape}")
+    require(bool(np.isfinite(index.matrix).all()), f"{label} index non-finite")
+    log(f"{label} index: {index.matrix.shape} in {out['index_build_s']:.3f} s over {n_batches} "
+        f"batches; launches {launches} [{card}]")
+    if queries:
+        tokens = [dm.val_set[i]["tokens"] for i in (0, 3, 100, 500)]
+        answers = [server.query(tokens=q, k=5) for q in tokens]
+        image = server.query_image(dm.val_set[0]["images"], k=5)
+        for a in answers + [image]:
+            require(len(a) == 5 and all(np.isfinite(s) for _, s in a), f"bad {label} answer")
+        out["topk"] = [[m for m, _ in a] for a in answers]
+        out["image_topk"] = [m for m, _ in image]
+        log(f"  {label} queries: 4 token queries, image query (views of "
+            f"{dm.val_set[0]['model_id']}) -> {out['image_topk']}")
+    bf16_matrix = index.matrix.copy()
+    model.set_compute_dtype(torch.float32)  # TF32 is off since phase 5
+    kernel32 = server.build_index(dm).matrix.copy()
+    model.voxel_encoder.use_kernels = False
+    plain32 = server.build_index(dm).matrix.copy()
+    model.voxel_encoder.use_kernels = True
+    model.set_compute_dtype(torch.bfloat16)
+    out["plain_vs_kernel_f32_max_abs"] = dev = float(np.abs(kernel32 - plain32).max())
+    out["bf16_vs_f32_max_abs"] = float(np.abs(bf16_matrix - kernel32).max())
+    require(dev <= F32_TOL, f"{label} f32 kernel vs plain path: {dev} > {F32_TOL}")
+    log(f"  {label} f32 index: kernel vs plain max |d| = {dev} (tol {F32_TOL}); bf16 vs f32 "
+        f"{out['bf16_vs_f32_max_abs']}")
+    return out, server, dm
+
+
+def backbone_flagship(torch, card, label, extra, train_launches) -> tuple[dict, dict]:
+    """13a / 13b: ``FLAGSHIP + extra`` through the index (``backbone_index``),
+    one epoch through ``Trainer.fit`` (launches per step exactly
+    ``train_launches``, finite losses, step median of 2-6, peak memory;
+    every stochastic-depth draw from the step's own generator), the fit's
+    best checkpoint served, the f32 train step kernel-vs-plain (TF32 off,
+    deterministic cuDNN, one generator seed) and a profiled step. Returns
+    (report, launches of the index build and of the fit)."""
+    import numpy as np
+
+    from tricolo_tpu_torch import ops
+    from tricolo_tpu_torch.config import load_config
+    from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch.inference import to_device_batch
+    from tricolo_tpu_torch.models import efficientnet
+    from tricolo_tpu_torch.serving import RetrievalServer
+    from tricolo_tpu_torch.training import Trainer, dropout_generator
+
+    out, server, _ = backbone_index(torch, card, label, load_config(FLAGSHIP + extra))
+    serve_launches = out["launches"]
+    del server
+    torch.cuda.empty_cache()
+
+    train_cfg = load_config(FLAGSHIP + extra + TRAIN + [f"experiment_name=chip_smoke_{label}"])
+    trainer = Trainer(train_cfg)  # device: cuda
+    steps: list = []
+    step = trainer.train_step
+    seeds: list = []
+
+    def seeded(batch, lr, generator):
+        seeds.append(generator.initial_seed())
+        return step(batch, lr, generator)
+
+    trainer.train_step = timed_step(torch, seeded, steps)
+    draws: list = []
+    draw = efficientnet.stochastic_depth
+
+    def counted(x, rate, generator, rows=(0, 1)):
+        draws.append(generator.initial_seed())
+        return draw(x, rate, generator, rows)
+
+    efficientnet.stochastic_depth = counted
+    train_dm = DataModule(train_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    reset_host_counts()
+    tic = time.perf_counter()
+    try:
+        ckpt = trainer.fit(train_dm).best_path
+    finally:
+        efficientnet.stochastic_depth = draw
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - tic
+    fit_launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    host = check_host_path(f"{label} train fit", 12)  # 6 train batches, 6 validation
+    require(len(steps) == 6, f"one {label} epoch ran {len(steps)} steps, not 6")
+    for i, row in enumerate(steps):
+        require(all(np.isfinite(v) for v in row["losses"].values()),
+                f"{label} train step {i}: non-finite losses {row['losses']}")
+        require(row["launches"] == train_launches,
+                f"{label} train step {i}: launches {row['launches']} != {train_launches}")
+        log(f"  {label} train step {i}: {row['ms']:.3f} ms (wall {row['wall_ms']:.3f} ms) "
+            "losses " + " ".join(f"{k}={v:.5f}" for k, v in row["losses"].items()))
+    blocks = [m for m in trainer.model.modules()
+              if isinstance(m, efficientnet.MBConv) and m.has_residual and m.drop_rate > 0]
+    want = [s for s in seeds for _ in blocks]
+    require(sorted(draws) == sorted(want) and len(set(seeds)) == 6,
+            f"{label}: {len(draws)} stochastic-depth draws, {len(want)} expected from the "
+            "steps' own generators")
+    step_ms = statistics.median(r["ms"] for r in steps[1:])
+    out["train"] = {"steps": steps, "step_ms_median_2_6": step_ms,
+                    "step_wall_ms_median_2_6": statistics.median(r["wall_ms"] for r in steps[1:]),
+                    "pairs_per_s": train_cfg.data.batch_size / (step_ms / 1e3), "peak_gib": peak,
+                    "launches_fit": fit_launches, "fit_s": fit_s, "host_path": host,
+                    "stochastic_depth_draws": len(draws),
+                    "val_rr5": trainer.metrics.summary("")["RR@5"]}
+    log(f"{label} train: 6 steps, median step (2-6) {step_ms:.3f} ms = "
+        f"{out['train']['pairs_per_s']:.1f} pairs/s, peak {peak:.2f} GiB, launches/step "
+        f"{steps[-1]['launches']}, {len(draws)} stochastic-depth draws, fit {fit_s:.1f} s "
+        f"[{card}]")
+
+    trained = RetrievalServer.from_checkpoint(train_cfg, ckpt)
+    trained_index = trained.build_index(train_dm)
+    answer = trained.query_image(train_dm.val_set[0]["images"], k=5)
+    require(trained_index.matrix.shape == (256, train_cfg.model.out_dim)
+            and bool(np.isfinite(trained_index.matrix).all()), f"trained {label} index")
+    require(len(answer) == 5 and all(np.isfinite(s) for _, s in answer),
+            f"trained {label} image query")
+    log(f"trained {label} checkpoint {Path(ckpt).name} serves: index "
+        f"{trained_index.matrix.shape}, image query -> {[m for m, _ in answer]}")
+    del trained, trained_index
+
+    batch = to_device_batch(next(iter(train_dm.train_loader())), torch.device("cuda"))
+    cfg32 = load_config(FLAGSHIP + extra + TRAIN + ["precision.compute_dtype=float32"])
+    out["train_plain_compare"] = cmp = train_plain_compare(torch, cfg32, batch)
+    log(f"{label} train plain path (f32, TF32 off, deterministic, one generator seed): "
+        f"losses rel {cmp['loss_rel']:.3g} (tol {TRAIN_LOSS_RTOL}), grads rel-of-max "
+        f"{cmp['grad_rel_of_max']:.3g} (tol {TRAIN_GRAD_TOL}), running_var |d| "
+        f"{cmp['running_var_abs']:.3g} (tol {TRAIN_VAR_TOL}), max |d| {cmp['max_abs']}")
+    torch.cuda.empty_cache()
+    lr = train_cfg.optimizer.lr
+
+    def seeded_step(b, rate):
+        return step(b, rate, dropout_generator(train_cfg.train_seed, trainer.step, "cuda"))
+
+    seeded_step(batch, lr)  # warm the bf16 path after the f32 phase
+    out["profile"] = prof = profile_step(torch, seeded_step, batch, lr)
+    log(f"profiled {label} train step: device busy {prof['device_busy_ms']} ms of "
+        f"{prof['wall_ms']:.3f} ms wall, idle share {prof['device_idle_share']}, port kernels "
+        f"{prof['port_kernels_ms']} [{card}]")
+    for row in prof["top"][:10]:
+        log(f"    {row['device_ms']:9.3f} ms x{row['count']:<4d} {row['name'][:90]}")
+    for row in prof["top_ops"][:6]:
+        log(f"    {row['device_ms']:9.3f} ms x{row['count']:<4d} {row['op']} {row['shapes']}")
+    del trainer, step, batch
+    torch.cuda.empty_cache()
+    return out, {f"{label}_serving": serve_launches, f"{label}_train": fit_launches}
+
+
+def backbone_quick(torch, card, label, extra) -> tuple[dict, dict]:
+    """13c: ``FLAGSHIP + extra``'s index (launches per batch), the CUDA-event
+    median of 10 eval batches (the first val batch), and two bf16 train
+    steps with finite losses."""
+    import numpy as np
+
+    from tricolo_tpu_torch import ops
+    from tricolo_tpu_torch.config import load_config
+    from tricolo_tpu_torch.inference import eval_step, to_device_batch
+    from tricolo_tpu_torch.training import Trainer, dropout_generator
+
+    cfg = load_config(FLAGSHIP + extra)
+    out, server, dm = backbone_index(torch, card, label, cfg, queries=False)
+    batch = to_device_batch(dm.test_loader().peek(), torch.device("cuda"))
+    out["eval_batch_ms"] = ms = time_ms(lambda: eval_step(server.model, batch), torch,
+                                        repeats=10, warmup=2)
+    del server, batch
+    torch.cuda.empty_cache()
+    trainer = Trainer(load_config(FLAGSHIP + extra + TRAIN))  # device: cuda
+    dm.setup("fit")
+    loader = iter(dm.train_loader())
+    steps: list = []
+    ops.reset_launches()
+    for i in range(2):
+        losses = trainer.train_step(to_device_batch(next(loader), trainer.device),
+                                    trainer.cfg.optimizer.lr,
+                                    dropout_generator(trainer.cfg.train_seed, i, trainer.device))
+        steps.append({k.split("/")[-1]: v.item() for k, v in losses.items()})
+        require(all(np.isfinite(v) for v in steps[-1].values()),
+                f"{label} train step {i}: non-finite losses {steps[-1]}")
+    train_launches = ops.launches()
+    require(train_launches == {k: 2 * n for k, n in TRAIN_LAUNCHES.items()},
+            f"{label}: two train steps launched {train_launches}")
+    out["train_losses"] = steps
+    log(f"{label}: eval batch median of 10 {ms:.3f} ms; two bf16 train steps, total losses "
+        f"{[round(s['total_loss'], 5) for s in steps]} [{card}]")
+    del trainer
+    torch.cuda.empty_cache()
+    return out, {f"{label}_serving": out["launches"], f"{label}_train": train_launches}
+
+
+def other_backbones(torch, card) -> tuple[dict, dict]:
+    """Phase 13: 13a Tri(I+V) with ResNet50 and the triplet loss, 13b with
+    EfficientNet-B3 and NT-Xent, 13c ResNet34 and EfficientNet-B0."""
+    out: dict = {}
+    paths: dict = {}
+    walls = out["walls_s"] = {}
+    for label, extra, launches in (
+            ("resnet50_triplet", [BACKBONE + "resnet50", "loss.name=TripletLoss"],
+             TRIPLET_TRAIN_LAUNCHES),
+            ("efficientnet_b3", [BACKBONE + "efficientnet_b3"], TRAIN_LAUNCHES)):
+        tic = time.perf_counter()
+        out[label], launch_paths = backbone_flagship(torch, card, label, extra, launches)
+        paths.update(launch_paths)
+        walls[label] = time.perf_counter() - tic
+    for name in ("resnet34", "efficientnet_b0"):
+        tic = time.perf_counter()
+        out[name], launch_paths = backbone_quick(torch, card, name, [BACKBONE + name])
+        paths.update(launch_paths)
+        walls[name] = time.perf_counter() - tic
+    log("phase 13 walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    return out, paths
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -2503,14 +2801,20 @@ def main() -> int:
     report["data_parallel"], dp_paths = data_parallel(torch, card)
     walls["data_parallel_s"] = time.perf_counter() - tic
 
-    # 13. kernels line, card line, result
+    # 13. the reference's other backbones and the triplet loss: ResNet50 with
+    # the triplet loss, EfficientNet-B3, ResNet34 and EfficientNet-B0.
+    tic = time.perf_counter()
+    report["other_backbones"], backbone_paths = other_backbones(torch, card)
+    walls["other_backbones_s"] = time.perf_counter() - tic
+
+    # 14. kernels line, card line, result
     def total(rows, key):
         return sum(r[key] for r in rows)
 
     paths = {"serving": launches, "train": train_launches,
              "dense_serving": report["dense_serving"]["launches"],
              "dense_train": dense_train["launches_fit"], **lifecycle_paths, **unmasked_paths,
-             **clip_paths, **dp_paths}
+             **clip_paths, **dp_paths, **backbone_paths}
 
     def both(name):
         return {path: counts[name] for path, counts in paths.items()}

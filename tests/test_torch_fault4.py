@@ -1,9 +1,15 @@
-"""The port honours or refuses every opt-in the JAX package acts on:
-``precision.remat_voxel`` (honoured: ``torch.utils.checkpoint``, as JAX's
+"""The port honours every opt-in the JAX package acts on:
+``precision.remat_voxel`` (``torch.utils.checkpoint``, as JAX's
 ``nn.remat``), ``model.modules.MVCNNEncoder.hybrid_stem`` and ``s2d_stem``
-(refused: not ported), and ``trainer.profiler=xplane`` (honoured: a
-``torch.profiler`` trace under ``{logger.save_dir}/xplane``, as the JAX
-package's ``profile_trace``).
+(exact rewrites of the ResNet stem, which the port runs for either), and
+``trainer.profiler=xplane`` (a ``torch.profiler`` trace under
+``{logger.save_dir}/xplane``, as the JAX package's ``profile_trace``).
+
+The stem test builds the tiny Tri(I+V) fixture with each opt-in and holds
+its variables, eval features and one train step's losses, gradients and
+running statistics equal to the plain stem's from the same weights, bit
+for bit (``test_torch_backbones.py`` holds the port's ResNet18 against the
+JAX package's with each opt-in).
 
 The remat tests run one train step on the tiny Tri(I+V) fixture (the
 masked windowed_compact encoder) and on its unmasked (all-site BN, packed)
@@ -49,15 +55,6 @@ def _cfg(extra):
     return load_config([*TINY, *PORT, *extra])
 
 
-@pytest.mark.parametrize("stem", ["hybrid_stem", "s2d_stem"])
-def test_stem_opt_ins_are_refused(stem):
-    from tricolo_tpu_torch.models.tricolo_net import TriCoLoNet
-
-    with pytest.raises(NotImplementedError, match=stem):
-        TriCoLoNet.from_config(_cfg([f"model.modules.MVCNNEncoder.{stem}=true"]))
-    TriCoLoNet.from_config(_cfg([f"model.modules.MVCNNEncoder.{stem}=false"]))
-
-
 def _batch(cfg):
     from tricolo_tpu_torch.data import DataModule
 
@@ -85,6 +82,45 @@ def _step(extra, remat):
 
 def _rel(got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+STEMS = ["hybrid_stem", "s2d_stem", "hybrid_stem s2d_stem"]
+
+
+def _stem_model(stems: str, state=None):
+    """The fixture's model with the stem opt-ins ``stems`` (none: ""), from
+    the seeded init or ``state``."""
+    from tricolo_tpu_torch.models.tricolo_net import TriCoLoNet
+
+    cfg = _cfg([f"model.modules.MVCNNEncoder.{stem}=true" for stem in stems.split()])
+    torch.manual_seed(cfg.train_seed)
+    model = TriCoLoNet.from_config(cfg)
+    if state is not None:
+        model.load_state_dict(state)
+    return cfg, model
+
+
+@pytest.mark.parametrize("stems", STEMS)
+def test_stem_opt_ins_train_step_equals_the_plain_stem(stems):
+    from tricolo_tpu_torch.inference import prepare_inputs, to_device_batch
+    from tricolo_tpu_torch.losses import make_loss_fn, pairwise_losses
+
+    cfg, plain = _stem_model("")
+    _, model = _stem_model(stems, plain.state_dict())
+    assert model.state_dict().keys() == plain.state_dict().keys()
+    inputs = prepare_inputs(plain, to_device_batch(_batch(cfg), CPU))
+    runs = []
+    for m in (model, plain):
+        with torch.no_grad():
+            features = m.eval()(inputs)
+        losses = pairwise_losses(make_loss_fn(cfg), m.train()(inputs), "train_loss")
+        losses["train_loss/total_loss"].backward()
+        runs.append((features, losses,
+                     {n: p.grad for n, p in m.named_parameters()}, dict(m.named_buffers())))
+    for got, want in zip(*runs):
+        assert got.keys() == want.keys()
+        for key, value in want.items():
+            assert torch.equal(got[key], value), key
 
 
 @pytest.mark.parametrize("encoder", list(ENCODERS))

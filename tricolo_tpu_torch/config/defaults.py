@@ -114,17 +114,13 @@ def default_config() -> ConfigNode:
                         # npz produced by tricolo_tpu.models.resnet
                         # conversion); None → random init.
                         "pretrained_path": None,
-                        # ResNet stem bn1→relu→maxpool via the hybrid
-                        # hand-derived backward (BN parameter grads at
-                        # pooled resolution). Default false (composed flax
-                        # chain): the hybrid measured ~45 pairs/s SLOWER
-                        # end-to-end (PERF.md round 3). Same variable tree
-                        # and math either way; opt-in for study.
+                        # The JAX package's ResNet stem opt-ins: bn1→relu→
+                        # maxpool with a hand-derived backward, and the stem
+                        # conv over a 2×2 space-to-depth input. Both are
+                        # exact rewrites of the plain stem with the same
+                        # variables; the port accepts them and runs the
+                        # plain stem.
                         "hybrid_stem": False,
-                        # Stem conv via 2×2 space-to-depth (4×4/1 conv,
-                        # exactly equivalent, same parameter tree —
-                        # resnet.S2DStemConv). The end-to-end A/B measured
-                        # a wash (PERF.md round 3); stays opt-in for study.
                         "s2d_stem": False,
                     },
                     "VoxelCNNEncoder": {

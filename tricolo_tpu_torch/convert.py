@@ -7,7 +7,10 @@ inverse. Both are renames plus layout transposes — no arithmetic, so a
 round trip is bit-exact:
 
 * conv kernels (kd, kh, kw, Cin, Cout) ↔ (Cout, Cin, kd, kh, kw), 2-D alike;
-* Dense kernels (in, out) ↔ Linear weights (out, in);
+* Dense kernels (in, out) ↔ Linear weights (out, in), their biases under
+  ``Dense_0``; a conv's bias (EfficientNet's ``se_reduce``/``se_expand``)
+  stays beside its kernel — told apart by the weight beside the bias
+  (2-D: a Linear, 4-D or 5-D: a conv);
 * GRU ``w_ih (E, 3H)`` / ``w_hh (H, 3H)`` ↔ ``weight_ih_l0`` / ``weight_hh_l0``
   transposed (``_reverse`` for ``gru_bwd``); gate order r, z, n both sides;
 * BN ``scale/bias`` + batch_stats ``mean/var`` ↔
@@ -156,8 +159,8 @@ def torch_to_jax(state_dict: dict) -> tuple[dict, dict]:
             _put(params, prefix + ["Dense_0", "kernel"], value.T)
         elif leaf == "weight":
             _put(params, prefix + ["kernel"], value.transpose(_KERNEL_TO_JAX[value.ndim]))
-        elif leaf == "bias" and is_bn:
-            _put(params, prefix + ["bias"], value)
+        elif leaf == "bias" and (is_bn or state_dict[".".join(mods + ["weight"])].ndim > 2):
+            _put(params, prefix + ["bias"], value)  # a BN's, or a biased conv's
         elif leaf == "bias":
             _put(params, prefix + ["Dense_0", "bias"], value)
         else:

@@ -1,12 +1,13 @@
 """Contrastive losses and the pairwise combination rule.
 
 Port of ``tricolo_tpu.losses``: ``make_loss_fn`` builds the configured
-pair loss — the plain ``nt_xent_loss``, or with
-``loss.NTXentLoss.use_pallas=true`` the blocked kernels K4-K6
-(``ops.blocked_nt_xent_loss``) — and ``pairwise_losses`` applies it to
-every pair of present modality features in insertion order
-(text → image → voxel), named ``{prefix}/{a}_{b}_loss`` with
-``{prefix}/total_loss`` their sum. The triplet loss is not ported yet.
+pair loss — for ``loss.name=NTXentLoss`` the plain ``nt_xent_loss``, or
+with ``loss.NTXentLoss.use_pallas=true`` the blocked kernels K4-K6
+(``ops.blocked_nt_xent_loss``); for ``loss.name=TripletLoss`` the
+semi-hard ``triplet_loss`` (``loss.TripletLoss.margin``) — and
+``pairwise_losses`` applies it to every pair of present modality features
+in insertion order (text → image → voxel), named
+``{prefix}/{a}_{b}_loss`` with ``{prefix}/total_loss`` their sum.
 """
 
 from __future__ import annotations
@@ -17,18 +18,26 @@ from typing import Callable
 import torch
 
 from .nt_xent import nt_xent_loss, soft_xent
+from .triplet import pairwise_distances, triplet_loss
 
-__all__ = ["make_loss_fn", "nt_xent_loss", "pairwise_losses", "soft_xent"]
+__all__ = ["make_loss_fn", "nt_xent_loss", "pairwise_distances", "pairwise_losses",
+           "soft_xent", "triplet_loss"]
 
 
 def make_loss_fn(cfg, use_kernels: bool = True,
                  norm: bool = True) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-    """The configured pairwise loss. ``use_kernels=False`` keeps the blocked
-    loss on its kernels' plain versions (the reference path on the card);
-    ``norm=False`` takes embeddings already L2-normalised."""
+    """The configured pairwise loss (the train step's, and ``Trainer``'s
+    validation losses). For NT-Xent, ``use_kernels=False`` keeps the
+    blocked loss on its kernels' plain versions (the reference path on the
+    card) and ``norm=False`` takes embeddings already L2-normalised. Neither
+    applies to the triplet loss, which has no kernel and never normalises:
+    it ignores both. An unknown ``loss.name`` raises ValueError."""
     name = cfg.loss.name
+    if name == "TripletLoss":
+        margin = cfg.loss.TripletLoss.margin
+        return lambda a, b: triplet_loss(a, b, margin)
     if name != "NTXentLoss":
-        raise NotImplementedError(f"loss {name!r} is not ported yet")
+        raise ValueError(f"unknown loss: {name}")
     params = cfg.loss.NTXentLoss
     temperature, alpha = params.temperature, params.alpha_weight
     if params.get("use_pallas", False):

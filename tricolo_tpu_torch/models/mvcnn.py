@@ -1,9 +1,12 @@
 """Multi-view CNN image encoder with max view-pooling.
 
 Port of ``tricolo_tpu.models.mvcnn.MVCNNEncoder``: views fold into the
-batch, a shared ResNet runs over (B·V, H, W, 3), pooled per-view features
-are max-reduced over views BEFORE the ``fc`` projection, then an MLP head
-and L2 normalization.
+batch, a shared backbone runs over (B·V, H, W, 3) — a ResNet (resnet18/34/
+50) or, for a ``cnn_name`` that starts with
+``efficientnet``, an EfficientNet (b0/b3), as the reference's cnn_name
+switch (reference mv_cnn.py:44-60) —, pooled per-view features are
+max-reduced over views BEFORE the ``fc`` projection (``feature_dim`` →
+``z_dim``), then an MLP head and L2 normalization.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import torch
 from torch import nn
 
 from .common import MLPHead, fold_views, l2_normalize
+from .efficientnet import EfficientNet
 from .resnet import ResNet
 
 
@@ -22,12 +26,16 @@ class MVCNNEncoder(nn.Module):
                  cnn_name: str = "resnet18"):
         super().__init__()
         self.num_views = num_views
-        self.backbone = ResNet(cnn_name)
+        self.backbone = (EfficientNet(cnn_name) if cnn_name.startswith("efficientnet")
+                         else ResNet(cnn_name))
         self.fc = nn.Linear(self.backbone.feature_dim, z_dim)
         self.head = MLPHead(z_dim, out_dim, out_dim)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: the EfficientNet's stochastic-depth masks' source
+        in train mode (the ResNets draw nothing)."""
         batch, views = images.shape[:2]
-        features = self.backbone(fold_views(images)).reshape(batch, views, -1)
+        features = self.backbone(fold_views(images), generator).reshape(batch, views, -1)
         pooled = features.amax(dim=1)
         return l2_normalize(self.head(self.fc(pooled)).float())

@@ -1,16 +1,19 @@
 """TriCoLoNet: the configured modality encoders.
 
 Port of ``tricolo_tpu.models.tricolo_net.TriCoLoNet``: the text encoder
-is the BiGRU or the CLIP text head, the image encoder the MVCNN or the CLIP
+is the BiGRU or the CLIP text head, the image encoder the MVCNN (a
+ResNet18/34/50 or EfficientNet-B0/B3 backbone, ``cnn_name``) or the CLIP
 image head (both heads over precached CLIP features), and the voxel
 encoder runs masked BN on every voxel input (``voxel_windows``,
 ``voxel_rows`` or dense ``voxels``) or all-site BN (``masked_bn=false``) on
 dense ``voxels``. ``train()`` / ``eval()`` switch the BatchNorms between
-batch and running statistics and the CLIP heads' dropout on and off; in
-train mode the dropout draws from the ``generator`` passed to ``forward``.
-``precision.remat_voxel`` rematerialises the voxel encoder's train forward
-(``torch.utils.checkpoint``, as JAX's ``nn.remat``); the ResNet stem
-opt-ins ``hybrid_stem`` and ``s2d_stem`` are refused (not ported).
+batch and running statistics and the CLIP heads' dropout (and the
+EfficientNet's stochastic depth) on and off; in train mode they draw from
+the ``generator`` passed to ``forward``. ``precision.remat_voxel``
+rematerialises the voxel encoder's train forward (``torch.utils.checkpoint``,
+as JAX's ``nn.remat``); ``MVCNNEncoder.hybrid_stem`` and ``s2d_stem`` are
+accepted and run the plain ResNet stem, of which the JAX package's opt-ins
+are exact rewrites with the same variables (``models/resnet.py``).
 """
 
 from __future__ import annotations
@@ -78,11 +81,8 @@ class TriCoLoNet(nn.Module):
             raise NotImplementedError(
                 f"precision.param_dtype={cfg.precision.param_dtype}: the port builds float32 "
                 "parameters only")
-        for stem in ("hybrid_stem", "s2d_stem"):
-            if modules.MVCNNEncoder.get(stem, False):
-                raise NotImplementedError(
-                    f"model.modules.MVCNNEncoder.{stem}=true: the port runs the plain ResNet "
-                    "stem only (the JAX package measured this stem as no faster)")
+        # MVCNNEncoder.hybrid_stem and s2d_stem rewrite the plain stem exactly
+        # for the TPU's layout: the port runs the plain stem for either.
         # Every layout of the JAX package computes the same scatter, which K2
         # does one way: the key is checked and has no other effect.
         layout = voxel.get("scatter_layout", None)
@@ -132,8 +132,9 @@ class TriCoLoNet(nn.Module):
         (B, F) float for the CLIP image head; and voxel_windows (B·tg³, s³)
         int32 + voxel_tile_occ (B·tg³,), or voxel_rows (B, k, s³) int32 +
         voxel_row_ids (B, k) int32, or voxels (B, D, D, D, 4) float.
-        ``generator`` (train mode, CLIP heads): the dropout masks' source,
-        drawn by the text head, then the image head."""
+        ``generator`` (train mode, CLIP heads, EfficientNet): the dropout
+        and stochastic-depth masks' source, drawn by the text head, then the
+        image encoder."""
         if isinstance(self.text_encoder, CLIPTextEncoder):
             text = self.text_encoder(batch["clip_embeddings_text"], generator)
         else:
@@ -142,7 +143,7 @@ class TriCoLoNet(nn.Module):
         if isinstance(self.image_encoder, CLIPImageEncoder):
             out["image_features"] = self.image_encoder(batch["clip_embeddings_img"], generator)
         elif self.image_encoder is not None:
-            out["image_features"] = self.image_encoder(batch["images"])
+            out["image_features"] = self.image_encoder(batch["images"], generator)
         enc = self.voxel_encoder
         if enc is not None:
             if "voxel_windows" in batch:

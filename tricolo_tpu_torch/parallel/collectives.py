@@ -34,6 +34,12 @@ The three loss forms (``make_parallel_loss_fn``):
   package computes this form outside any kernel, ``psum`` ÷ B_global;
 * ``parallel.global_negatives=false`` (``make_local_nt_xent``): the loss
   over the rank's own batch, then the mean over the ranks.
+
+``loss.name=TripletLoss`` has one form under all three settings, as in the
+JAX package, whose trainer builds the local and explicit forms for NT-Xent
+only and leaves pjit to compute the triplet loss on the logically global
+batch: gather the rank's raw rows (the triplet loss does not normalise)
+and run ``triplet_loss`` at B_global.
 """
 
 from __future__ import annotations
@@ -133,6 +139,12 @@ def make_parallel_loss_fn(cfg, world: World, use_kernels: bool = True) -> Callab
     from ..models.common import l2_normalize
 
     par = cfg.parallel
+    if cfg.loss.name == "TripletLoss":
+        base = make_loss_fn(cfg)
+        return lambda zis, zjs: base(all_gather_rows(zis.float(), world),
+                                     all_gather_rows(zjs.float(), world))
+    if cfg.loss.name != "NTXentLoss":
+        raise ValueError(f"unknown loss: {cfg.loss.name}")
     if not par.get("global_negatives", True):
         base = make_loss_fn(cfg, use_kernels=use_kernels)
         return lambda zis, zjs: psum(base(zis, zjs) / world.size, world)
@@ -144,8 +156,6 @@ def make_parallel_loss_fn(cfg, world: World, use_kernels: bool = True) -> Callab
             return base(zis, zjs)
 
         return gathered
-    if cfg.loss.name != "NTXentLoss":
-        raise NotImplementedError(f"loss {cfg.loss.name!r} is not ported yet")
     params = cfg.loss.NTXentLoss
     temperature, alpha = params.temperature, params.alpha_weight
 

@@ -7,11 +7,11 @@ size ("auto" means it; an int must equal it). ``attach`` makes a model's
 train-mode forward compute what pjit computes over the global batch:
 
 * every BatchNorm (the voxel blocks' masked and all-site statistics, the
-  ResNet's) all-reduces its sums over the ranks when the world has more
-  than one, as ``torch.nn.SyncBatchNorm`` does (at one rank each
-  normalises as the single-process model does);
-* the CLIP heads' dropout draws its masks for the global batch and keeps
-  the rank's rows.
+  image backbones' ``BatchNorm2d``) all-reduces its sums over the ranks
+  when the world has more than one, as ``torch.nn.SyncBatchNorm`` does
+  (at one rank each normalises as the single-process model does);
+* the CLIP heads' dropout and the EfficientNet's stochastic depth draw
+  their masks for the global batch and keep the rank's rows.
 """
 
 from __future__ import annotations
@@ -44,13 +44,13 @@ def check_parallel_config(cfg, world: World | None) -> None:
 def attach(model: nn.Module, world: World) -> None:
     """Point ``model``'s BatchNorms and dropout at ``world`` (module
     docstring)."""
-    from ..models.common import MLPHead
-    from ..models.resnet import BatchNorm2d
+    from ..models.common import BatchNorm2d, MLPHead
+    from ..models.efficientnet import MBConv
     from ..models.voxel_cnn import ConvBlock
 
     group = world.group if world.size > 1 else None
     for module in model.modules():
         if isinstance(module, (ConvBlock, BatchNorm2d)):
             module.bn_group = group
-        elif isinstance(module, MLPHead):
+        elif isinstance(module, (MLPHead, MBConv)):
             module.rows = (world.rank, world.size)

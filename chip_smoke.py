@@ -149,7 +149,30 @@ Phases (any failure exits non-zero and prints no result line):
     stay below it on both paths) and a profiled step; 13c ResNet34 and
     EfficientNet-B0: the index (launches as above), the CUDA-event median
     of 10 eval batches and two bf16 train steps with finite losses;
-14. the kernels line (ten rows: K1-K7, K2's global entry, and K1's and
+14. the C13/128³ configuration (the README's recipe: ``data=text2shape_c13
+    data.voxel_size=128 data.batch_size=32 precision.remat_voxel=true
+    data.voxel_transfer=windowed_compact``, Tri(I+V), bf16, random weights)
+    over a C13-shaped fixture the script writes (13 categories × 8 models,
+    solid-ellipsoid voxel32/64/128 members, seeded views, the ellipsoids'
+    OBJs; ``data/fixture.py``): 14a the val split through the fused npz
+    reader (one call a model) and through ``np.load`` + the RGBA sweep,
+    bit-exact, host ms of both; 14b K1 and K3 at the five 128³ blocks and
+    K2 per-sample onto the 32³ grid, shaped by a real train batch (T = B·k
+    rows) and on its ids, bit-exact in f32 and bf16, timed beside the
+    bound; 14c the val index (launches per batch exactly K1 5 and K2 2;
+    its wall by part), the f32 index kernel-vs-plain (1e-5), one epoch
+    through ``Trainer.fit`` (a remat step exactly K1 10, K2 4, K3 5, pair 3,
+    two-term 6; finite losses, step median of 2-6 and pairs/s, peak memory,
+    the train loop's device idle share), one bf16 step with remat off and
+    on (peak memory, bytes saved for the backward), a profiled step, the
+    host sweep and pin of one batch, the f32 step kernel-vs-plain with
+    phase 9's tolerances; 14d ``python -m tricolo_tpu_torch.test`` on the
+    fit's checkpoint (``nearest.jsonl``), ``python -m
+    tricolo_tpu_torch.calculate_f1`` over it and the fixture's OBJs on the
+    card (the mean F1@0.1), and each scored pair's threshold decisions
+    against a float64 k-d tree oracle on the host (the port's search, and
+    beside the path the f32 expansion with TF32 off and on);
+15. the kernels line (ten rows: K1-K7, K2's global entry, and K1's and
     K3's unmasked entries; the row of K4
     counts the pair launches, each of which computes K4 twice, and carries
     the pair entry's times, the rows of K5 and K6 likewise the two-term
@@ -2417,6 +2440,472 @@ def other_backbones(torch, card) -> tuple[dict, dict]:
     return out, paths
 
 
+# -------------------------------------------------------------- phase 14
+
+# The C13/128³ configuration (BASELINE.json's fifth), the README's recipe:
+# Tri(I+V) on data=text2shape_c13 (vocab 3968) at 128³ voxels, batch 32,
+# precision.remat_voxel, windowed_compact at halo 3 (k the split's max),
+# bf16, random weights, over a C13-shaped fixture written from the seed
+# (13 categories × 8 models: 6 train, 1 val, 1 test each; 3 captions a
+# model; solid-ellipsoid voxel32/64/128 members, seeded views, the
+# ellipsoids' OBJs). An index batch launches K1 5 and K2 2; a remat step
+# K1 10, K2 4, K3 5, pair 3, two-term 6.
+C13_ROOT = ROOT / "build" / "chip_smoke" / "c13"
+C13_128 = [
+    "data=text2shape_c13",
+    f"data.dataset_root_path={C13_ROOT}",
+    "model.image_encoder=MVCNNEncoder",
+    "model.voxel_encoder=VoxelCNNEncoder",
+    "precision.compute_dtype=bfloat16",
+    "data.voxel_size=128",
+    "data.batch_size=32",
+    "precision.remat_voxel=true",
+    "data.voxel_transfer=windowed_compact",
+]
+C13_TRAIN = [
+    "loss.NTXentLoss.use_pallas=true",
+    "trainer.max_epochs=1",
+    "experiment_name=chip_smoke_c13",
+    f"project_root_path={ROOT / 'build' / 'chip_smoke'}",
+]
+F1_THRESHOLD = 0.1
+
+
+def c13_fixture(card) -> dict:
+    """14a: the fixture on disk; the val split through the fused npz reader
+    (``GeneralDataset``: one reader call a model, no RGBA packing) and
+    through ``np.load`` + the host loader's RGBA sweep, bit-exact, with
+    the host ms of both."""
+    import numpy as np
+
+    from tricolo_tpu_torch import native
+    from tricolo_tpu_torch.config import load_config
+    from tricolo_tpu_torch.data.datasets import GeneralDataset
+    from tricolo_tpu_torch.data.fixture import exp_data_dir, write_c13_fixture
+    from tricolo_tpu_torch.native import npz_reader
+
+    shutil.rmtree(C13_ROOT, ignore_errors=True)
+    tic = time.perf_counter()
+    splits = write_c13_fixture(str(C13_ROOT), seed=SEED)
+    out = {"fixture_s": time.perf_counter() - tic,
+           "models": {split: len(models) for split, models in splits.items()}}
+    npz_reader.reset_calls()
+    native.reset_calls()
+    tic = time.perf_counter()
+    val = GeneralDataset(load_config(C13_128), "val")
+    out["val_load_s"] = time.perf_counter() - tic
+    reads = npz_reader.call_counts()
+    require(reads["load_npz_voxels_packed"] == len(splits["val"])
+            and native.call_counts()["dense_rgba_to_packed"] == 0,
+            f"val split load: {reads} fused reads, {native.call_counts()} host sweeps for "
+            f"{len(splits['val'])} models")
+    paths = [os.path.join(exp_data_dir(str(C13_ROOT)), c, f"{m}.npz") for c, m in splits["val"]]
+
+    def fused():
+        return [npz_reader.load_npz_voxels_packed(p, "voxel128") for p in paths]
+
+    def plain():
+        grids = []
+        for p in paths:
+            with np.load(p) as npz:
+                grids.append(native.dense_rgba_to_packed(npz["voxel128"]))
+        return grids
+
+    loaded = [(val.vision_data[key]["flat"], val.vision_data[key]["rgb"])
+              for key in splits["val"]]
+    for got, want, item in zip(fused(), plain(), loaded):
+        require(all(np.array_equal(a, b) and np.array_equal(a, c)
+                    for a, b, c in zip(got, want, item)),
+                "fused npz reader != np.load + RGBA sweep at 128³")
+    out["fused_ms"] = statistics.median(_host_ms(fused) for _ in range(5))
+    out["np_load_sweep_ms"] = statistics.median(_host_ms(plain) for _ in range(5))
+    out["sites"] = [int(len(f)) for f, _ in loaded]
+    log(f"c13 fixture: {out['models']} models in {out['fixture_s']:.1f} s; val split "
+        f"({len(val)} captions) loaded in {out['val_load_s']:.2f} s through {reads} fused "
+        f"reads; voxel128 of {len(paths)} models: fused reader {out['fused_ms']:.1f} ms vs "
+        f"np.load + sweep {out['np_load_sweep_ms']:.1f} ms (host, median of 5), bit-exact; "
+        f"{min(out['sites'])}-{max(out['sites'])} sites a model [{host_cpu()}] [{card}]")
+    return out
+
+
+def c13_kernels(torch, cfg, first) -> dict:
+    """14b: K1 and K3 at the recipe's five blocks and K2 per-sample on its
+    32³ grid, shaped by a real train batch (T = B·k rows) and K2 on its
+    ids, against their plain versions, bit-exact, timed beside the bound."""
+    B, k = first["voxel_row_ids"].shape
+    T, D = B * k, cfg.data.voxel_size
+    shapes = [
+        ("c13_128", "block1", (T, 12, 12, 12, 32), True),
+        ("c13_128", "block2", (T, 4, 4, 4, 64), False),
+        ("c13_128", "block3", (B, D // 4, D // 4, D // 4, 128), False),
+        ("c13_128", "block4", (B, D // 8, D // 8, D // 8, 256), False),
+        ("c13_128", "block5", (B, D // 16, D // 16, D // 16, 512), False),
+    ]
+    flush = make_flush(torch)
+    k1_err, k1_rows = check_k1(torch, shapes, flush)
+    k3_err, k3_rows = check_k3(torch, shapes, flush)
+    ids = torch.from_numpy(first["voxel_row_ids"]).cuda()
+    k2_err, k2_rows = check_k2(torch, ids, D // 4, flush)
+    del flush, ids
+    torch.cuda.empty_cache()
+    return {"B": B, "k": k, "T": T, "k1_err": k1_err, "k1": k1_rows, "k2_err": k2_err,
+            "k2": k2_rows, "k3_err": k3_err, "k3": k3_rows}
+
+
+def c13_host_batch(first, d) -> dict:
+    """The host side of one 128³ batch: the windowed_compact sweep (C++,
+    median of 5) and ``pin_batch``'s copy into page-locked memory, host
+    ms, and the batch's bytes."""
+    import numpy as np
+
+    from tricolo_tpu_torch import native
+    from tricolo_tpu_torch.data.loader import pin_batch
+
+    flat, rgb = first["voxel_flat"], first["voxel_rgb"]
+    k = first["k"]
+    sweep_ms = statistics.median(
+        _host_ms(lambda: native.packed_to_windowed_compact(flat, rgb, d, k, 8, 3))
+        for _ in range(5))
+    rows, ids, _ = native.packed_to_windowed_compact(flat, rgb, d, k, 8, 3)
+    batch = {"voxel_rows": rows, "voxel_row_ids": ids}
+    pin_ms = statistics.median(_host_ms(lambda: pin_batch(batch)) for _ in range(3))
+    return {"sweep_ms": sweep_ms, "pin_ms": pin_ms, "rows_bytes": int(rows.nbytes),
+            "sites": int((flat != np.uint32(0xFFFFFFFF)).sum())}
+
+
+def c13_index(torch, card, cfg) -> dict:
+    """14c (serving): the val split's index in bf16 with launches per batch
+    exactly K1 5 and K2 2, its wall split by part (``index_breakdown``),
+    and the f32 index through the kernels against the plain path (1e-5)."""
+    import numpy as np
+
+    from tricolo_tpu_torch import ops
+    from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch.models.tricolo_net import TriCoLoNet
+    from tricolo_tpu_torch.serving import RetrievalServer
+
+    dm = DataModule(cfg)
+    dm.setup("test")
+    n_batches, n_models = len(dm.test_loader()), len(dm.val_set.vision_data)
+    torch.manual_seed(SEED)
+    server = RetrievalServer(cfg, TriCoLoNet.from_config(cfg))  # device: cuda
+    ops.reset_launches()
+    reset_host_counts()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    index = server.build_index(dm)
+    torch.cuda.synchronize()
+    out = {"index_build_s": time.perf_counter() - tic, "launches": ops.launches(),
+           "batches": n_batches}
+    out["host_path"] = check_host_path("c13 index build", n_batches)
+    want = {name: n * n_batches for name, n in CLIP_EVAL_LAUNCHES.items()}
+    require(out["launches"] == want, f"c13 index launches {out['launches']} != {want}")
+    require(index.matrix.shape == (n_models, cfg.model.out_dim)
+            and bool(np.isfinite(index.matrix).all()), f"c13 index {index.matrix.shape}")
+    out["breakdown"] = index_breakdown(torch, dm, server.model)
+    bf16_matrix = index.matrix.copy()
+    server.model.set_compute_dtype(torch.float32)  # TF32 is off since phase 5
+    kernel32 = server.build_index(dm).matrix.copy()
+    server.model.voxel_encoder.use_kernels = False
+    plain32 = server.build_index(dm).matrix.copy()
+    out["plain_vs_kernel_f32_max_abs"] = dev = float(np.abs(kernel32 - plain32).max())
+    out["bf16_vs_f32_max_abs"] = float(np.abs(bf16_matrix - kernel32).max())
+    require(dev <= F32_TOL, f"c13 f32 index: kernel vs plain {dev} > {F32_TOL}")
+    log(f"c13 index: {index.matrix.shape} in {out['index_build_s']:.3f} s over {n_batches} "
+        f"batches, launches {out['launches']}; f32 kernel vs plain max |d| {dev} (tol "
+        f"{F32_TOL}), bf16 vs f32 {out['bf16_vs_f32_max_abs']:.3g}; breakdown " + ", ".join(
+            f"{key} {value:.4f}" for key, value in out["breakdown"].items()) + f" [{card}]")
+    del server, index
+    torch.cuda.empty_cache()
+    return out
+
+
+def c13_fit(torch, card, cfg) -> tuple[dict, str]:
+    """14c (training): one epoch through ``Trainer.fit`` with remat (launches
+    a step exactly ``REMAT_LAUNCHES``, finite losses, step median of 2-6 and
+    pairs/s, peak memory, the train loop's device idle share over the
+    epoch), one bf16 step each with remat off and on from the trained
+    weights (peak memory of each), the f32 step kernel-vs-plain with phase
+    9's tolerances and a profiled step. Returns (report, best checkpoint)."""
+    import numpy as np
+
+    from tricolo_tpu_torch import ops
+    from tricolo_tpu_torch.config import load_config
+    from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch.inference import to_device_batch
+    from tricolo_tpu_torch.training import Trainer
+
+    train_cfg = load_config(C13_128 + C13_TRAIN)
+    trainer = Trainer(train_cfg)  # device: cuda
+    steps: list = []
+    step = trainer.train_step
+    trainer.train_step = timed_step(torch, step, steps)
+    dm = DataModule(train_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    reset_host_counts()
+    tic = time.perf_counter()
+    ckpt = trainer.fit(dm).best_path
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - tic
+    fit_launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_train = len(dm.train_set) // train_cfg.data.batch_size
+    n_val = len(dm.test_loader())
+    host = check_host_path("c13 train fit", n_train + n_val)
+    require(len(steps) == n_train >= 6, f"one c13 epoch ran {len(steps)} steps, not {n_train}")
+    for i, row in enumerate(steps):
+        require(all(np.isfinite(v) for v in row["losses"].values()),
+                f"c13 train step {i}: non-finite losses {row['losses']}")
+        require(row["launches"] == REMAT_LAUNCHES,
+                f"c13 train step {i}: launches {row['launches']} != {REMAT_LAUNCHES}")
+        log(f"  c13 train step {i}: {row['ms']:.3f} ms (wall {row['wall_ms']:.3f} ms) losses "
+            + " ".join(f"{k}={v:.5f}" for k, v in row["losses"].items()))
+    step_ms = statistics.median(r["ms"] for r in steps[1:6])
+    loop_s = trainer.timers["train"]
+    out = {"steps": steps, "step_ms_median_2_6": step_ms,
+           "step_wall_ms_median_2_6": statistics.median(r["wall_ms"] for r in steps[1:6]),
+           "pairs_per_s": train_cfg.data.batch_size / (step_ms / 1e3), "peak_gib": peak,
+           "launches_fit": fit_launches, "fit_s": fit_s, "host_path": host,
+           "train_loop_s": loop_s,
+           "train_loop_idle_share": 1.0 - sum(r["ms"] for r in steps) / 1e3 / loop_s,
+           "timers_s": dict(trainer.timers), "k": dm.train_loader().tile_budget_rows}
+    log(f"c13 train: {len(steps)} steps of {train_cfg.data.batch_size} (k={out['k']}), median "
+        f"step (2-6) {step_ms:.3f} ms = {out['pairs_per_s']:.1f} pairs/s, peak {peak:.2f} GiB "
+        f"(remat on), launches/step {steps[-1]['launches']}; train loop {loop_s:.2f} s, device "
+        f"idle share over it {out['train_loop_idle_share']:.3f}; fit {fit_s:.1f} s [{card}]")
+
+    first = next(iter(dm.train_loader()))
+    batch = to_device_batch(first, torch.device("cuda"))
+    lr = train_cfg.optimizer.lr
+    out["remat"] = {}
+    for remat in (False, True):
+        # The storages the autograd graph keeps for the backward (each once),
+        # beside the step's peak.
+        saved: dict = {}
+
+        def pack(t):
+            saved[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+            return t
+
+        trainer.model.voxel_encoder.remat = remat
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t), \
+                peak_segments(torch, trainer.model) as segments:
+            losses = step(batch, lr)
+        torch.cuda.synchronize()
+        out["remat"]["on" if remat else "off"] = row = {
+            "total_loss": losses["train_loss/total_loss"].item(), "launches": ops.launches(),
+            "peak_gib": max(peak for _, peak, _ in segments),
+            "saved_gib": sum(saved.values()) / 2**30, "segments": segments}
+        require(row["launches"] == (REMAT_LAUNCHES if remat else TRAIN_LAUNCHES),
+                f"c13 remat={remat} step launches {row['launches']}")
+    log("c13 one bf16 step, remat off / on: peak "
+        f"{out['remat']['off']['peak_gib']:.2f} / {out['remat']['on']['peak_gib']:.2f} GiB, "
+        f"saved for the backward {out['remat']['off']['saved_gib']:.2f} / "
+        f"{out['remat']['on']['saved_gib']:.2f} GiB [{card}]")
+    for key in ("off", "on"):
+        log(f"  remat {key}, peak GiB by segment (allocated at its end): " + ", ".join(
+            f"{label} {peak:.2f} ({held:.2f})" for label, peak, held in out["remat"][key][
+                "segments"]))
+    out["profile"] = prof = profile_step(torch, step, batch, lr)
+    log(f"profiled c13 train step: device busy {prof['device_busy_ms']} ms of "
+        f"{prof['wall_ms']:.3f} ms wall, idle share {prof['device_idle_share']}, port kernels "
+        f"{prof['port_kernels_ms']} [{card}]")
+    for row in prof["top"][:10]:
+        log(f"    {row['device_ms']:9.3f} ms x{row['count']:<4d} {row['name'][:90]}")
+    for row in prof["top_ops"][:6]:
+        log(f"    {row['device_ms']:9.3f} ms x{row['count']:<4d} {row['op']} {row['shapes']}")
+    out["host_batch"] = c13_host_batch(_packed_first(dm, out["k"]), train_cfg.data.voxel_size)
+    hb = out["host_batch"]
+    log(f"c13 host batch: {hb['sites']} sites -> {hb['rows_bytes'] / 2**20:.1f} MiB of rows; "
+        f"C++ windowed_compact sweep {hb['sweep_ms']:.2f} ms, pin_batch {hb['pin_ms']:.2f} ms "
+        f"(host) [{host_cpu()}] [{card}]")
+    del trainer, step
+    torch.cuda.empty_cache()
+
+    cfg32 = load_config(C13_128 + C13_TRAIN + ["precision.compute_dtype=float32"])
+    out["train_plain_compare"] = cmp = train_plain_compare(torch, cfg32, batch)
+    log(f"c13 train plain path (f32, TF32 off, deterministic): losses rel {cmp['loss_rel']:.3g} "
+        f"(tol {TRAIN_LOSS_RTOL}), grads rel-of-max {cmp['grad_rel_of_max']:.3g} (tol "
+        f"{TRAIN_GRAD_TOL}), running_var |d| {cmp['running_var_abs']:.3g} (tol "
+        f"{TRAIN_VAR_TOL}), max |d| {cmp['max_abs']}")
+    del batch
+    torch.cuda.empty_cache()
+    return out, ckpt
+
+
+@contextlib.contextmanager
+def peak_segments(torch, model):
+    """Peak device memory by segment of a train step: forward hooks on the
+    encoders and the voxel blocks close a segment at each module's start
+    and end (the peak since the last mark, in GiB, and what is allocated
+    there); the last segment is the backward and the optimizer step. The
+    allocator's counters are host-side, so marking needs no synchronise."""
+    segments: list = []
+
+    def mark(label):
+        segments.append((label, torch.cuda.max_memory_allocated() / 2**30,
+                         torch.cuda.memory_allocated() / 2**30))
+        torch.cuda.reset_peak_memory_stats()
+
+    modules = [("text", model.text_encoder), ("image", model.image_encoder)]
+    modules += [(f"voxel block {i + 1}", b) for i, b in enumerate(model.voxel_encoder.blocks)]
+    modules.append(("voxel head", model.voxel_encoder.head))
+    handles = []
+    for label, module in modules:
+        handles.append(module.register_forward_pre_hook(
+            lambda m, a, label=label: mark(f"to {label}")))
+        handles.append(module.register_forward_hook(
+            lambda m, a, o, label=label: mark(f"{label} forward")))
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        yield segments
+    finally:
+        for handle in handles:
+            handle.remove()
+        mark("backward + optimizer")
+
+
+def _packed_first(dm, k) -> dict:
+    """The first train batch's packed words (the loader's collation with
+    the packed transfer) and the split's k."""
+    loader = dm.train_loader()
+    loader.voxel_transfer = "packed"
+    return dict(loader.peek(), k=k)
+
+
+def f1_decisions(torch, cache_dir: str, pairs) -> dict:
+    """Each scored (gt, pred) pair's threshold decisions, both directions:
+    the port's search on the card against a float64 oracle on the host
+    (scipy's exact k-d tree over the same f32 points), and, beside the main
+    path, the JAX package's expansion |a|² − 2a·bᵀ + |b|² in f32 on the card
+    with TF32 off and on. Counts of decisions that differ from the oracle."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    from tricolo_tpu_torch.evaluation.f1_mesh import min_dists
+
+    def expansion(a, b, tf32):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            a_t, b_t = (torch.as_tensor(x, device="cuda") for x in (a, b))
+            b_sq = (b_t * b_t).sum(1)
+            out = []
+            for start in range(0, len(a_t), 2048):
+                blk = a_t[start : start + 2048]
+                d2 = (blk * blk).sum(1)[:, None] - 2.0 * (blk @ b_t.T) + b_sq[None]
+                out.append(d2.amin(1).clamp_min(0).sqrt())
+            return torch.cat(out).cpu().numpy()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    counts = {"decisions": 0, "port": 0, "expansion_f32": 0, "expansion_tf32": 0}
+    search_s = oracle_s = 0.0
+    t = F1_THRESHOLD
+    for gt, pred in pairs:
+        g, p = (np.load(os.path.join(cache_dir, f"{m}.npy")) for m in (gt, pred))
+        for a, b in ((p, g), (g, p)):
+            tic = time.perf_counter()
+            port = min_dists(a, b, device="cuda")
+            search_s += time.perf_counter() - tic
+            tic = time.perf_counter()
+            oracle = cKDTree(b.astype(np.float64)).query(a.astype(np.float64), k=1)[0]
+            oracle_s += time.perf_counter() - tic
+            truth = oracle < t
+            counts["decisions"] += len(a)
+            counts["port"] += int(((port < t) != truth).sum())
+            counts["expansion_f32"] += int(((expansion(a, b, False) < t) != truth).sum())
+            counts["expansion_tf32"] += int(((expansion(a, b, True) < t) != truth).sum())
+    return {"flips": counts, "search_s": search_s, "oracle_s": oracle_s}
+
+
+def c13_test_and_f1(torch, card, ckpt) -> dict:
+    """14d: the test CLI on the fit's checkpoint (it writes nearest.jsonl
+    in its CWD), then ``python -m tricolo_tpu_torch.calculate_f1`` over that
+    file and the fixture's OBJs on the card; the mean F1 and the threshold
+    decisions that differ from a float64 oracle."""
+    from tricolo_tpu_torch.data.fixture import exp_data_dir, shapenet_dir
+
+    run_dir = C13_ROOT / "test_run"
+    run_dir.mkdir(parents=True, exist_ok=True)
+    tic = time.perf_counter()
+    metrics = _cli("test", C13_128 + C13_TRAIN + [f"+ckpt_path={ckpt}"], run_dir)
+    out = {"test_cli": metrics, "test_cli_s": time.perf_counter() - tic}
+    nearest = run_dir / "nearest.jsonl"
+    rows = [json.loads(line) for line in nearest.read_text().splitlines() if line.strip()]
+    val_map = os.path.join(exp_data_dir(str(C13_ROOT)), "val_map.json")
+    cache = run_dir / "point_cache"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    tic = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tricolo_tpu_torch.calculate_f1", f"+nearest_path={nearest}",
+         f"+val_map_path={val_map}", f"+shapenet_root={shapenet_dir(str(C13_ROOT))}",
+         f"+point_cache_dir={cache}"],
+        cwd=run_dir, env=env, capture_output=True, text=True, timeout=600)
+    out["f1_cli_s"] = time.perf_counter() - tic
+    require(proc.returncode == 0, f"calculate_f1 CLI failed ({proc.returncode}): "
+            f"{proc.stderr[-2000:]}")
+    out["mean_f1"] = mean_f1 = float(proc.stdout.strip().splitlines()[-1])
+    require(0.0 <= mean_f1 <= 100.0, f"mean F1 {mean_f1} outside [0, 100]")
+    pairs = sorted({(r["groundtruth"].rsplit("-", 1)[0], r["retrieved_models"][0])
+                    for r in rows})
+    hits = sum(r["groundtruth"].rsplit("-", 1)[0] == r["retrieved_models"][0] for r in rows)
+    out.update(queries=len(rows), pairs=len(pairs), top1_hits=hits)
+    out.update(f1_decisions(torch, str(cache), pairs))
+    flips = out["flips"]
+    log(f"c13 test CLI on {Path(ckpt).name}: RR@1 RR@5 NDCG@5 MRR {metrics} "
+        f"({out['test_cli_s']:.1f} s); calculate_f1 on the card over {len(rows)} queries "
+        f"({len(pairs)} pairs, {hits} top-1 hits): mean F1@{F1_THRESHOLD} = {mean_f1} in "
+        f"{out['f1_cli_s']:.1f} s; threshold decisions differing from the float64 oracle: "
+        f"port {flips['port']} of {flips['decisions']} (search {out['search_s']:.2f} s, "
+        f"oracle {out['oracle_s']:.2f} s host); beside the path, the f32 expansion "
+        f"{flips['expansion_f32']}, with TF32 {flips['expansion_tf32']} [{card}]")
+    return out
+
+
+def c13_128(torch, card) -> tuple[dict, dict]:
+    """Phase 14: 14a the fixture and the fused reader, 14b the kernels at
+    the 128³ shapes, 14c the index and the fit, 14d the test CLI and mesh
+    F1. Returns (report, launches of the index build and of the fit)."""
+    from tricolo_tpu_torch.config import load_config
+    from tricolo_tpu_torch.data import DataModule
+
+    out: dict = {}
+    walls = out["walls_s"] = {}
+    tic = time.perf_counter()
+    out["fixture"] = c13_fixture(card)
+    walls["fixture"] = time.perf_counter() - tic
+
+    tic = time.perf_counter()
+    cfg = load_config(C13_128)
+    dm = DataModule(cfg)
+    dm.setup("fit")
+    out["kernels"] = c13_kernels(torch, cfg, dm.train_loader().peek())
+    kr = out["kernels"]
+    log(f"c13 kernels (B={kr['B']}, k={kr['k']}, T={kr['T']}): K1 max err {kr['k1_err']}, "
+        f"K2 max err {kr['k2_err']}, K3 max err {kr['k3_err']} (bit-exact required)")
+    del dm
+    walls["kernels"] = time.perf_counter() - tic
+
+    tic = time.perf_counter()
+    out["index"] = c13_index(torch, card, cfg)
+    walls["index"] = time.perf_counter() - tic
+    tic = time.perf_counter()
+    out["train"], ckpt = c13_fit(torch, card, cfg)
+    walls["fit"] = time.perf_counter() - tic
+    tic = time.perf_counter()
+    out["test_f1"] = c13_test_and_f1(torch, card, ckpt)
+    walls["test_f1"] = time.perf_counter() - tic
+    log("phase 14 walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    return out, {"c13_serving": out["index"]["launches"], "c13_train": out["train"]["launches_fit"]}
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -2807,14 +3296,21 @@ def main() -> int:
     report["other_backbones"], backbone_paths = other_backbones(torch, card)
     walls["other_backbones_s"] = time.perf_counter() - tic
 
-    # 14. kernels line, card line, result
+    # 14. the C13/128³ configuration: the fixture through the fused npz
+    # reader, the kernels at the 128³ shapes, the index and one remat epoch,
+    # the test CLI and mesh F1 on the card.
+    tic = time.perf_counter()
+    report["c13_128"], c13_paths = c13_128(torch, card)
+    walls["c13_128_s"] = time.perf_counter() - tic
+
+    # 15. kernels line, card line, result
     def total(rows, key):
         return sum(r[key] for r in rows)
 
     paths = {"serving": launches, "train": train_launches,
              "dense_serving": report["dense_serving"]["launches"],
              "dense_train": dense_train["launches_fit"], **lifecycle_paths, **unmasked_paths,
-             **clip_paths, **dp_paths, **backbone_paths}
+             **clip_paths, **dp_paths, **backbone_paths, **c13_paths}
 
     def both(name):
         return {path: counts[name] for path, counts in paths.items()}
@@ -2824,6 +3320,13 @@ def main() -> int:
 
     k1_main = [r for r in k1_rows if r["main"]]
     k3_main = [r for r in k3_rows if r["main"]]
+    k2_main = list(k2_rows)
+    # The 128³ rows (phase 14b) ride in the shapes; the totals stay phase 3's.
+    c13k = report["c13_128"]["kernels"]
+    k1_rows, k2_rows, k3_rows = (k1_rows + c13k["k1"], k2_rows + c13k["k2"],
+                                 k3_rows + c13k["k3"])
+    k1_err, k2_err, k3_err = (max(k1_err, c13k["k1_err"]), max(k2_err, c13k["k2_err"]),
+                              max(k3_err, c13k["k3_err"]))
     kernels = [
         {"name": "bn_relu_pool", "route": "cuda",
          "source": "tricolo_tpu_torch/csrc/bn_relu_pool.cu",
@@ -2838,8 +3341,8 @@ def main() -> int:
          "replaces": "tricolo_tpu/ops/_graveyard/dma_tiles.py:128",
          "launches": on_paths("scatter_tiles_ps"),
          "launches_by_path": both("scatter_tiles_ps"), "max_abs_err": k2_err,
-         "ms": total(k2_rows, "ms"), "plain_ms": total(k2_rows, "plain_ms"),
-         "bound_ms": total(k2_rows, "bound_ms"), "bound_by": "bytes",
+         "ms": total(k2_main, "ms"), "plain_ms": total(k2_main, "plain_ms"),
+         "bound_ms": total(k2_main, "bound_ms"), "bound_by": "bytes",
          "library_ms": None, "shapes": k2_rows},
         {"name": "bn_relu_pool_bwd", "route": "cuda",
          "source": "tricolo_tpu_torch/csrc/bn_relu_pool_bwd.cu",

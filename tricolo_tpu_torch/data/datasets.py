@@ -12,9 +12,10 @@ model's vision data. Items stay uint8/packed on the host — images
 ``StructuredSyntheticDataset`` (``structured.py``) the one whose captions
 determine their shapes; ``GeneralDataset``
 reads the Text2Shape ``{split}_map.json`` + per-model ``.npz`` layout: each
-model's npz with numpy, its RGBA grid packed by the host loader's C++ sweep
-(``dense_rgba_to_packed``; the numpy version is ``dense_rgba_to_packed_plain``),
-over ``data.num_workers`` threads. With a CLIP head configured, items also
+model's ``voxel{D}`` member inflated and packed in one native call
+(``native.npz_reader.load_npz_voxels_packed``, zlib; the numpy version is
+``np.load`` + ``dense_rgba_to_packed_plain``), its views with numpy, over
+``data.num_workers`` threads. With a CLIP head configured, items also
 carry the model's precached CLIP features (``clip_embeddings_img``,
 ``clip_embeddings_text``: (768,) float32) — ``GeneralDataset`` reads them
 from ``clip_embeddings_{split}.npz`` (or the reference's ``.pth``) under
@@ -32,6 +33,7 @@ from typing import Any
 import numpy as np
 
 from .. import native
+from ..native import npz_reader
 
 # CLIP normalization stats (reference general_dataset.py:87-89).
 CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -203,8 +205,8 @@ def _resize_views_bicubic(views_chw: np.ndarray, size: int) -> np.ndarray:
 class GeneralDataset(_SplitDataset):
     """One Text2Shape split in RAM (caption map + per-model npz). Each
     unique model loads once (``_load_model``), over ``data.num_workers``
-    threads when it is > 1: numpy's npz inflate and the C++ packing
-    release the GIL, so the threads overlap. With a CLIP head, a model
+    threads when it is > 1: the native voxel reader and numpy's inflate of
+    the views release the GIL, so the threads overlap. With a CLIP head, a model
     found in the split's CLIP cache carries its features; with the CLIP
     text head, captions are CLIP-tokenized (context 77), which needs the
     BPE merges file (``TRICOLO_CLIP_BPE``; FileNotFoundError here without
@@ -254,8 +256,11 @@ class GeneralDataset(_SplitDataset):
         """One model's packed voxels and resized views from its npz."""
         category, model_id = key
         data = self.data_cfg
-        with np.load(os.path.join(data.exp_data_root_path, category, f"{model_id}.npz")) as npz:
-            flat, rgb = dense_rgba_to_packed(npz[f"voxel{self.voxel_size}"])
+        path = os.path.join(data.exp_data_root_path, category, f"{model_id}.npz")
+        # The voxel member never becomes a numpy grid: inflated and packed
+        # in one native call (8 MB a model at 128³).
+        flat, rgb = npz_reader.load_npz_voxels_packed(path, f"voxel{self.voxel_size}")
+        with np.load(path) as npz:
             stored = npz["images"]
         sub = np.round(np.linspace(0, len(stored) - 1, data.num_views)).astype(int)
         entry = {"flat": flat, "rgb": rgb,

@@ -66,9 +66,9 @@ def library_path(name: str) -> Path:
     return hashed_library(name, CSRC / f"{name}.cu", NVCC_FLAGS)
 
 
-def compile_start(command: list[str], source: Path, target: Path):
-    """Start ``command -o <tmp> source`` unless ``target`` exists; returns
-    (target, tmp, process, label) or None. The output goes to a
+def compile_start(command: list[str], source: Path, target: Path, libs: tuple = ()):
+    """Start ``command -o <tmp> source libs`` unless ``target`` exists;
+    returns (target, tmp, process, label) or None. The output goes to a
     pid-suffixed file that ``compile_finish`` renames into place, so
     processes that build at once never load a half-written library."""
     if target.exists():
@@ -76,7 +76,7 @@ def compile_start(command: list[str], source: Path, target: Path):
     target.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.Popen(
-        [*command, "-o", str(tmp), str(source)],
+        [*command, "-o", str(tmp), str(source), *libs],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     return target, tmp, proc, f"{Path(command[0]).name} failed for {source.name}"

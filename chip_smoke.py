@@ -172,7 +172,23 @@ Phases (any failure exits non-zero and prints no result line):
     card (the mean F1@0.1), and each scored pair's threshold decisions
     against a float64 k-d tree oracle on the host (the port's search, and
     beside the path the f32 expansion with TF32 off and on);
-15. the kernels line (ten rows: K1-K7, K2's global entry, and K1's and
+15. bf16 parameters (``precision.param_dtype=bfloat16``) on the flagship
+    Tri(I+V) (synthetic-256, windowed_compact, masked BN): 15a a seeded
+    bf16 model saved as a port checkpoint, served by
+    ``RetrievalServer.from_checkpoint``: its bf16 index (launches per batch
+    exactly K1 5 and K2 2, every other kernel 0), four token queries and
+    one image query; 15b one epoch through ``Trainer.fit`` at bf16 compute
+    (a step exactly K1 5, K2 2, K3 5, pair 3, two-term 6; finite losses,
+    step median of 2-6 and pairs/s, peak memory) and a profiled step,
+    beside phase 7's f32-parameter numbers (reported, not a gate); 15c the
+    index at f32 compute through the kernels and the plain path (1e-5) and
+    one f32-compute step kernel-vs-plain with phase 9's tolerances (each
+    bf16 gradient element also allowed one bf16 ulp: each path rounds its
+    f32 gradient once), its updated bf16 parameters each within one bf16 ulp or within 2·lr and one
+    ulp, at most ``BF16_BEYOND_ULP`` of them beyond one ulp (the counts
+    printed); 15d parameters and Adam's moments bf16, BN running
+    statistics f32, on the card;
+16. the kernels line (ten rows: K1-K7, K2's global entry, and K1's and
     K3's unmasked entries; the row of K4
     counts the pair launches, each of which computes K4 twice, and carries
     the pair entry's times, the rows of K5 and K6 likewise the two-term
@@ -222,6 +238,10 @@ TRAIN_VAR_TOL = 1e-6
 # this floor, where a deviation relative to its own max would be noise
 # over noise.
 ZERO_GRAD = 1e-5
+# bf16 parameters (phase 15): the share of updated parameter elements that
+# may lie beyond one bf16 ulp between two steps from one state (each within
+# 2·lr: Adam's first step on a gradient near zero or near eps).
+BF16_BEYOND_ULP = 1e-3
 FLAGSHIP = [
     "data=synthetic",
     "model.image_encoder=MVCNNEncoder",
@@ -867,9 +887,10 @@ def train_plain_compare(torch, cfg, batch) -> dict:
             {k: v.item() for k, v in losses.items()},
             {n: p.grad.detach().clone() for n, p in model.named_parameters()},
             {n: b.detach().clone() for n, b in model.named_buffers() if n.endswith("running_var")},
+            {n: p.detach().clone() for n, p in model.named_parameters()},
         )
         del step
-    (loss_k, grad_k, var_k), (loss_p, grad_p, var_p) = runs[True], runs[False]
+    (loss_k, grad_k, var_k, new_k), (loss_p, grad_p, var_p, new_p) = runs[True], runs[False]
     loss_dev = max(abs(loss_k[n] / loss_p[n] - 1) for n in loss_p)
     top = max(g.abs().max().item() for g in grad_p.values())
     # A gradient below ZERO_GRAD of the step's largest is an exact 0 in f32
@@ -882,6 +903,15 @@ def train_plain_compare(torch, cfg, batch) -> dict:
     per = {n: ((grad_k[n] - g).abs().max() / g.abs().max()).item()
            for n, g in grad_p.items() if n not in zeros}
     grad_dev = max(per.values())
+    # A bf16 parameter's gradient is bf16 (JAX's cotangent of a bf16 leaf):
+    # each path rounds its f32 gradient once, so an element may also lie one
+    # bf16 ulp apart (2⁻⁷ of its magnitude at most) where the f32 values
+    # straddle a rounding boundary.
+    bf16 = {g.dtype for g in grad_p.values()} == {torch.bfloat16}
+    ulp = torch.finfo(torch.bfloat16).eps if bf16 else 0.0
+    past = {n: float(((grad_k[n].float() - g.float()).abs() - TRAIN_GRAD_TOL * g.abs().max()
+                      - ulp * g.float().abs()).max())
+            for n, g in grad_p.items() if n not in zeros}
     worst = [(n, d, grad_p[n].abs().max().item(), (grad_k[n] - grad_p[n]).abs().max().item())
              for n, d in sorted(per.items(), key=lambda kv: -kv[1])[:6]]
     var_dev = max((var_k[n] - v).abs().max().item() for n, v in var_p.items())
@@ -889,14 +919,52 @@ def train_plain_compare(torch, cfg, batch) -> dict:
                   + [(grad_k[n] - g).abs().max().item() for n, g in grad_p.items()]
                   + [(var_k[n] - v).abs().max().item() for n, v in var_p.items()])
     require(loss_dev <= TRAIN_LOSS_RTOL, f"train step losses: kernel vs plain {loss_dev}")
-    require(grad_dev <= TRAIN_GRAD_TOL, f"train step gradients: kernel vs plain {grad_dev}")
+    require(all(v <= 0 for v in past.values()),
+            f"train step gradients: kernel vs plain {grad_dev} of max (tol {TRAIN_GRAD_TOL}"
+            + (" and one bf16 ulp" if bf16 else "") + ")")
     require(all(v < ZERO_GRAD for v in zeros.values()),
             f"train step exact-zero gradients past {ZERO_GRAD} of the largest: {zeros}")
     require(var_dev <= TRAIN_VAR_TOL, f"train step running_var: kernel vs plain {var_dev}")
     torch.backends.cudnn.deterministic = False
-    return {"loss_rel": loss_dev, "grad_rel_of_max": grad_dev, "running_var_abs": var_dev,
-            "max_abs": max_abs, "grad_max": top, "worst": worst, "zero_grads": zeros,
-            "losses_kernel": loss_k, "losses_plain": loss_p}
+    out = {"loss_rel": loss_dev, "grad_rel_of_max": grad_dev, "running_var_abs": var_dev,
+           "grad_gate_margin": max(past.values()),
+           "max_abs": max_abs, "grad_max": top, "worst": worst, "zero_grads": zeros,
+           "losses_kernel": loss_k, "losses_plain": loss_p}
+    if {p.dtype for p in new_p.values()} == {torch.bfloat16}:
+        out["bf16_updates"] = bf16_updates(torch, new_k, new_p, cfg.optimizer.lr)
+    return out
+
+
+def bf16_updates(torch, got: dict, ref: dict, lr: float) -> dict:
+    """Two steps' updated bf16 parameters, element by element, in bf16
+    steps (ulps): each within one ulp, or within 2·lr and one ulp (Adam's
+    first step lr·g/(|g| + eps): a gradient that rounding moves across
+    zero, or one of the size of eps, moves its parameter up to 2·lr),
+    and at most ``BF16_BEYOND_ULP`` of the elements beyond one ulp.
+    Returns how many differ at all and beyond one ulp."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    eps = torch.finfo(torch.bfloat16).eps
+    differ = beyond = total = 0
+    worst = 0.0
+    for name, want in ref.items():
+        ulps = (ordered(got[name]) - ordered(want)).abs()
+        far = ulps > 1
+        gap = (got[name].float() - want.float()).abs()
+        excess = (gap - 2 * lr - eps * want.float().abs())[far]
+        if excess.numel():
+            worst = max(worst, float(gap[far].max()))
+            require(bool((excess <= 0).all()), f"bf16 update {name}: {float(excess.max())} "
+                    "past 2·lr and one ulp")
+        differ += int((ulps > 0).sum())
+        beyond += int(far.sum())
+        total += ulps.numel()
+    require(beyond <= BF16_BEYOND_ULP * total,
+            f"bf16 updates: {beyond} of {total} elements beyond one ulp")
+    return {"elements": total, "differ": differ, "beyond_one_ulp": beyond,
+            "beyond_max_abs": worst}
 
 
 def profile_step(torch, step, batch, lr) -> dict:
@@ -2196,11 +2264,12 @@ BACKBONE_EVAL_LAUNCHES = CLIP_EVAL_LAUNCHES
 TRIPLET_TRAIN_LAUNCHES = dict(TRAIN_LAUNCHES, nt_xent_fwd_pair=0, nt_xent_bwd=0)
 
 
-def backbone_index(torch, card, label, cfg, queries=True) -> tuple[dict, object, object]:
+def backbone_index(torch, card, label, cfg, queries=True,
+                   server=None) -> tuple[dict, object, object]:
     """The synthetic-256 index of ``cfg`` (bf16, random weights from the
-    seed) with launches per batch, the text and image queries, and the f32
-    index through the kernels against the plain path. Returns (report,
-    server, data module)."""
+    seed, or ``server``'s) with launches per batch, the text and image
+    queries, and the f32 index through the kernels against the plain path.
+    Returns (report, server, data module)."""
     import numpy as np
 
     from tricolo_tpu_torch import ops
@@ -2211,8 +2280,9 @@ def backbone_index(torch, card, label, cfg, queries=True) -> tuple[dict, object,
     out: dict = {}
     dm = DataModule(cfg)
     dm.setup("test")
-    torch.manual_seed(SEED)
-    server = RetrievalServer(cfg, TriCoLoNet.from_config(cfg))  # device: cuda
+    if server is None:
+        torch.manual_seed(SEED)
+        server = RetrievalServer(cfg, TriCoLoNet.from_config(cfg))  # device: cuda
     model = server.model
     n_batches = len(dm.test_loader())
     ops.reset_launches()
@@ -2906,6 +2976,144 @@ def c13_128(torch, card) -> tuple[dict, dict]:
     return out, {"c13_serving": out["index"]["launches"], "c13_train": out["train"]["launches_fit"]}
 
 
+# -------------------------------------------------------------- phase 15
+
+# bf16 parameters on the flagship Tri(I+V) (windowed_compact, masked BN):
+# the launches of phases 4 and 7, each kernel's γ, β in bf16.
+BF16_PARAMS = ["precision.param_dtype=bfloat16"]
+
+
+def bf16_dtypes(torch, model, optimizer=None) -> dict:
+    """Every parameter (and Adam moment) bf16, every BN running statistic
+    f32: the counts, or a failure."""
+    params = list(model.parameters())
+    stats = [b for name, b in model.named_buffers() if "running_" in name]
+    require({p.dtype for p in params} == {torch.bfloat16}, "a parameter is not bf16")
+    require(bool(stats) and {b.dtype for b in stats} == {torch.float32},
+            "a BN running statistic is not f32")
+    out = {"params": len(params), "running_stats": len(stats)}
+    if optimizer is not None:
+        moments = [optimizer.state[p][k] for p in params for k in ("exp_avg", "exp_avg_sq")]
+        require(len(moments) == 2 * len(params)
+                and {m.dtype for m in moments} == {torch.bfloat16}, "an Adam moment is not bf16")
+        out["moments"] = len(moments)
+    return out
+
+
+def bf16_params(torch, card, f32_train: dict) -> tuple[dict, dict]:
+    """Phase 15: the flagship at ``precision.param_dtype=bfloat16``. 15a a
+    seeded bf16 model saved as a port checkpoint and served by
+    ``RetrievalServer.from_checkpoint``: its index (launches per batch
+    exactly K1 5, K2 2), four token queries and one image query, then the
+    same index at f32 compute through the kernels and the plain path (15c,
+    ≤ ``F32_TOL``); 15b one epoch through ``Trainer.fit`` at bf16 compute
+    (a step exactly K1 5, K2 2, K3 5, pair 3, two-term 6; finite losses,
+    step median of 2-6 and pairs/s, peak memory) and a profiled step, beside
+    phase 7's f32-parameter numbers (``f32_train``; reported, not a gate);
+    15c the f32-compute step kernel-vs-plain from one state with phase 9's
+    tolerances, one bf16 ulp more for each bf16 gradient element
+    (``train_plain_compare``), and the updated bf16 parameters
+    (``bf16_updates``); 15d the
+    dtypes of the served and trained models and of Adam's moments."""
+    import numpy as np
+
+    from tricolo_tpu_torch import ops
+    from tricolo_tpu_torch.config import load_config
+    from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch.inference import to_device_batch
+    from tricolo_tpu_torch.models.tricolo_net import TriCoLoNet
+    from tricolo_tpu_torch.serving import RetrievalServer
+    from tricolo_tpu_torch.training import Trainer
+    from tricolo_tpu_torch.training.checkpoint import save_checkpoint
+
+    label = "bf16_params"
+    cfg = load_config(FLAGSHIP + BF16_PARAMS)
+    torch.manual_seed(SEED)
+    seeded = TriCoLoNet.from_config(cfg)
+    ckpt = ROOT / "build" / "chip_smoke" / label / "seeded.ckpt"
+    save_checkpoint(str(ckpt), {"model": seeded.state_dict(), "optimizer": {}, "step": 0},
+                    epoch=0)
+    del seeded
+    server = RetrievalServer.from_checkpoint(cfg, str(ckpt))  # device: cuda
+    dtypes = {"served": bf16_dtypes(torch, server.model)}
+    out, server, _ = backbone_index(torch, card, label, cfg, server=server)
+    serve_launches = out["launches"]
+    del server
+    torch.cuda.empty_cache()
+
+    train_cfg = load_config(FLAGSHIP + BF16_PARAMS + TRAIN + [f"experiment_name=chip_smoke_{label}"])
+    trainer = Trainer(train_cfg)  # device: cuda
+    steps: list = []
+    step = trainer.train_step
+    trainer.train_step = timed_step(torch, step, steps)
+    train_dm = DataModule(train_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    ops.reset_launches()
+    reset_host_counts()
+    tic = time.perf_counter()
+    trainer.fit(train_dm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - tic
+    fit_launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    host = check_host_path(f"{label} train fit", 12)  # 6 train batches, 6 validation
+    require(len(steps) == 6, f"one {label} epoch ran {len(steps)} steps, not 6")
+    for i, row in enumerate(steps):
+        require(all(np.isfinite(v) for v in row["losses"].values()),
+                f"{label} train step {i}: non-finite losses {row['losses']}")
+        require(row["launches"] == TRAIN_LAUNCHES,
+                f"{label} train step {i}: launches {row['launches']} != {TRAIN_LAUNCHES}")
+        log(f"  {label} train step {i}: {row['ms']:.3f} ms (wall {row['wall_ms']:.3f} ms) "
+            "losses " + " ".join(f"{k}={v:.5f}" for k, v in row["losses"].items()))
+    dtypes["trained"] = bf16_dtypes(torch, trainer.model, trainer.optimizer)
+    step_ms = statistics.median(r["ms"] for r in steps[1:])
+    lr = train_cfg.optimizer.lr
+    batch = to_device_batch(next(iter(train_dm.train_loader())), torch.device("cuda"))
+    step(batch, lr)  # a step outside the profile: the profiled one is warm
+    prof = profile_step(torch, step, batch, lr)
+    out["train"] = {"steps": steps, "step_ms_median_2_6": step_ms,
+                    "step_wall_ms_median_2_6": statistics.median(r["wall_ms"] for r in steps[1:]),
+                    "pairs_per_s": train_cfg.data.batch_size / (step_ms / 1e3), "peak_gib": peak,
+                    "allocated_at_fit_start_gib": base, "launches_fit": fit_launches,
+                    "fit_s": fit_s, "host_path": host, "profile": prof}
+    f32_base = f32_train["allocated_at_fit_start_gib"]
+    out["f32_params_same_run"] = {
+        "step_ms_median_2_6": f32_train["step_ms_median_2_6"],
+        "pairs_per_s": f32_train["pairs_per_s"], "peak_gib": f32_train["peak_gib"],
+        "allocated_at_fit_start_gib": f32_base,
+        "device_idle_share": f32_train["profile"]["device_idle_share"]}
+    log(f"{label} train: 6 steps, median step (2-6) {step_ms:.3f} ms = "
+        f"{out['train']['pairs_per_s']:.1f} pairs/s, peak {peak:.2f} GiB ({peak - base:.2f} "
+        f"above the {base:.2f} allocated at the fit's start), profiled step idle share "
+        f"{prof['device_idle_share']}, launches/step {steps[-1]['launches']}, fit {fit_s:.1f} "
+        f"s; f32 parameters (phase 7, 10): {f32_train['step_ms_median_2_6']:.3f} ms = "
+        f"{f32_train['pairs_per_s']:.1f} pairs/s, peak {f32_train['peak_gib']:.2f} GiB "
+        f"({f32_train['peak_gib'] - f32_base:.2f} above {f32_base:.2f}), idle share "
+        f"{f32_train['profile']['device_idle_share']} [{card}]")
+    for row in prof["top"][:6]:
+        log(f"    {row['device_ms']:9.3f} ms x{row['count']:<4d} {row['name'][:90]}")
+    del trainer, step
+    torch.cuda.empty_cache()
+
+    cfg32 = load_config(FLAGSHIP + BF16_PARAMS + TRAIN + ["precision.compute_dtype=float32"])
+    out["train_plain_compare"] = cmp = train_plain_compare(torch, cfg32, batch)
+    upd = cmp["bf16_updates"]
+    log(f"{label} train plain path (f32 compute, TF32 off, deterministic): losses rel "
+        f"{cmp['loss_rel']:.3g} (tol {TRAIN_LOSS_RTOL}), grads rel-of-max "
+        f"{cmp['grad_rel_of_max']:.3g} (tol {TRAIN_GRAD_TOL} and one bf16 ulp of each "
+        f"element; margin {cmp['grad_gate_margin']:.3g}), running_var |d| "
+        f"{cmp['running_var_abs']:.3g} (tol {TRAIN_VAR_TOL}); updated bf16 parameters: "
+        f"{upd['differ']} of {upd['elements']} differ, {upd['beyond_one_ulp']} beyond one "
+        f"ulp (max |d| {upd['beyond_max_abs']:.3g}, within 2·lr + 1 ulp)")
+    out["dtypes"] = dtypes
+    log(f"{label} dtypes: {dtypes} (parameters and moments bf16, BN statistics f32)")
+    del batch
+    torch.cuda.empty_cache()
+    return out, {f"{label}_serving": serve_launches, f"{label}_train": fit_launches}
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -3138,6 +3346,7 @@ def main() -> int:
     train_dm = DataModule(train_cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    train_base = torch.cuda.memory_allocated() / 2**30
     ops.reset_launches()
     reset_host_counts()
     tic = time.perf_counter()
@@ -3160,7 +3369,8 @@ def main() -> int:
     train = {"steps": steps, "step_ms_median_2_6": step_ms,
              "step_wall_ms_median_2_6": statistics.median(r["wall_ms"] for r in steps[1:]),
              "pairs_per_s": train_cfg.data.batch_size / (step_ms / 1e3),
-             "peak_gib": train_peak, "launches_fit": train_launches,
+             "peak_gib": train_peak, "allocated_at_fit_start_gib": train_base,
+             "launches_fit": train_launches,
              "val_rr5": trainer.metrics.summary("")["RR@5"], "fit_s": walls["train_fit_s"]}
     report["train"] = train
     log(f"train: 6 steps, median step (2-6) {step_ms:.3f} ms = "
@@ -3303,14 +3513,22 @@ def main() -> int:
     report["c13_128"], c13_paths = c13_128(torch, card)
     walls["c13_128_s"] = time.perf_counter() - tic
 
-    # 15. kernels line, card line, result
+    # 15. bf16 parameters: the flagship index from a bf16 checkpoint, one
+    # epoch through Trainer.fit, the f32-compute kernel-vs-plain index and
+    # step, the dtypes on the card.
+    tic = time.perf_counter()
+    report["bf16_params"], bf16_paths = bf16_params(torch, card, report["train"])
+    walls["bf16_params_s"] = time.perf_counter() - tic
+    log(f"phase 15: {walls['bf16_params_s']:.1f} s")
+
+    # 16. kernels line, card line, result
     def total(rows, key):
         return sum(r[key] for r in rows)
 
     paths = {"serving": launches, "train": train_launches,
              "dense_serving": report["dense_serving"]["launches"],
              "dense_train": dense_train["launches_fit"], **lifecycle_paths, **unmasked_paths,
-             **clip_paths, **dp_paths, **backbone_paths, **c13_paths}
+             **clip_paths, **dp_paths, **backbone_paths, **c13_paths, **bf16_paths}
 
     def both(name):
         return {path: counts[name] for path, counts in paths.items()}

@@ -5,7 +5,8 @@
   dtype, shape and bytes: npscalars, empty ``EmptyState`` dicts, strings,
   None, ints of every width, floats, complex, lists, bytes, chunked arrays,
   and real train-state checkpoints of both optimizer layouts. A bfloat16
-  leaf raises NotImplementedError naming it.
+  leaf decodes to a uint16 array of its bits, bit-exact, which
+  ``convert.jax_to_torch`` views as ``torch.bfloat16``.
 * A JAX checkpoint serves in the port: its index equals the JAX eval
   forward's within 1e-4 (f32 on the CPU; convolution sums run in another
   order), a legacy 3-channel block-0 voxel kernel included.
@@ -104,14 +105,22 @@ def test_chunked_arrays(tmp_path, monkeypatch):
     _assert_reads_as_flax(path)
 
 
-def test_bfloat16_leaf_raises(tmp_path):
+def test_bfloat16_leaf_decodes_bit_exact(tmp_path):
     import jax.numpy as jnp
 
+    from tricolo_tpu_torch.convert import jax_to_torch
     from tricolo_tpu_torch.training.jax_checkpoint import load_jax_checkpoint
 
-    path = _write(tmp_path, {"params": {"enc": {"w": np.asarray(jnp.ones(3, jnp.bfloat16))}}})
-    with pytest.raises(NotImplementedError, match="params/enc/w"):
-        load_jax_checkpoint(path)
+    rng = np.random.default_rng(3)
+    w = np.array(jnp.asarray(rng.normal(size=(2, 5)), jnp.bfloat16))
+    w[0, :3] = [np.inf, -0.0, 1e-40]  # inf, signed zero, a bf16 subnormal
+    path = _write(tmp_path, {"params": {"enc": {"w": w}}, "step": np.asarray(1, np.int32)})
+    leaf = load_jax_checkpoint(path)["params"]["enc"]["w"]
+    assert leaf.dtype == np.uint16 and leaf.shape == w.shape
+    assert leaf.tobytes() == w.tobytes()
+    tensor = jax_to_torch({"enc": {"embedding": leaf}}, {})["enc.weight"]
+    assert tensor.dtype == torch.bfloat16
+    assert tensor.view(torch.int16).numpy().tobytes() == w.tobytes()
 
 
 def _jax_cfg(extra=()):

@@ -77,12 +77,14 @@ def _free_port() -> str:
         return str(s.getsockname()[1])
 
 
-def spawn_ranks(script: str, workdir: Path, timeout: float = 240.0) -> list:
-    """Run ``script`` as two gloo ranks; each saves ``rank<r>.pt`` in
-    ``workdir``, which this returns loaded, rank order."""
+def spawn_ranks(script: str, workdir: Path, timeout: float = 240.0, ranks: int = RANKS,
+                args=()) -> list:
+    """Run ``script`` as ``ranks`` gloo ranks (``script <rank> <port>
+    <workdir> *args``); each saves ``rank<r>.pt`` in ``workdir``, which this
+    returns loaded, rank order."""
     port = _free_port()
-    logs = [open(workdir / f"rank{rank}.log", "w") for rank in range(RANKS)]
-    procs = [subprocess.Popen([sys.executable, script, str(rank), port, str(workdir)],
+    logs = [open(workdir / f"rank{rank}.log", "w") for rank in range(ranks)]
+    procs = [subprocess.Popen([sys.executable, script, str(rank), port, str(workdir), *args],
                               stdout=log, stderr=subprocess.STDOUT, cwd=REPO)
              for rank, log in enumerate(logs)]
     try:
@@ -97,19 +99,19 @@ def spawn_ranks(script: str, workdir: Path, timeout: float = 240.0) -> list:
         text = (workdir / f"rank{rank}.log").read_text()
         assert p.returncode == 0, f"rank {rank} failed:\n{text[-4000:]}"
     return [torch.load(workdir / f"rank{rank}.pt", weights_only=False)
-            for rank in range(RANKS)]
+            for rank in range(ranks)]
 
 
-def init_rank(rank: int, port: str):
-    """This process's gloo rank of the 2-rank world: its ``World``."""
+def init_rank(rank: int, port: str, ranks: int = RANKS):
+    """This process's gloo rank of the ``ranks``-rank world: its ``World``."""
     import torch.distributed as dist
 
     from tricolo_tpu_torch.parallel import World
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=RANKS, rank=rank)
-    return World(rank, RANKS, dist.group.WORLD)
+                            world_size=ranks, rank=rank)
+    return World(rank, ranks, dist.group.WORLD)
 
 
 def torch_cfg(extra=()):

@@ -114,21 +114,26 @@ def test_pretrained_path_needs_the_mvcnn_encoder(tmp_path):
     _port_trainer(_overrides(missing, tmp_path) + ["model.image_encoder=null"])
 
 
-@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16", "float16"])
 def test_param_dtype_is_honoured_or_refused(param_dtype):
-    """The JAX package builds its parameters in ``precision.param_dtype``;
-    the port builds f32 only and refuses any other value."""
+    """The JAX package builds its parameters in ``precision.param_dtype``
+    (float32 or bfloat16; its dict lookup refuses any other name); so does
+    the port, with every BN running statistic f32 in either."""
     from tricolo_tpu.models.tricolo_net import TriCoLoNet as JaxNet
     from tricolo_tpu_torch.models.tricolo_net import TriCoLoNet
 
     key = [f"precision.param_dtype={param_dtype}"]
-    JaxNet.from_config(jax_cfg(key))
-    if param_dtype == "float32":
-        model = TriCoLoNet.from_config(torch_cfg(key))
-        assert {p.dtype for p in model.parameters()} == {torch.float32}
-    else:
-        with pytest.raises(NotImplementedError, match="param_dtype"):
+    if param_dtype == "float16":
+        with pytest.raises(KeyError):
+            JaxNet.from_config(jax_cfg(key))
+        with pytest.raises(ValueError, match="param_dtype"):
             TriCoLoNet.from_config(torch_cfg(key))
+        return
+    JaxNet.from_config(jax_cfg(key))
+    model = TriCoLoNet.from_config(torch_cfg(key))
+    assert {p.dtype for p in model.parameters()} == {getattr(torch, param_dtype)}
+    stats = [b for name, b in model.named_buffers() if "running_" in name]
+    assert stats and {b.dtype for b in stats} == {torch.float32}
 
 
 # ------------------------------------------- the other backbones' converters

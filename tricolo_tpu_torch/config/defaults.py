@@ -259,8 +259,10 @@ def default_config() -> ConfigNode:
                 "process_id": None,
             },
             "precision": {
-                # bfloat16 activations through convs/matmuls, float32 params,
-                # optimizer state and loss.
+                # bfloat16 activations through convs/matmuls (autocast), the
+                # loss in float32. param_dtype: the parameters' and the Adam
+                # moments' dtype (float32 or bfloat16); BN running
+                # statistics stay float32 in either.
                 "compute_dtype": "bfloat16",
                 "param_dtype": "float32",
                 # XLA scoped-VMEM budget for the step programs (TPU only).

@@ -20,11 +20,21 @@ round trip is bit-exact:
   ``text_encoder/MLPHead_0/TorchLinear_{0,1}/Dense_0`` ↔
   ``text_encoder.head.fc{1,2}``, ``image_encoder`` alike.
 
+bfloat16 leaves (``precision.param_dtype=bfloat16``: parameters and Adam
+moments) cross as their bits, without ``ml_dtypes``: ``jax_to_torch``
+takes an array whose dtype is named ``bfloat16`` (JAX's, in the tests) or
+a ``uint16`` array (bf16 bits, as ``training.jax_checkpoint`` decodes them;
+no parameter, statistic or moment is ever an integer) and views its bits
+as ``torch.bfloat16``; ``torch_to_jax`` gives a bf16 tensor back as its
+``uint16`` bits, which the JAX side views as ``jnp.bfloat16``. Every other
+leaf keeps its dtype.
+
 ``jax_checkpoint_to_torch`` carries a whole JAX checkpoint (as
 ``training.jax_checkpoint.load_jax_checkpoint`` reads it, no flax needed)
 over: the weights through ``jax_to_torch`` after
 ``migrate_legacy_voxel_kernel``, the Adam moments of either JAX optimizer
-layout as ``torch.optim.Adam`` state.
+layout, in their dtype, as the state of ``training.optim.Adam`` (the
+names of ``torch.optim.Adam``'s).
 """
 
 from __future__ import annotations
@@ -69,7 +79,17 @@ def _module_to_torch(part: str) -> list[str]:
 
 
 def _tensor(array: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.array(array, copy=True, order="C"))
+    array = np.array(array, copy=True, order="C")
+    if array.dtype.name == "bfloat16" or array.dtype == np.uint16:
+        return torch.from_numpy(array.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(array)
+
+
+def _array(tensor: torch.Tensor) -> np.ndarray:
+    tensor = tensor.detach().cpu()
+    if tensor.dtype == torch.bfloat16:
+        return tensor.view(torch.int16).numpy().view(np.uint16)
+    return tensor.numpy()
 
 
 def jax_to_torch(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
@@ -138,7 +158,7 @@ def torch_to_jax(state_dict: dict) -> tuple[dict, dict]:
     stats: dict = {}
     for key, tensor in state_dict.items():
         *mods, leaf = key.split(".")
-        value = tensor.detach().cpu().numpy()
+        value = _array(tensor)
         if leaf == "num_batches_tracked":
             continue
         if mods and mods[-1] == "gru":

@@ -1,12 +1,25 @@
 """Shared model building blocks.
 
-Port of ``tricolo_tpu.models.common``: ``TorchLinear`` is ``nn.Linear``
+Port of ``tricolo_tpu.models.common``: ``TorchLinear`` is ``Linear``
 (the JAX package re-created torch's default init; here it is the default),
 ``MLPHead`` is Linear → ReLU → [Dropout] → Linear, ``dropout`` is flax's
 ``nn.Dropout`` with its masks drawn from a caller's ``torch.Generator``
 (``stochastic_depth`` its per-sample form), ``l2_normalize`` matches
 ``F.normalize`` with eps 1e-12. ``BatchNorm2d`` is flax ``nn.BatchNorm``
 for the image backbones (ResNet, EfficientNet).
+
+Parameter and compute dtypes (``precision.param_dtype`` and
+``compute_dtype``) are flax's ``param_dtype``/``dtype`` pair: a module
+holds its parameters in the parameter dtype, created in it (``dtype=``
+factory arguments), and uses them in the compute dtype. The compute dtype
+is bf16 autocast or none (f32); ``in_compute`` is the one rule: under
+autocast a parameter goes in as it is (autocast casts it where an op
+computes in bf16), outside it a bf16 parameter is widened to f32 in the
+forward. The leaf stays bf16, so its gradient comes back in bf16, as JAX's
+cotangent of a bf16 leaf does. ``Linear`` and ``Conv2d`` apply it to
+their weight and bias. A BatchNorm's γ, β take the parameter dtype and its
+running statistics stay f32 (``hold_affine_in``); it normalises with γ, β
+widened to f32, as flax's ``_normalize`` promotes them.
 """
 
 from __future__ import annotations
@@ -14,6 +27,41 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def widen(t: torch.Tensor | None) -> torch.Tensor | None:
+    """A bf16 tensor as f32 (differentiable); any other as it is."""
+    return t.float() if t is not None and t.dtype == torch.bfloat16 else t
+
+
+def in_compute(t: torch.Tensor | None) -> torch.Tensor | None:
+    """A parameter as the compute dtype uses it: as it is under autocast,
+    widened from bf16 to f32 without (module docstring)."""
+    if t is None or torch.is_autocast_enabled(t.device.type):
+        return t
+    return widen(t)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose weight and bias enter through ``in_compute``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, in_compute(self.weight), in_compute(self.bias))
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose weight and bias enter through ``in_compute``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, in_compute(self.weight), in_compute(self.bias))
+
+
+def hold_affine_in(bn: nn.modules.batchnorm._BatchNorm, dtype) -> None:
+    """Make a BatchNorm's γ, β parameters of ``dtype`` (their init, ones
+    and zeros, in it); its running statistics stay f32."""
+    if dtype != bn.weight.dtype:
+        bn.weight = nn.Parameter(torch.ones(bn.num_features, dtype=dtype))
+        bn.bias = nn.Parameter(torch.zeros(bn.num_features, dtype=dtype))
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -31,24 +79,28 @@ class BatchNorm2d(nn.BatchNorm2d):
     through a differentiable all-reduce (whose backward sums the ranks'
     cotangents); each rank's dγ, dβ stay its own sums. Two passes, because
     E[x²] − mean² loses the variance to cancellation where a channel's mean
-    dwarfs its spread over the batch."""
+    dwarfs its spread over the batch. γ, β are of ``param_dtype`` and
+    enter every form widened to f32; the running statistics are f32."""
 
     bn_group = None
 
-    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9,
+                 param_dtype=torch.float32):
         super().__init__(num_features, eps=eps, momentum=1.0 - momentum)
         self.flax_momentum = momentum
+        hold_affine_in(self, param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = widen(self.weight), widen(self.bias)
         if not self.training:
-            return super().forward(x)
+            return F.batch_norm(x, self.running_mean, self.running_var, weight, bias,
+                                training=False, eps=self.eps)
         if self.bn_group is not None:
-            return self._global_batch_norm(x)
+            return self._global_batch_norm(x, weight, bias)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
             self.update_running(mean, var)
-        return F.batch_norm(x, None, None, self.weight, self.bias, training=True,
-                            eps=self.eps)
+        return F.batch_norm(x, None, None, weight, bias, training=True, eps=self.eps)
 
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         m = self.flax_momentum
@@ -56,7 +108,8 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
 
-    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+    def _global_batch_norm(self, x: torch.Tensor, weight: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
         from ..parallel.collectives import all_reduce_sum
 
         dims, shape = (0, 2, 3), (1, -1, 1, 1)
@@ -70,7 +123,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         var = all_reduce_sum(centred.square().sum(dim=dims), self.bn_group) / count
         self.update_running(mean, var)
         out = centred * torch.rsqrt(var + self.eps).view(shape)
-        return (out * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+        return (out * weight.view(shape) + bias.view(shape)).to(x.dtype)
 
 
 class MLPHead(nn.Module):
@@ -84,10 +137,11 @@ class MLPHead(nn.Module):
 
     rows = (0, 1)
 
-    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, dropout: float = 0.0):
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, dropout: float = 0.0,
+                 param_dtype=torch.float32):
         super().__init__()
-        self.fc1 = nn.Linear(in_dim, hidden_dim)
-        self.fc2 = nn.Linear(hidden_dim, out_dim)
+        self.fc1 = Linear(in_dim, hidden_dim, dtype=param_dtype)
+        self.fc2 = Linear(hidden_dim, out_dim, dtype=param_dtype)
         self.dropout = dropout
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:

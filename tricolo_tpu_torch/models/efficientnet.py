@@ -17,6 +17,9 @@ rename; a depthwise kernel (k, k, 1, mid) is ``Conv2d(groups=mid)``'s
   the rest after, so a stride-2 conv at an even size pads one more at the
   end than at the start (``SameConv2d``, from the input's static shape).
 * BatchNorm is efficientnet_pytorch's: flax momentum 0.99, eps 1e-3.
+* Parameters, the squeeze-excitation convs' biases among them, are created
+  in ``param_dtype`` and used in the compute dtype (``common.Conv2d``); BN
+  statistics stay f32.
 * Stochastic depth: block i of n drops its residual branch per sample at
   rate 0.2·i/n (``DROP_CONNECT_RATE``, the JAX package's default, which it
   exposes through no config key) in train mode, the masks drawn from the
@@ -33,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import BatchNorm2d, stochastic_depth
+from .common import BatchNorm2d, Conv2d, stochastic_depth
 
 # (expand_ratio, kernel, stride, in_channels, out_channels, repeats) — base B0.
 _BASE_BLOCKS = (
@@ -74,13 +77,14 @@ def same_padding(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-class SameConv2d(nn.Conv2d):
-    """``nn.Conv2d`` with flax ``padding="SAME"``: symmetric ``k // 2`` at
+class SameConv2d(Conv2d):
+    """``Conv2d`` with flax ``padding="SAME"``: symmetric ``k // 2`` at
     stride 1 (odd k), the asymmetric pad of ``same_padding`` otherwise."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, groups: int = 1):
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
+                 dtype=torch.float32):
         super().__init__(cin, cout, k, stride=stride, padding=k // 2 if stride == 1 else 0,
-                         groups=groups, bias=False)
+                         groups=groups, bias=False, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.stride[0] == 1:
@@ -91,8 +95,8 @@ class SameConv2d(nn.Conv2d):
         return super().forward(F.pad(x, (left, right, top, bottom)))
 
 
-def _bn(c: int) -> BatchNorm2d:
-    return BatchNorm2d(c, eps=_BN_EPS, momentum=_BN_MOMENTUM)
+def _bn(c: int, dtype) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=_BN_EPS, momentum=_BN_MOMENTUM, param_dtype=dtype)
 
 
 class MBConv(nn.Module):
@@ -101,20 +105,21 @@ class MBConv(nn.Module):
     rows = (0, 1)  # (rank, ranks) of the stochastic-depth draws: parallel.attach
 
     def __init__(self, in_channels: int, out_channels: int, expand_ratio: int, kernel: int,
-                 stride: int, drop_rate: float = 0.0):
+                 stride: int, drop_rate: float = 0.0, param_dtype=torch.float32):
         super().__init__()
+        dt = param_dtype
         mid = in_channels * expand_ratio
         self.has_expand = expand_ratio != 1
         if self.has_expand:
-            self.expand = nn.Conv2d(in_channels, mid, 1, bias=False)
-            self.bn_expand = _bn(mid)
-        self.depthwise = SameConv2d(mid, mid, kernel, stride, groups=mid)
-        self.bn_depthwise = _bn(mid)
+            self.expand = Conv2d(in_channels, mid, 1, bias=False, dtype=dt)
+            self.bn_expand = _bn(mid, dt)
+        self.depthwise = SameConv2d(mid, mid, kernel, stride, groups=mid, dtype=dt)
+        self.bn_depthwise = _bn(mid, dt)
         se_dim = max(1, int(in_channels * 0.25))
-        self.se_reduce = nn.Conv2d(mid, se_dim, 1)
-        self.se_expand = nn.Conv2d(se_dim, mid, 1)
-        self.project = nn.Conv2d(mid, out_channels, 1, bias=False)
-        self.bn_project = _bn(out_channels)
+        self.se_reduce = Conv2d(mid, se_dim, 1, dtype=dt)
+        self.se_expand = Conv2d(se_dim, mid, 1, dtype=dt)
+        self.project = Conv2d(mid, out_channels, 1, bias=False, dtype=dt)
+        self.bn_project = _bn(out_channels, dt)
         self.has_residual = stride == 1 and in_channels == out_channels
         self.drop_rate = drop_rate
 
@@ -137,14 +142,14 @@ class MBConv(nn.Module):
 class EfficientNet(nn.Module):
     """(N, H, W, 3) NHWC → pooled features (N, ``feature_dim``)."""
 
-    def __init__(self, cnn_name: str = "efficientnet_b0"):
+    def __init__(self, cnn_name: str = "efficientnet_b0", param_dtype=torch.float32):
         super().__init__()
         if cnn_name not in _SCALING:
             raise ValueError(f"unknown EfficientNet {cnn_name!r}; one of {sorted(_SCALING)}")
         width, depth = _SCALING[cnn_name]
         stem = _round_filters(32, width)
-        self.stem_conv = SameConv2d(3, stem, 3, stride=2)
-        self.stem_bn = _bn(stem)
+        self.stem_conv = SameConv2d(3, stem, 3, stride=2, dtype=param_dtype)
+        self.stem_bn = _bn(stem, param_dtype)
         total_blocks = sum(_round_repeats(r, depth) for *_, r in _BASE_BLOCKS)
         self.block_names = []
         block_idx = 0
@@ -155,12 +160,13 @@ class EfficientNet(nn.Module):
                 setattr(self, name, MBConv(
                     c_in if rep == 0 else c_out, c_out, expand, kernel,
                     stride if rep == 0 else 1,
-                    DROP_CONNECT_RATE * block_idx / total_blocks))
+                    DROP_CONNECT_RATE * block_idx / total_blocks, param_dtype))
                 self.block_names.append(name)
                 block_idx += 1
         head = _round_filters(1280, width)
-        self.head_conv = nn.Conv2d(_round_filters(320, width), head, 1, bias=False)
-        self.head_bn = _bn(head)
+        self.head_conv = Conv2d(_round_filters(320, width), head, 1, bias=False,
+                                dtype=param_dtype)
+        self.head_bn = _bn(head, param_dtype)
         self.feature_dim = head
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .common import MLPHead, fold_views, l2_normalize
+from .common import Linear, MLPHead, fold_views, l2_normalize
 from .efficientnet import EfficientNet
 from .resnet import ResNet
 
@@ -23,13 +23,13 @@ class MVCNNEncoder(nn.Module):
     """images (B, V, H, W, 3) float → L2-normalized (B, out_dim) float32."""
 
     def __init__(self, num_views: int = 6, z_dim: int = 512, out_dim: int = 512,
-                 cnn_name: str = "resnet18"):
+                 cnn_name: str = "resnet18", param_dtype=torch.float32):
         super().__init__()
         self.num_views = num_views
-        self.backbone = (EfficientNet(cnn_name) if cnn_name.startswith("efficientnet")
-                         else ResNet(cnn_name))
-        self.fc = nn.Linear(self.backbone.feature_dim, z_dim)
-        self.head = MLPHead(z_dim, out_dim, out_dim)
+        backbone = EfficientNet if cnn_name.startswith("efficientnet") else ResNet
+        self.backbone = backbone(cnn_name, param_dtype)
+        self.fc = Linear(self.backbone.feature_dim, z_dim, dtype=param_dtype)
+        self.head = MLPHead(z_dim, out_dim, out_dim, param_dtype=param_dtype)
 
     def forward(self, images: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:

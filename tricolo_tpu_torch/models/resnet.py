@@ -8,7 +8,8 @@ BN → ReLU → 3×3/2 pad-1 max pool, four stages of ``BasicBlock``\\ s
 and BN where the shape changes, global average pool. Parameter names
 follow the JAX tree (``layer1.0.conv1`` for ``layer1_0/conv1``) so
 ``convert.py`` is a rename. BatchNorm is ``common.BatchNorm2d`` (flax
-momentum 0.9, eps 1e-5).
+momentum 0.9, eps 1e-5). Parameters are created in ``param_dtype`` and
+used in the compute dtype (``common.Conv2d``), BN statistics f32.
 
 The JAX package's stem opt-ins (``hybrid_stem``: bn1 → ReLU → max pool
 with a hand-derived backward; ``s2d_stem``: the 7×7/2 conv over a 2×2
@@ -29,28 +30,29 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import BatchNorm2d
+from .common import BatchNorm2d, Conv2d
 
 __all__ = ["BatchNorm2d", "BasicBlock", "Bottleneck", "ResNet", "load_pretrained"]
 
 
-def _conv(cin: int, cout: int, k: int, stride: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+def _conv(cin: int, cout: int, k: int, stride: int, dtype) -> Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False, dtype=dtype)
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, cin: int, features: int, stride: int):
+    def __init__(self, cin: int, features: int, stride: int, param_dtype=torch.float32):
         super().__init__()
-        self.conv1 = _conv(cin, features, 3, stride)
-        self.bn1 = BatchNorm2d(features, eps=1e-5)
-        self.conv2 = _conv(features, features, 3, 1)
-        self.bn2 = BatchNorm2d(features, eps=1e-5)
+        bn = dict(eps=1e-5, param_dtype=param_dtype)
+        self.conv1 = _conv(cin, features, 3, stride, param_dtype)
+        self.bn1 = BatchNorm2d(features, **bn)
+        self.conv2 = _conv(features, features, 3, 1, param_dtype)
+        self.bn2 = BatchNorm2d(features, **bn)
         self.has_downsample = stride != 1 or cin != features
         if self.has_downsample:
-            self.downsample_conv = _conv(cin, features, 1, stride)
-            self.downsample_bn = BatchNorm2d(features, eps=1e-5)
+            self.downsample_conv = _conv(cin, features, 1, stride, param_dtype)
+            self.downsample_bn = BatchNorm2d(features, **bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -62,19 +64,20 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, cin: int, features: int, stride: int):
+    def __init__(self, cin: int, features: int, stride: int, param_dtype=torch.float32):
         super().__init__()
         out = features * self.expansion
-        self.conv1 = _conv(cin, features, 1, 1)
-        self.bn1 = BatchNorm2d(features, eps=1e-5)
-        self.conv2 = _conv(features, features, 3, stride)
-        self.bn2 = BatchNorm2d(features, eps=1e-5)
-        self.conv3 = _conv(features, out, 1, 1)
-        self.bn3 = BatchNorm2d(out, eps=1e-5)
+        bn = dict(eps=1e-5, param_dtype=param_dtype)
+        self.conv1 = _conv(cin, features, 1, 1, param_dtype)
+        self.bn1 = BatchNorm2d(features, **bn)
+        self.conv2 = _conv(features, features, 3, stride, param_dtype)
+        self.bn2 = BatchNorm2d(features, **bn)
+        self.conv3 = _conv(features, out, 1, 1, param_dtype)
+        self.bn3 = BatchNorm2d(out, **bn)
         self.has_downsample = stride != 1 or cin != out
         if self.has_downsample:
-            self.downsample_conv = _conv(cin, out, 1, stride)
-            self.downsample_bn = BatchNorm2d(out, eps=1e-5)
+            self.downsample_conv = _conv(cin, out, 1, stride, param_dtype)
+            self.downsample_bn = BatchNorm2d(out, **bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -94,20 +97,20 @@ _ARCHS = {
 class ResNet(nn.Module):
     """(N, H, W, 3) NHWC → pooled features (N, ``feature_dim``)."""
 
-    def __init__(self, cnn_name: str = "resnet18"):
+    def __init__(self, cnn_name: str = "resnet18", param_dtype=torch.float32):
         super().__init__()
         if cnn_name not in _ARCHS:
             raise ValueError(f"unknown ResNet {cnn_name!r}; one of {sorted(_ARCHS)}")
         block, stage_sizes = _ARCHS[cnn_name]
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = BatchNorm2d(64, eps=1e-5)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, dtype=param_dtype)
+        self.bn1 = BatchNorm2d(64, eps=1e-5, param_dtype=param_dtype)
         cin = 64
         for stage, num_blocks in enumerate(stage_sizes):
             features = 64 * 2**stage
             blocks = []
             for i in range(num_blocks):
                 stride = 2 if stage > 0 and i == 0 else 1
-                blocks.append(block(cin, features, stride))
+                blocks.append(block(cin, features, stride, param_dtype))
                 cin = features * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
         self.feature_dim = cin

@@ -14,6 +14,10 @@ rematerialises the voxel encoder's train forward (``torch.utils.checkpoint``,
 as JAX's ``nn.remat``); ``MVCNNEncoder.hybrid_stem`` and ``s2d_stem`` are
 accepted and run the plain ResNet stem, of which the JAX package's opt-ins
 are exact rewrites with the same variables (``models/resnet.py``).
+``precision.param_dtype`` (float32 or bfloat16; any other name raises, as
+the JAX package's dict lookup does) is every encoder's parameter dtype,
+independent of ``precision.compute_dtype``; BN running statistics are f32
+in either (``models/common.py``).
 """
 
 from __future__ import annotations
@@ -46,20 +50,23 @@ class TriCoLoNet(nn.Module):
                  tile_sparse_blocks: int = 2, tile_budget_frac: float = 0.5,
                  explicit_dgrad: bool = False, masked_bn: bool = True,
                  clip_feature_dim: int = 768, clip_dropout: float = 0.1,
-                 clip_image_dropout: float = 0.1, remat_voxel: bool = False):
+                 clip_image_dropout: float = 0.1, remat_voxel: bool = False,
+                 param_dtype=torch.float32):
         super().__init__()
         self.compute_dtype = compute_dtype
+        pd = param_dtype
         if text_encoder == "CLIPTextEncoder":
-            self.text_encoder = CLIPTextEncoder(out_dim, clip_feature_dim, clip_dropout)
+            self.text_encoder = CLIPTextEncoder(out_dim, clip_feature_dim, clip_dropout, pd)
         elif text_encoder == "BiGRUEncoder":
-            self.text_encoder = BiGRUEncoder(vocab_size, out_dim, embed_dim, gru_hidden_dim)
+            self.text_encoder = BiGRUEncoder(vocab_size, out_dim, embed_dim, gru_hidden_dim, pd)
         else:
             raise ValueError(f"unknown text encoder: {text_encoder}")
         self.image_encoder = None
         if image_encoder == "CLIPImageEncoder":
-            self.image_encoder = CLIPImageEncoder(out_dim, clip_feature_dim, clip_image_dropout)
+            self.image_encoder = CLIPImageEncoder(out_dim, clip_feature_dim, clip_image_dropout,
+                                                  pd)
         elif image_encoder == "MVCNNEncoder":
-            self.image_encoder = MVCNNEncoder(num_views, z_dim, out_dim, cnn_name)
+            self.image_encoder = MVCNNEncoder(num_views, z_dim, out_dim, cnn_name, pd)
         elif image_encoder is not None:
             raise ValueError(f"unknown image encoder: {image_encoder}")
         self.voxel_encoder = None
@@ -68,7 +75,7 @@ class TriCoLoNet(nn.Module):
                 voxel_size, ef_dim, voxel_z_dim, out_dim, compute_dtype,
                 tile_sparse=tile_sparse, tile_sparse_blocks=tile_sparse_blocks,
                 tile_budget_frac=tile_budget_frac, explicit_dgrad=explicit_dgrad,
-                masked_bn=masked_bn, remat=remat_voxel,
+                masked_bn=masked_bn, remat=remat_voxel, param_dtype=pd,
             )
         elif voxel_encoder is not None:
             raise ValueError(f"unknown voxel encoder: {voxel_encoder}")
@@ -77,10 +84,10 @@ class TriCoLoNet(nn.Module):
     def from_config(cls, cfg) -> "TriCoLoNet":
         modules = cfg.model.modules
         voxel = modules.VoxelCNNEncoder
-        if cfg.precision.get("param_dtype", "float32") != "float32":
-            raise NotImplementedError(
-                f"precision.param_dtype={cfg.precision.param_dtype}: the port builds float32 "
-                "parameters only")
+        param_dtype = cfg.precision.get("param_dtype", "float32")
+        if param_dtype not in DTYPES:
+            raise ValueError(f"precision.param_dtype must be one of {sorted(DTYPES)}, "
+                             f"got {param_dtype!r}")
         # MVCNNEncoder.hybrid_stem and s2d_stem rewrite the plain stem exactly
         # for the TPU's layout: the port runs the plain stem for either.
         # Every layout of the JAX package computes the same scatter, which K2
@@ -118,6 +125,7 @@ class TriCoLoNet(nn.Module):
             clip_image_dropout=modules.CLIPImageEncoder.get(
                 "dropout", modules.CLIPTextEncoder.dropout),
             remat_voxel=bool(cfg.precision.get("remat_voxel", False)),
+            param_dtype=DTYPES[param_dtype],
         )
 
     def set_compute_dtype(self, dtype) -> None:

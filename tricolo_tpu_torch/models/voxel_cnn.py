@@ -65,6 +65,12 @@ VALID convs' input gradient as a forward conv (``ops.conv3d``), as the JAX
 package applies it to VALID convs only.
 ``use_kernels=False`` runs the same path through the kernels' plain
 PyTorch versions (the reference the kernels are held against on the card).
+
+The conv weights, the BN γ, β and the head are created in ``param_dtype``
+and used in the compute dtype (``common.in_compute``); the running
+statistics stay f32. K1 and K3's train entries take γ, β as they are: the
+statistics and the fold run in f32, and dγ, dβ come back in γ's dtype, as
+the JAX package's ``fused_bn_pool`` ops return them.
 """
 
 from __future__ import annotations
@@ -88,7 +94,7 @@ from ..ops.conv3d import conv3d_valid_explicit_dgrad
 from ..ops.tile_gather import gather_tiles_autograd
 from ..ops.tile_scatter import scatter_tiles, scatter_tiles_global_autograd
 from ..ops.tile_sparse import active_tile_ids, compact_ids, tile_budget
-from .common import MLPHead, l2_normalize
+from .common import MLPHead, hold_affine_in, in_compute, l2_normalize
 
 _TILE = 8
 _MOMENTUM = 0.9  # flax convention: running = 0.9·running + 0.1·batch
@@ -110,20 +116,22 @@ class ConvBlock(nn.Module):
     bn_group = None
     stats_sink = None
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, param_dtype=torch.float32):
         super().__init__()
-        self.conv = nn.Conv3d(cin, features, 3, bias=False)
+        self.conv = nn.Conv3d(cin, features, 3, bias=False, dtype=param_dtype)
         # Holds weight/bias/running_mean/running_var; folded by fold_bn.
         self.bn = nn.BatchNorm3d(features, eps=1e-5)
+        hold_affine_in(self.bn, param_dtype)
 
     def forward(self, x, zero_mask=None, stats_mask=None, padding: int = 0,
                 use_kernels: bool = True, explicit_dgrad: bool = False):
         """(pooled, pooled mask) under masks; pooled alone without them."""
         x = x.permute(0, 4, 1, 2, 3)
+        weight = in_compute(self.conv.weight)
         if padding == 0 and explicit_dgrad:
-            y = conv3d_valid_explicit_dgrad(x, self.conv.weight)
+            y = conv3d_valid_explicit_dgrad(x, weight)
         else:
-            y = F.conv3d(x, self.conv.weight, padding=padding)
+            y = F.conv3d(x, weight, padding=padding)
         y = y.permute(0, 2, 3, 4, 1).contiguous()
         bn = self.bn
         if zero_mask is not None:
@@ -159,7 +167,8 @@ class VoxelCNNEncoder(nn.Module):
     def __init__(self, voxel_size: int = 64, ef_dim: int = 32, z_dim: int = 512,
                  out_dim: int = 512, compute_dtype=torch.float32, tile_sparse: bool = False,
                  tile_sparse_blocks: int = 2, tile_budget_frac: float = 0.5,
-                 explicit_dgrad: bool = False, masked_bn: bool = True, remat: bool = False):
+                 explicit_dgrad: bool = False, masked_bn: bool = True, remat: bool = False,
+                 param_dtype=torch.float32):
         super().__init__()
         if voxel_size % 32:
             raise ValueError(f"voxel_size must be a multiple of 32, got {voxel_size}")
@@ -173,10 +182,11 @@ class VoxelCNNEncoder(nn.Module):
         self.tile_budget_frac = float(tile_budget_frac)
         channels = (ef_dim, ef_dim * 2, ef_dim * 4, ef_dim * 8, z_dim)
         cins = (4,) + channels[:-1]
-        self.blocks = nn.ModuleList(ConvBlock(c, f) for c, f in zip(cins, channels))
+        self.blocks = nn.ModuleList(ConvBlock(c, f, param_dtype)
+                                    for c, f in zip(cins, channels))
         self.explicit_dgrad = explicit_dgrad  # for the VALID (tile) convs
         flat = (voxel_size // 32) ** 3 * z_dim
-        self.head = MLPHead(flat, out_dim, out_dim)
+        self.head = MLPHead(flat, out_dim, out_dim, param_dtype=param_dtype)
         with torch.no_grad():
             # RGB padded 3 → 4 input channels: torch's init for the real
             # 3-channel conv (fan_in 27·3), zero taps on the pad channel.

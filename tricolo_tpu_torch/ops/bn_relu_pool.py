@@ -35,8 +35,10 @@ the input dtype, ``_hybrid_bwd`` in f32 with one cast); the port follows
 the hybrid.
 
 ``fold_bn`` folds statistics into per-channel ``mul``/``add`` exactly as
-the JAX package's ``_muladd`` does: f32 fold, then one cast to the compute
-dtype.
+the JAX package's ``_muladd`` does: f32 fold (γ, β widened from the
+parameter dtype, f32 or bf16), then one cast to the compute dtype. The
+kernels never see γ, β: their launch plans and bodies are the same for
+either parameter dtype.
 """
 
 from __future__ import annotations
@@ -452,7 +454,9 @@ def masked_bn_relu_pool_train(y, scale, bias, stats_mask, zero_mask=None, eps: f
                               use_kernels: bool = True, group=None):
     """Train-mode masked BN (batch statistics) → ReLU → zero → MaxPool(2³).
 
-    y (N, D, H, W, C) bf16 or f32 channels-last; scale/bias (C,) f32;
+    y (N, D, H, W, C) bf16 or f32 channels-last; scale/bias (C,) in the
+    parameter dtype, f32 or bf16 (used widened to f32; dγ, dβ come back in
+    their dtype, as ``fused_bn_pool``'s backward casts them);
     masks (N, D, H, W, 1) in y's dtype; ``zero_mask=None`` means
     ``stats_mask`` (the single-mask blocks). Returns (pooled, mean, var,
     pooled_mask) with f32 mean and biased var over the ``stats_mask``
@@ -501,8 +505,8 @@ def bn_relu_pool_train(y, scale, bias, eps: float = 1e-5, use_kernels: bool = Tr
     """Train-mode all-site BN (batch statistics) → ReLU → MaxPool(2³), the
     counterpart of ``fused_bn_relu_pool`` / ``hybrid_bn_relu_pool``.
 
-    y (N, D, H, W, C) bf16 or f32 channels-last; scale/bias (C,) f32.
-    Returns (pooled, mean, var) with f32 mean and biased var over every
+    y (N, D, H, W, C) bf16 or f32 channels-last; scale/bias (C,) f32 or
+    bf16, as for ``masked_bn_relu_pool_train``. Returns (pooled, mean, var) with f32 mean and biased var over every
     site. Differentiable in y, scale and bias (and through mean and var).
     ``use_kernels=False`` runs the kernels' plain versions on any device.
     ``group``: as for ``masked_bn_relu_pool_train``.

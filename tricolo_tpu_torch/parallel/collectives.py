@@ -185,10 +185,15 @@ def sum_over_ranks(tensors, group) -> tuple:
 
 def all_reduce_gradients(params, world: World) -> None:
     """Sum every parameter's ``.grad`` over the ranks in place (the ranks
-    hold the same parameters with grads)."""
+    hold the same parameters with grads). The sum runs in f32 and a bf16
+    gradient is rounded once, from the f32 total, as the JAX package's
+    step reduces the gradient of a bf16 leaf over its mesh (XLA all-reduces
+    it in f32); a bf16 all-reduce would round at each addition (NCCL's
+    ring: once a hop)."""
     grads = [p.grad for p in params if p.grad is not None]
     if grads:
-        for grad, total in zip(grads, sum_over_ranks(grads, world.group)):
+        totals = sum_over_ranks([g.float() for g in grads], world.group)
+        for grad, total in zip(grads, totals):
             grad.copy_(total)
 
 

@@ -15,8 +15,11 @@ module decodes that subset in pure Python and numpy:
 
 ``load_jax_checkpoint(path)`` returns the nested dict that
 ``flax.serialization.msgpack_restore`` returns for the same file.
-``convert.jax_checkpoint_to_torch`` turns it into the port's state.
-bfloat16 leaves raise NotImplementedError: bf16 parameters are not ported.
+``convert.jax_checkpoint_to_torch`` turns it into the port's state. A
+bfloat16 leaf (``precision.param_dtype=bfloat16``) is the one difference:
+flax gives an ``ml_dtypes`` bfloat16 array, which needs a package the port
+does not import, so it decodes to a ``uint16`` array of the same bits,
+which ``convert`` views as ``torch.bfloat16``.
 """
 
 from __future__ import annotations
@@ -116,10 +119,8 @@ class _Reader:
         if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
             raise ValueError(f"unknown msgpack ext type {code} at {path or '/'}")
         shape, dtype_name, buffer = _Reader(payload, raw=True).read()
-        if dtype_name == b"bfloat16":
-            raise NotImplementedError(
-                f"bfloat16 leaf {path or '/'}: bf16 parameters are not ported yet")
-        array = np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode())).reshape(shape)
+        dtype = np.uint16 if dtype_name == b"bfloat16" else np.dtype(dtype_name.decode())
+        array = np.frombuffer(buffer, dtype=dtype).reshape(shape)
         return array[()] if code == _EXT_NPSCALAR else array
 
 

@@ -5,7 +5,9 @@ batch (normalise the images, densify packed or dense voxels), run the
 forward in train mode under the compute dtype (bf16 autocast when
 ``precision.compute_dtype=bfloat16``, as ``inference.eval_step`` does),
 compute the pairwise contrastive losses in f32 outside autocast,
-backpropagate, set the step's learning rate and take one Adam step. BN
+backpropagate, set the step's learning rate and take one Adam step
+(``training.optim.Adam``, the JAX step in each leaf's dtype: the gradient
+of a bf16 parameter stays bf16, as JAX's cotangent of a bf16 leaf). BN
 running statistics are updated by the forward (``models/voxel_cnn.py``,
 ``models/resnet.py``). The CLIP heads' dropout draws its masks from the
 generator the caller passes; ``dropout_generator(train_seed, step)`` seeds

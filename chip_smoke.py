@@ -188,7 +188,29 @@ Phases (any failure exits non-zero and prints no result line):
     ulp, at most ``BF16_BEYOND_ULP`` of them beyond one ulp (the counts
     printed); 15d parameters and Adam's moments bf16, BN running
     statistics f32, on the card;
-16. the kernels line (ten rows: K1-K7, K2's global entry, and K1's and
+16. FSDP (``parallel.param_sharding=fsdp``) on the flagship Tri(I+V)
+    (synthetic-256, windowed_compact, masked BN, global batch 128), each
+    rank a subprocess of this script (``--dp-rank``) as in phase 12: 16a a
+    1-rank NCCL world at f32 and at bf16 parameters, a replicated and an
+    FSDP trainer from the same seed: bf16 steps in turns over the epoch's
+    six batches (medians of steps 2-6; every step exactly K1 5, K2 2, K3 5,
+    pair 3, two-term 6; each step's peak above its start), the sharded
+    leaves and elements, the bytes of parameters and moments, bf16
+    parameters and moments on the card; then one f32 step each from the
+    replicated trainer's weights after its six steps (TF32 off,
+    deterministic cuDNN; the replicated one twice for the run-to-run
+    floor): bit-equal where that floor is 0, else within phase 9's
+    tolerances; one FSDP remat step (K1 10, K2 4, K3 5, pair 3, two-term
+    6). 16b two gloo ranks on cuda:0, 64 rows each: one f32 FSDP step
+    against the replicated two-rank step from 16a's weights, bit-equal
+    (a gradient element is the sum of two terms, which commutes; Adam is
+    elementwise), launches as above, each rank's local elements equal to
+    ``fsdp_axis``'s arithmetic. 16c one bf16 epoch through ``Trainer.fit``
+    on both ranks under FSDP (6 steps, launches a step as above, rank 0
+    alone writing the checkpoint, whose tensors are whole), then that
+    checkpoint served: index launches per batch exactly K1 5 and K2 2, the
+    f32 index kernel vs plain (1e-5);
+17. the kernels line (ten rows: K1-K7, K2's global entry, and K1's and
     K3's unmasked entries; the row of K4
     counts the pair launches, each of which computes K4 twice, and carries
     the pair entry's times, the rows of K5 and K6 likewise the two-term
@@ -1897,16 +1919,19 @@ def _deterministic_f32(torch) -> None:
 
 
 def _f32_step(torch, trainer, state, batch) -> dict:
-    """One f32 train step of ``trainer`` from ``state``: losses, gradients
-    and running variances (on the host)."""
+    """One f32 train step of ``trainer`` from ``state`` (full tensors; an
+    FSDP model keeps its shards of them): losses, full gradients and
+    running variances (on the host)."""
+    from tricolo_tpu_torch.parallel.sharding_rules import gathered, placed_like
     from tricolo_tpu_torch.training import dropout_generator
 
-    trainer.model.load_state_dict(state)
+    live = trainer.model.state_dict()
+    trainer.model.load_state_dict({k: placed_like(v, live[k]) for k, v in state.items()})
     losses = trainer.train_step(batch, trainer.cfg.optimizer.lr,
                                 dropout_generator(trainer.cfg.train_seed, 0, trainer.device))
     torch.cuda.synchronize()
     return {"losses": {k: v.item() for k, v in losses.items()},
-            "grads": {n: p.grad.detach().to("cpu", copy=True)
+            "grads": {n: gathered(p.grad).detach().to("cpu", copy=True)
                       for n, p in trainer.model.named_parameters()},
             "vars": {n: b.detach().to("cpu", copy=True) for n, b in trainer.model.named_buffers()
                      if n.endswith("running_var")}}
@@ -2112,13 +2137,15 @@ def dp_two_ranks(rank: int, port: str) -> dict:
 
 
 def dp_rank_main(argv: list[str]) -> int:
-    """``chip_smoke.py --dp-rank <12a|12b> <rank> <port>``: one rank of
-    phase 12; its result goes to ``DP_DIR/<case>_rank<rank>.pt``."""
+    """``chip_smoke.py --dp-rank <12a|12b|16a|16b> <rank> <port>``: one rank
+    of phase 12 or 16; its result goes to ``DP_DIR/<case>_rank<rank>.pt``."""
     import torch
 
     case, rank, port = argv[0], int(argv[1]), argv[2]
     sys.path.insert(0, str(ROOT))
-    out = dp_world1(port) if case == "12a" else dp_two_ranks(rank, port)
+    cases = {"12a": lambda: dp_world1(port), "12b": lambda: dp_two_ranks(rank, port),
+             "16a": lambda: fsdp_world1(port), "16b": lambda: fsdp_two_ranks(rank, port)}
+    out = cases[case]()
     torch.save(out, DP_DIR / f"{case}_rank{rank}.pt")
     torch.distributed.destroy_process_group()
     return 0
@@ -3114,6 +3141,279 @@ def bf16_params(torch, card, f32_train: dict) -> tuple[dict, dict]:
     return out, {f"{label}_serving": serve_launches, f"{label}_train": fit_launches}
 
 
+# -------------------------------------------------------------- phase 16
+
+# FSDP (``parallel.param_sharding=fsdp``, ``parallel.sharding_rules``) on the
+# flagship Tri(I+V), each rank a subprocess of this script (``--dp-rank``),
+# as in phase 12: 16a a 1-rank NCCL world, 16b and 16c two gloo ranks on
+# cuda:0. A sharded step launches what a replicated step launches.
+FSDP = ["parallel.param_sharding=fsdp"]
+
+
+def _state_bytes(torch, trainer) -> int:
+    """Bytes of the parameters and Adam moments this rank holds."""
+    from tricolo_tpu_torch.training.optim import _local
+
+    tensors = [_local(p) for p in trainer.model.parameters()]
+    tensors += [_local(m) for s in trainer.optimizer.state.values()
+                for k, m in s.items() if k != "step"]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _fsdp_turns(torch, port, param_dtype) -> tuple[dict, dict]:
+    """16a at one parameter dtype: a replicated and an FSDP ``Trainer`` of
+    the 1-rank world from the same seed, bf16 steps in turns on the epoch's
+    six batches (CUDA events, launches, each step's peak above its start);
+    (report, the replicated trainer's state after its six steps)."""
+    from tricolo_tpu_torch import ops
+    from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch.inference import to_device_batch
+    from tricolo_tpu_torch.parallel import sharded_leaves
+    from tricolo_tpu_torch.training import Trainer, dropout_generator
+
+    extra = [f"precision.param_dtype={param_dtype}"]
+    trainers = {"replicated": Trainer(_dp_cfg(1, 0, port, "bfloat16", extra)),
+                "fsdp": Trainer(_dp_cfg(1, 0, port, "bfloat16", extra + FSDP))}
+    require(torch.distributed.get_backend() == "nccl"
+            and trainers["fsdp"].world.size == 1, "16a: no 1-rank NCCL world")
+    leaves = sharded_leaves(trainers["fsdp"].model)
+    dm = DataModule(trainers["fsdp"].cfg)
+    dm.setup("fit")
+    loader = dm.train_loader(pin_memory=True)
+    rows: dict = {name: [] for name in trainers}
+    for i, host in enumerate(loader):
+        batch = to_device_batch(host, trainers["fsdp"].device)
+        for name, trainer in trainers.items():
+            generator = dropout_generator(trainer.cfg.train_seed, i, trainer.device)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = ops.launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses = trainer.train_step(batch, trainer.cfg.optimizer.lr, generator)
+            end.record()
+            end.synchronize()
+            after = ops.launches()
+            rows[name].append({"ms": start.elapsed_time(end),
+                               "total_loss": losses["train_loss/total_loss"].item(),
+                               "launches": {k: after[k] - before[k] for k in after},
+                               "peak_above_start_gib":
+                                   (torch.cuda.max_memory_allocated() - base) / 2**30})
+    out = {"rows": rows, "sharded_leaves": len(leaves),
+           "sharded_elements": sum(leaves.values()),
+           "elements": sum(p.numel() for p in trainers["fsdp"].model.parameters()),
+           "step_ms_median_2_6": {k: statistics.median(r["ms"] for r in v[1:])
+                                  for k, v in rows.items()},
+           "state_gib": {k: _state_bytes(torch, t) / 2**30 for k, t in trainers.items()},
+           "step_peak_above_start_gib": {k: max(r["peak_above_start_gib"] for r in v)
+                                         for k, v in rows.items()}}
+    if param_dtype == "bfloat16":
+        out["dtypes"] = bf16_dtypes(torch, trainers["fsdp"].model, trainers["fsdp"].optimizer)
+    state = {k: v.clone() for k, v in trainers["replicated"].model.state_dict().items()}
+    return out, state
+
+
+def fsdp_world1(port: str) -> dict:
+    """16a, in a rank's process (1-rank NCCL world), at f32 and at bf16
+    parameters: ``_fsdp_turns``; then, from the replicated trainer's
+    weights after its six steps, one f32-compute step each of a replicated
+    and an FSDP trainer on the first batch (TF32 off, deterministic cuDNN;
+    the replicated one twice, for the run-to-run floor); last, one remat
+    step under FSDP (f32 parameters, bf16 compute)."""
+    import torch
+
+    from tricolo_tpu_torch import ops
+    from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch.inference import to_device_batch
+    from tricolo_tpu_torch.training import Trainer
+
+    DP_DIR.mkdir(parents=True, exist_ok=True)
+    out: dict = {}
+    for param_dtype in ("float32", "bfloat16"):
+        out[param_dtype], state = _fsdp_turns(torch, port, param_dtype)
+        torch.cuda.empty_cache()
+        _deterministic_f32(torch)
+        extra = [f"precision.param_dtype={param_dtype}"]
+        rep = Trainer(_dp_cfg(1, 0, port, "float32", extra))
+        fsdp = Trainer(_dp_cfg(1, 0, port, "float32", extra + FSDP))
+        dm = DataModule(rep.cfg)
+        dm.setup("fit")
+        host = dm.train_loader().peek()
+        batch = to_device_batch(host, rep.device)
+        ref = _f32_step(torch, rep, state, batch)
+        again = _f32_step(torch, rep, state, batch)
+        got = _f32_step(torch, fsdp, state, batch)
+        out[param_dtype].update(f32_vs_replicated=_f32_deviation(got, ref),
+                                f32_floor_replicated_twice=_f32_deviation(again, ref))
+        if param_dtype == "float32":
+            torch.save(state, DP_DIR / "fsdp_state.pt")
+        torch.backends.cudnn.deterministic = False
+        del rep, fsdp, batch, state, ref, again, got
+        torch.cuda.empty_cache()
+
+    trainer = Trainer(_dp_cfg(1, 0, port, "bfloat16", FSDP + ["precision.remat_voxel=true"]))
+    batch = to_device_batch(host, trainer.device)
+    ops.reset_launches()
+    losses = trainer.train_step(batch, trainer.cfg.optimizer.lr)
+    torch.cuda.synchronize()
+    out["remat"] = {"total_loss": losses["train_loss/total_loss"].item(),
+                    "launches": ops.launches()}
+    return out
+
+
+def fsdp_two_ranks(rank: int, port: str) -> dict:
+    """16b and 16c, in rank ``rank`` of two gloo ranks on cuda:0: one f32
+    step of a replicated and of an FSDP trainer on the rank's stripe of the
+    first batch from 16a's weights (the replicated one twice, for the
+    run-to-run floor), the sharded leaves' local element counts; then one
+    bf16 epoch through ``Trainer.fit`` under FSDP (launches a step)."""
+    import torch
+
+    from tricolo_tpu_torch import ops
+    from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch.inference import to_device_batch
+    from tricolo_tpu_torch.parallel import fsdp_axis, sharded_leaves
+    from tricolo_tpu_torch.training import Trainer
+
+    _deterministic_f32(torch)
+    rep = Trainer(_dp_cfg(2, rank, port, "float32"), device="cuda:0", backend="gloo")
+    fsdp = Trainer(_dp_cfg(2, rank, port, "float32", FSDP), device="cuda:0", backend="gloo")
+    require(torch.distributed.get_backend() == "gloo" and fsdp.world.size == 2,
+            "16b: no 2-rank gloo world")
+    dm = DataModule(rep.cfg)
+    dm.setup("fit")
+    host = dm.train_loader().peek()
+    batch = to_device_batch(host, rep.device)
+    state = torch.load(DP_DIR / "fsdp_state.pt", map_location=rep.device)
+    ref = _f32_step(torch, rep, state, batch)
+    again = _f32_step(torch, rep, state, batch)
+    ops.reset_launches()
+    got = _f32_step(torch, fsdp, state, batch)
+    leaves = sharded_leaves(fsdp.model)
+    want = {n: p.numel() // 2 for n, p in fsdp.model.named_parameters()
+            if fsdp_axis(p.shape, 2) is not None}
+    out = {"f32_vs_replicated": _f32_deviation(got, ref),
+           "f32_floor_replicated_twice": _f32_deviation(again, ref),
+           "launches_f32": ops.launches(), "local_batch": len(host["model_id"]),
+           "leaves_equal_rule": leaves == want, "sharded_leaves": len(leaves),
+           "local_elements": sum(leaves.values()),
+           "elements": sum(p.numel() for p in fsdp.model.parameters()),
+           "state_gib": {"replicated": _state_bytes(torch, rep) / 2**30,
+                         "fsdp": _state_bytes(torch, fsdp) / 2**30}}
+    torch.backends.cudnn.deterministic = False
+    del rep, fsdp, batch, state, ref, again, got
+    torch.cuda.empty_cache()
+
+    trainer = Trainer(_dp_cfg(2, rank, port, "bfloat16",
+                              FSDP + ["experiment_name=chip_smoke_fsdp"]),
+                      device="cuda:0", backend="gloo")
+    steps: list = []
+    trainer.train_step = timed_step(torch, trainer.train_step, steps)
+    ops.reset_launches()
+    tic = time.perf_counter()
+    best = trainer.fit(DataModule(trainer.cfg)).best_path
+    torch.cuda.synchronize()
+    out.update(fit_s=time.perf_counter() - tic, launches_fit=ops.launches(), steps=steps,
+               best_path=best)
+    return out
+
+
+def _fsdp_check_world1(w1: dict, card: str) -> None:
+    """16a's gates and lines: launches, the f32 step against replicated,
+    the remat step, the dtypes."""
+    import numpy as np
+
+    for param_dtype in ("float32", "bfloat16"):
+        res = w1[param_dtype]
+        cmp, floor = res["f32_vs_replicated"], res["f32_floor_replicated_twice"]
+        # World 1 makes FSDP's collectives copies: where the replicated step
+        # repeats bit for bit, the FSDP step must equal it bit for bit.
+        if floor["max_abs"] == 0.0:
+            require(cmp["max_abs"] == 0.0,
+                    f"16a {param_dtype}: FSDP f32 step vs replicated |d| {cmp['max_abs']}")
+        require(cmp["loss_rel"] <= TRAIN_LOSS_RTOL and cmp["grad_rel_of_max"] <= TRAIN_GRAD_TOL
+                and cmp["running_var_abs"] <= TRAIN_VAR_TOL,
+                f"16a {param_dtype}: FSDP f32 step vs replicated {cmp}")
+        for name, rows in res["rows"].items():
+            for i, row in enumerate(rows):
+                require(bool(np.isfinite(row["total_loss"])), f"16a {name} step {i}: loss")
+                require(row["launches"] == DP_TRAIN_LAUNCHES,
+                        f"16a {param_dtype} {name} step {i}: launches {row['launches']}")
+        med, state, peak = (res["step_ms_median_2_6"], res["state_gib"],
+                            res["step_peak_above_start_gib"])
+        log(f"16a 1-rank NCCL, {param_dtype} parameters: FSDP f32 step vs replicated max |d| "
+            f"{cmp['max_abs']} (replicated twice: {floor['max_abs']}); bf16 step median (2-6) "
+            f"replicated {med['replicated']:.3f} ms, FSDP {med['fsdp']:.3f} ms "
+            f"({med['fsdp'] - med['replicated']:+.3f} ms); {res['sharded_leaves']} leaves, "
+            f"{res['sharded_elements']} of {res['elements']} elements sharded; parameters and "
+            f"moments {state['replicated']:.3f} / {state['fsdp']:.3f} GiB, step peak above its "
+            f"start {peak['replicated']:.2f} / {peak['fsdp']:.2f} GiB [{card}]")
+    remat = w1["remat"]
+    require(remat["launches"] == REMAT_LAUNCHES, f"16a remat: launches {remat['launches']}")
+    require(bool(np.isfinite(remat["total_loss"])), "16a remat: non-finite loss")
+    log(f"16a FSDP remat step: total loss {remat['total_loss']:.6f}, launches "
+        f"{remat['launches']}; bf16-parameter dtypes {w1['bfloat16']['dtypes']}")
+
+
+def fsdp_phase(torch, card) -> tuple[dict, dict]:
+    """Phase 16: (report, launches of 16a's FSDP steps, of the 2-rank FSDP
+    fit's ranks and of serving its checkpoint)."""
+    import numpy as np
+
+    from tricolo_tpu_torch.config import load_config
+    from tricolo_tpu_torch.serving import RetrievalServer
+
+    torch.cuda.empty_cache()
+    out: dict = {}
+    (w1,) = run_ranks(torch, "16a", 1, 600)
+    _fsdp_check_world1(w1, card)
+    out["world1"] = w1
+
+    ranks = run_ranks(torch, "16b", 2, 600)
+    out["two_ranks"] = ranks
+    for r, res in enumerate(ranks):
+        cmp, floor = res["f32_vs_replicated"], res["f32_floor_replicated_twice"]
+        require(res["local_batch"] == 64, f"16b rank {r}: local batch {res['local_batch']}")
+        require(res["launches_f32"] == DP_TRAIN_LAUNCHES,
+                f"16b rank {r}: FSDP f32 step launches {res['launches_f32']}")
+        require(res["leaves_equal_rule"], f"16b rank {r}: local elements unlike fsdp_axis's")
+        # Two ranks: each gradient element is a sum of two terms, which
+        # commutes, and Adam is elementwise.
+        require(floor["max_abs"] == 0.0 and cmp["max_abs"] == 0.0,
+                f"16b rank {r}: FSDP f32 step vs replicated |d| {cmp['max_abs']} (replicated "
+                f"twice {floor['max_abs']})")
+        require(len(res["steps"]) == 6, f"16c rank {r}: the fit ran {len(res['steps'])} steps")
+        for i, row in enumerate(res["steps"]):
+            require(all(np.isfinite(v) for v in row["losses"].values()),
+                    f"16c rank {r} step {i}: non-finite losses")
+            require(row["launches"] == DP_TRAIN_LAUNCHES,
+                    f"16c rank {r} step {i}: launches {row['launches']}")
+        log(f"16b rank {r}: FSDP f32 step vs the replicated 2-rank step max |d| {cmp['max_abs']} "
+            f"(replicated twice {floor['max_abs']}); {res['sharded_leaves']} leaves sharded, "
+            f"{res['local_elements']} elements held of their {2 * res['local_elements']} "
+            f"(rule's arithmetic), parameters and moments {res['state_gib']['replicated']:.3f} "
+            f"/ {res['state_gib']['fsdp']:.3f} GiB replicated / FSDP; 16c fit {res['fit_s']:.1f} "
+            f"s, step median (2-6) {statistics.median(s['ms'] for s in res['steps'][1:]):.3f} "
+            f"ms [{card}]")
+    require(ranks[1]["best_path"] is None and ranks[0]["best_path"] is not None,
+            "16c: rank 0 alone must write the checkpoint")
+
+    cfg = load_config([*FLAGSHIP, *TRAIN])
+    server = RetrievalServer.from_checkpoint(cfg, ranks[0]["best_path"])  # device: cuda
+    out["serving"], server, _ = backbone_index(torch, card, "fsdp", cfg, queries=False,
+                                               server=server)
+    del server
+    torch.cuda.empty_cache()
+    return out, {"fsdp_world1": {k: sum(s["launches"][k] for p in ("float32", "bfloat16")
+                                        for s in w1[p]["rows"]["fsdp"])
+                                 for k in DP_TRAIN_LAUNCHES},
+                 "fsdp_rank0_fit": ranks[0]["launches_fit"],
+                 "fsdp_rank1_fit": ranks[1]["launches_fit"],
+                 "fsdp_serving": out["serving"]["launches"]}
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -3521,14 +3821,23 @@ def main() -> int:
     walls["bf16_params_s"] = time.perf_counter() - tic
     log(f"phase 15: {walls['bf16_params_s']:.1f} s")
 
-    # 16. kernels line, card line, result
+    # 16. FSDP in rank subprocesses: a 1-rank NCCL world against replicated
+    # at f32 and bf16 parameters, two gloo ranks on the card bit-equal to
+    # replicated, one FSDP epoch whose checkpoint serves.
+    tic = time.perf_counter()
+    report["fsdp"], fsdp_paths = fsdp_phase(torch, card)
+    walls["fsdp_s"] = time.perf_counter() - tic
+    log(f"phase 16: {walls['fsdp_s']:.1f} s")
+
+    # 17. kernels line, card line, result
     def total(rows, key):
         return sum(r[key] for r in rows)
 
     paths = {"serving": launches, "train": train_launches,
              "dense_serving": report["dense_serving"]["launches"],
              "dense_train": dense_train["launches_fit"], **lifecycle_paths, **unmasked_paths,
-             **clip_paths, **dp_paths, **backbone_paths, **c13_paths, **bf16_paths}
+             **clip_paths, **dp_paths, **backbone_paths, **c13_paths, **bf16_paths,
+             **fsdp_paths}
 
     def both(name):
         return {path: counts[name] for path, counts in paths.items()}

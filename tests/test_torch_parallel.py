@@ -373,10 +373,12 @@ def test_data_parallel_without_multiprocess_raises():
 
 
 def test_fsdp_raises():
+    """A sharding mode other than replicated or fsdp raises ValueError, as
+    the JAX ``param_shardings`` does; fsdp runs (``test_torch_fsdp.py``)."""
     from tricolo_tpu_torch.training import Trainer
 
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        Trainer(torch_cfg([*PORT, "parallel.param_sharding=fsdp"]), device="cpu")
+    with pytest.raises(ValueError, match="unknown param sharding mode: fsdp2"):
+        Trainer(torch_cfg([*PORT, "parallel.param_sharding=fsdp2"]), device="cpu")
 
 
 def test_indivisible_global_batch_raises():

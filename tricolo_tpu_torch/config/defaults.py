@@ -11,9 +11,9 @@ This is the PyTorch port's own copy of ``tricolo_tpu.config.defaults``
 so one command line configures both packages. ``parallel.*`` is read by
 ``tricolo_tpu_torch.parallel``: one process per GPU, ``data_parallel`` the
 world size, the rank triple from the keys or torchrun's environment,
-``param_sharding=fsdp`` refused. Keys that only the JAX package reads
-(``precision.scoped_vmem_kib``, the Pallas toggles) are accepted and
-ignored here.
+``param_sharding`` replicated or ``fsdp`` (``parallel.sharding_rules``).
+Keys that only the JAX package reads (``precision.scoped_vmem_kib``, the
+Pallas toggles) are accepted and ignored here.
 """
 
 from __future__ import annotations

@@ -2,9 +2,10 @@
 
 Port of ``tricolo_tpu.parallel``: the process group and the rank triple
 (``multiprocess``), the world in place of the mesh with the config guards
-and the model's synchronised BatchNorm and dropout (``world``), and the
+and the model's synchronised BatchNorm and dropout (``world``), the
 differentiable collectives with the three contrastive loss forms
-(``collectives``). ``param_sharding=fsdp`` is refused.
+(``collectives``), and parameter sharding, replicated or FSDP
+(``sharding_rules``) over the world's ``DeviceMesh`` (``mesh``).
 """
 
 from .collectives import (
@@ -24,6 +25,7 @@ from .multiprocess import (
     process_count,
     process_index,
 )
+from .sharding_rules import fsdp_axis, shard_model, sharded_leaves
 from .world import attach, check_parallel_config
 
 __all__ = [
@@ -35,6 +37,7 @@ __all__ = [
     "broadcast_state",
     "check_parallel_config",
     "default_device",
+    "fsdp_axis",
     "is_multiprocess",
     "local_batch_size",
     "make_parallel_loss_fn",
@@ -42,4 +45,6 @@ __all__ = [
     "process_count",
     "process_index",
     "psum",
+    "shard_model",
+    "sharded_leaves",
 ]

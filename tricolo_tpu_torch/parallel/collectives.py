@@ -48,6 +48,7 @@ from typing import Callable
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from .multiprocess import World
 
@@ -184,13 +185,15 @@ def sum_over_ranks(tensors, group) -> tuple:
 
 
 def all_reduce_gradients(params, world: World) -> None:
-    """Sum every parameter's ``.grad`` over the ranks in place (the ranks
-    hold the same parameters with grads). The sum runs in f32 and a bf16
-    gradient is rounded once, from the f32 total, as the JAX package's
-    step reduces the gradient of a bf16 leaf over its mesh (XLA all-reduces
-    it in f32); a bf16 all-reduce would round at each addition (NCCL's
-    ring: once a hop)."""
-    grads = [p.grad for p in params if p.grad is not None]
+    """Sum every replicated parameter's ``.grad`` over the ranks in place
+    (the ranks hold the same parameters with grads). The sum runs in f32
+    and a bf16 gradient is rounded once, from the f32 total, as the JAX
+    package's step reduces the gradient of a bf16 leaf over its mesh (XLA
+    all-reduces it in f32); a bf16 all-reduce would round at each addition
+    (NCCL's ring: once a hop). A sharded (FSDP, ``DTensor``) leaf is left
+    as it is: FSDP reduce-scattered its gradient, the same f32 sum, inside
+    the backward."""
+    grads = [p.grad for p in params if p.grad is not None and not isinstance(p.grad, DTensor)]
     if grads:
         totals = sum_over_ranks([g.float() for g in grads], world.group)
         for grad, total in zip(grads, totals):

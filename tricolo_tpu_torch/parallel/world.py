@@ -1,9 +1,13 @@
 """The data-parallel world in place of the JAX mesh.
 
-Port of ``tricolo_tpu.parallel.mesh`` and of the ``param_sharding`` guard:
-the JAX package's 1-D data mesh over every device maps onto the process
-group, one process per GPU, so ``parallel.data_parallel`` is the world
-size ("auto" means it; an int must equal it). ``attach`` makes a model's
+Port of ``tricolo_tpu.parallel.mesh``'s data axis and of the trainer's
+config guards: the JAX package's 1-D data mesh over every device maps onto
+the process group, one process per GPU, so ``parallel.data_parallel`` is
+the world size ("auto" means it; an int must equal it).
+``parallel.param_sharding`` is ``replicated`` or ``fsdp``
+(``sharding_rules.shard_model``), at either parameter dtype; with no world
+(one process) ``fsdp`` is the replicated model, as the JAX package's
+``shard_state`` over a one-device mesh is. ``attach`` makes a model's
 train-mode forward compute what pjit computes over the global batch:
 
 * every BatchNorm (the voxel blocks' masked and all-site statistics, the
@@ -19,18 +23,18 @@ from __future__ import annotations
 from torch import nn
 
 from .multiprocess import World, local_batch_size
+from .sharding_rules import MODES
 
 
 def check_parallel_config(cfg, world: World | None) -> None:
-    """Refuse what the port does not run: ``param_sharding`` other than
-    replicated, a ``data_parallel`` unlike the world size, a global batch
-    the world does not divide."""
+    """Refuse what the port does not run: a ``param_sharding`` not in
+    ``sharding_rules.MODES`` (ValueError, as the JAX ``param_shardings``),
+    a ``data_parallel`` unlike the world size, a global batch the world
+    does not divide."""
     par = cfg.parallel
     sharding = par.get("param_sharding", "replicated")
-    if sharding != "replicated":
-        raise NotImplementedError(
-            f"parallel.param_sharding={sharding}: the port replicates parameters (FSDP is "
-            "not ported)")
+    if sharding not in MODES:
+        raise ValueError(f"unknown param sharding mode: {sharding}")
     size = 1 if world is None else world.size
     dp = par.get("data_parallel", "auto")
     if dp not in ("auto", None) and int(dp) != size:

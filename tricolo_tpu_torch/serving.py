@@ -148,7 +148,9 @@ class RetrievalServer:
         """Build the model from ``cfg`` and load its weights from any
         checkpoint ``training.checkpoint.load_checkpoint`` reads (the
         port's, a bare state_dict, the JAX package's), without the disabled
-        encoders' entries."""
+        encoders' entries. The model is never sharded, whatever
+        ``parallel.param_sharding``: the server calls its encoders directly,
+        and an FSDP run's checkpoint holds full tensors."""
         model = TriCoLoNet.from_config(cfg)
         model.load_state_dict(prune_disabled_encoders(load_checkpoint(ckpt_path)["model"], cfg))
         return cls(cfg, model, device=device, **kw)

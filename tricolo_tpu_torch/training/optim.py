@@ -22,6 +22,12 @@ direction as ``(p − lr·u).astype(p.dtype)`` (``training/steps.py``).
   p − lr·u. A plain elementwise update over the bf16 leaves
   (``torch._foreach_*``), as the JAX package writes no kernel for it.
 
+Under ``parallel.param_sharding=fsdp`` a sharded leaf is a ``DTensor``:
+its moments are created like it (``zeros_like``), so each rank holds the
+moments of its own shard, and both updates run on the local tensors of the
+parameter, its gradient and its moments. Adam is elementwise, so the shard
+a rank updates equals those elements of the replicated update, bit for bit.
+
 It is a ``torch.optim.Optimizer`` with ``torch.optim.Adam``'s state names
 (``step``, ``exp_avg``, ``exp_avg_sq``, each moment in its leaf's dtype) and
 param-group keys, so the trainer, checkpoints, resume and
@@ -37,6 +43,7 @@ import math
 from collections import defaultdict
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.optim.adam import adam as torch_adam
 
 
@@ -44,6 +51,12 @@ def _rounded(x: float, dtype) -> float:
     """A Python scalar as JAX's weak typing uses it beside a ``dtype``
     leaf: rounded to ``dtype`` (exactly representable as a Python float)."""
     return float(torch.tensor(x, dtype=torch.float32).to(dtype))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """The elements this rank holds: a ``DTensor``'s local shard (its
+    storage, updated in place), any other tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _bias_correction(beta: float, count: int, dtype) -> float:
@@ -87,8 +100,9 @@ class Adam(torch.optim.Optimizer):
         """``torch.optim.Adam``'s step (it counts ``step`` itself)."""
         states = [self.state[p] for p in params]
         b1, b2 = group["betas"]
-        torch_adam(params, [p.grad for p in params], [s["exp_avg"] for s in states],
-                   [s["exp_avg_sq"] for s in states], [], [s["step"] for s in states],
+        torch_adam([_local(p) for p in params], [_local(p.grad) for p in params],
+                   [_local(s["exp_avg"]) for s in states],
+                   [_local(s["exp_avg_sq"]) for s in states], [], [s["step"] for s in states],
                    amsgrad=False, beta1=b1, beta2=b2, lr=group["lr"],
                    weight_decay=group["weight_decay"], eps=group["eps"], maximize=False)
 
@@ -96,9 +110,10 @@ class Adam(torch.optim.Optimizer):
         """The JAX step on bf16 leaves whose step is ``count``."""
         c = lambda x: _rounded(x, torch.bfloat16)  # noqa: E731
         b1, b2 = group["betas"]
-        grads = [p.grad for p in params]
-        mu = [self.state[p]["exp_avg"] for p in params]
-        nu = [self.state[p]["exp_avg_sq"] for p in params]
+        grads = [_local(p.grad) for p in params]
+        mu = [_local(self.state[p]["exp_avg"]) for p in params]
+        nu = [_local(self.state[p]["exp_avg_sq"]) for p in params]
+        params = [_local(p) for p in params]
         if group["weight_decay"]:
             grads = torch._foreach_add(grads, torch._foreach_mul(params, c(group["weight_decay"])))
         torch._foreach_mul_(mu, c(b1))

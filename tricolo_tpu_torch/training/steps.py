@@ -22,6 +22,11 @@ the loss at the global batch over the gathered embeddings), the model's
 BatchNorms and dropout span the global batch (``parallel.attach``), and
 after the backward one all-reduce sums the gradients over the ranks, so
 every rank takes the same Adam step as one process on the global batch.
+Under ``parallel.param_sharding=fsdp`` (``parallel.shard_model``, applied
+before the step is made, so the step holds the sharded parameters) the
+order is: FSDP's reduce-scatter of the sharded leaves' gradients inside the
+backward, then the all-reduce of the leaves kept whole, then Adam on each
+rank's shards.
 """
 
 from __future__ import annotations

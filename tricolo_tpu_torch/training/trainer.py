@@ -29,7 +29,11 @@ an XPlane protobuf.
 Under ``parallel.multiprocess=true`` (``tricolo_tpu_torch.parallel``)
 every rank runs this loop on its stripe of each global batch, with the
 process group brought up before the model is placed, parameters checked
-equal across ranks, and the step of ``make_train_step(world=...)``. Rank 0
+equal across ranks, then placed by ``parallel.param_sharding``
+(``parallel.shard_model``: replicated, or FSDP shards), and the step of
+``make_train_step(world=...)``. Under FSDP the checkpoints hold full
+tensors (``state`` gathers them; ``load_state`` keeps each rank's shard),
+so a file is a replicated run's and resumes under either mode. Rank 0
 alone owns ``metrics.jsonl``, the checkpoints, the async writer, the trace
 and the printed lines; the other ranks run the same loop with null sinks.
 Validation is process-local (every rank embeds the whole split in eval
@@ -70,7 +74,9 @@ from ..parallel import (
     check_parallel_config,
     default_device,
     maybe_initialize,
+    shard_model,
 )
+from ..parallel.sharding_rules import gathered, placed_like
 from .checkpoint import (
     AsyncCheckpointWriter,
     CheckpointManager,
@@ -151,7 +157,8 @@ class Trainer:
         self._graft_pretrained_backbone()
         if self.world is not None:
             attach(self.model, self.world)
-            broadcast_state(self.model, self.world)
+            broadcast_state(self.model, self.world)  # compares full tensors: before sharding
+        shard_model(self.model, self.world, cfg.parallel.get("param_sharding", "replicated"))
         self.optimizer = make_optimizer(cfg, self.model)
         self.train_step = make_train_step(self.model, self.optimizer, cfg, world=self.world)
         self.val_loss = make_loss_fn(cfg)
@@ -234,9 +241,12 @@ class Trainer:
 
     def state(self) -> dict:
         """The live train state a checkpoint holds: ``{"model", "optimizer",
-        "step"}`` (the state_dicts share the tensors the steps update)."""
-        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-                "step": self.step}
+        "step"}`` (the state_dicts share the tensors the steps update).
+        Under FSDP each sharded tensor is gathered whole, a collective that
+        every rank makes here in the same order, so the state is, key for
+        key and dtype for dtype, a replicated run's."""
+        return {"model": gathered(self.model.state_dict()),
+                "optimizer": gathered(self.optimizer.state_dict()), "step": self.step}
 
     def load_state(self, ckpt_path: str, for_inference: bool = False) -> int | None:
         """Restore a checkpoint of any format ``load_checkpoint`` reads; the
@@ -248,11 +258,16 @@ class Trainer:
         state_dict = payload["model"]
         if for_inference:
             state_dict = prune_disabled_encoders(state_dict, self.cfg)
-        self.model.load_state_dict(state_dict)
+        live = self.model.state_dict()  # under FSDP, each rank keeps its shard
+        self.model.load_state_dict({k: placed_like(v, live[k]) if k in live else v
+                                    for k, v in state_dict.items()})
         if not for_inference:
             if payload["epoch"] is None:
                 raise ValueError(f"{ckpt_path} holds weights only; it cannot resume a run")
             state = payload["optimizer"]["state"] if payload["optimizer"] else {}
+            params = [p for group in self.optimizer.param_groups for p in group["params"]]
+            state = {i: {k: placed_like(v, params[i]) if k != "step" else v
+                         for k, v in entry.items()} for i, entry in state.items()}
             self.optimizer.load_state_dict(
                 {"state": state, "param_groups": self.optimizer.state_dict()["param_groups"]})
             self.step = int(payload["step"])

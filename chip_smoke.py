@@ -25,7 +25,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``NT_XENT_TOL``·max|plain|; K7 (gather_tiles) at the dense
    plan's four gathers and K2's global entry (scatter_tiles_global) at its
    four handoffs, on the active tiles of a real packed batch (budget 32,768
-   rows), in f32 and bf16, bit-exact; K1's and K3's unmasked entries
+   rows), in f32 and bf16, bit-exact, K7 timed beside its one-call
+   yardstick (``aten::index`` over an ``unfold`` view of the padded grid);
+   K1's and K3's unmasked entries
    (bn_relu_pool_unmasked idx off and on, bn_relu_pool_bwd_unmasked) at
    the five dense blocks of the masked_bn=false flagship, (128, 64³, 32) …
    (128, 4³, 512), in f32 and bf16, bit-exact, on inputs with ties, dead
@@ -211,8 +213,8 @@ Phases (any failure exits non-zero and prints no result line):
     checkpoint served: index launches per batch exactly K1 5 and K2 2, the
     f32 index kernel vs plain (1e-5);
 17. the kernels line (ten rows: K1-K7, K2's global entry, and K1's and
-    K3's unmasked entries; the row of K4
-    counts the pair launches, each of which computes K4 twice, and carries
+    K3's unmasked entries; K7's ``library_ms`` is its yardstick's; the row
+    of K4 counts the pair launches, each of which computes K4 twice, and carries
     the pair entry's times, the rows of K5 and K6 likewise the two-term
     launches and times), then the card line, then
     ``{"ok": true, ...}``.
@@ -673,9 +675,29 @@ def dense_plan_inputs(torch, batch, voxel_size, budget):
     return x1, m1, m2, ids, n_active
 
 
+def k7_library(torch, x, ids, tile, halo):
+    """K7's one-call yardstick: ``aten::index`` over an ``unfold`` view of
+    the grid padded by ``halo`` (the pad made here, outside any timed
+    window), at ids clamped to valid ones. It leaves out the pad and the
+    padding tiles' zeros, and returns (T, C, s, s, s), a permuted layout of
+    the kernel's output. Returns the call and the mask of valid ids."""
+    from tricolo_tpu_torch.ops.tile_gather import _decode
+
+    B, D = x.shape[0], x.shape[1]
+    s = tile + 2 * halo
+    xp = torch.nn.functional.pad(x, (0, 0) + (halo, halo) * 3)
+    windows = xp.unfold(1, s, tile).unfold(2, s, tile).unfold(3, s, tile)
+    valid, b, tz, ty, tx = _decode(ids, B, D // tile)
+    first = int(valid.nonzero()[0, 0]) if bool(valid.any()) else 0
+    fill = lambda t: torch.where(valid, t, t[first])  # noqa: E731
+    b, tz, ty, tx = fill(b), fill(tz), fill(ty), fill(tx)
+    return lambda: windows[b, tz, ty, tx], valid
+
+
 def check_k7(torch, cases, ids, n_active, flush):
     """K7 against its plain version, bit-exact in f32 and bf16; bound =
-    (bytes written + the active tiles' interiors read once + ids) / HBM."""
+    (bytes written + the active tiles' interiors read once + ids) / HBM;
+    library = ``k7_library`` (equal to the kernel on the valid rows)."""
     from tricolo_tpu_torch.ops import gather_tiles, gather_tiles_plain
 
     max_err, rows = 0.0, []
@@ -695,11 +717,19 @@ def check_k7(torch, cases, ids, n_active, flush):
                 ms = time_ms(lambda: gather_tiles(x, ids, tile, halo), torch, flush=flush)
                 plain = time_ms(lambda: gather_tiles_plain(x, ids, tile, halo), torch,
                                 repeats=5, flush=flush)
+                library, valid = k7_library(torch, x, ids, tile, halo)
+                lib_out = library().permute(0, 2, 3, 4, 1)
+                require(torch.equal(lib_out[valid], got[valid]),
+                        f"K7 {name}: the library yardstick != kernel on the valid rows")
+                del lib_out
+                lib_ms = time_ms(library, torch, flush=flush)
                 rows.append({"tensor": name, "shape": list(x.shape), "out": list(got.shape),
                              "tile": tile, "halo": halo, "dtype": "bf16", "ms": ms,
-                             "plain_ms": plain, "bound_ms": bound})
+                             "plain_ms": plain, "bound_ms": bound, "library_ms": lib_ms})
                 log(f"  K7 {name:8s} {tuple(x.shape)} -> {tuple(got.shape)} bf16: {ms:.4f} ms "
-                    f"(plain {plain:.4f} ms, bound {bound:.4f} ms)")
+                    f"(plain {plain:.4f} ms, library {lib_ms:.4f} ms, bound {bound:.4f} ms, "
+                    f"{bound / ms:.0%} of bound)")
+                del library, valid
             del x, got, ref
             torch.cuda.empty_cache()
     return max_err, rows
@@ -3914,7 +3944,7 @@ def main() -> int:
          "launches": on_paths("gather_tiles"), "launches_by_path": both("gather_tiles"),
          "max_abs_err": k7_err, "ms": total(k7_rows, "ms"),
          "plain_ms": total(k7_rows, "plain_ms"), "bound_ms": total(k7_rows, "bound_ms"),
-         "bound_by": "bytes", "library_ms": None, "shapes": k7_rows},
+         "bound_by": "bytes", "library_ms": total(k7_rows, "library_ms"), "shapes": k7_rows},
         {"name": "scatter_tiles_global", "route": "cuda",
          "source": "tricolo_tpu_torch/csrc/tile_scatter.cu",
          "replaces": "tricolo_tpu/ops/_graveyard/dma_tiles.py:128",

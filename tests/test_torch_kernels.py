@@ -4,8 +4,9 @@ On the CPU: the plain versions' edge cases (K1's and K3's unmasked forms
 included), the wrappers' dispatch (CPU tensors take the plain version and
 launch nothing) and the launch plans of
 K1 and K2 (vector width from shapes and addresses, the guards of their
-32-bit index math) and of the NT-Xent forward (logits tile, grid, scratch)
-and backward (row tile and D slice). On a card (``-m cuda``): each kernel
+32-bit index math), of K3 (channels a thread, 64-bit index math) and K7
+(copy width, tiles a block, template form, its guards) and of the NT-Xent
+forward (logits tile, grid, scratch) and backward (row tile and D slice). On a card (``-m cuda``): each kernel
 against its plain version — K1-K3 (masked and unmasked entries), K7 and
 both K2 entries bit-exact in f32 and bf16, K4-K6, the pair forward and the two-term backward (f32 sums in
 another order) within ``NT_XENT_TOL · max|plain|``, the forward also
@@ -368,6 +369,97 @@ def test_launch_plans_refuse_32bit_overflow(plan, over, under):
 
 
 @pytest.mark.parametrize(
+    "C,dtype,shift,idx_shift,vec_shift,want",
+    [(32, "bfloat16", 0, 0, 0, 8), (64, "bfloat16", 0, 0, 0, 8), (512, "bfloat16", 0, 0, 0, 8),
+     (512, "float32", 0, 0, 0, 4), (12, "bfloat16", 0, 0, 0, 4), (12, "float32", 0, 0, 0, 4),
+     (8, "float32", 0, 0, 0, 4), (4, "bfloat16", 0, 0, 0, 4), (6, "bfloat16", 0, 0, 0, 2),
+     (3, "float32", 0, 0, 0, 1), (32, "bfloat16", 1, 0, 0, 1), (32, "bfloat16", 2, 0, 0, 2),
+     (32, "bfloat16", 4, 0, 0, 4), (32, "float32", 2, 0, 0, 2), (32, "bfloat16", 0, 2, 0, 2),
+     (32, "bfloat16", 0, 4, 0, 4), (32, "bfloat16", 0, 0, 1, 1), (32, "bfloat16", 0, 0, 2, 2)],
+)
+def test_pool_bwd_launch_plan_channels_a_thread(C, dtype, shift, idx_shift, vec_shift, want):
+    """K3's channels a thread: 8 bf16 or 4 f32 (16 bytes) where C and the
+    addresses of y, ga and dy (VE elements), idx (VE bytes) and the f32
+    vectors (up to 16 bytes) allow, narrower down to one channel."""
+    from tricolo_tpu_torch.ops.bn_relu_pool import bwd_launch_plan
+
+    dt = getattr(torch, dtype)
+    y = _shifted(torch.zeros(1, 2, 2, 2, C, dtype=dt), shift)
+    ga = torch.zeros(1, 1, 1, 1, C, dtype=dt)
+    idx = _shifted(torch.zeros(1, 1, 1, 1, C, dtype=torch.uint8), idx_shift)
+    vectors = [torch.zeros(C), _shifted(torch.zeros(C), vec_shift)]
+    vec, wide = bwd_launch_plan(y.shape, y.element_size(), (y, ga, torch.empty_like(y)), idx,
+                                vectors)
+    assert (vec, wide) == (want, False)
+    assert C % vec == 0
+
+
+@pytest.mark.parametrize(
+    "shape,elem,want",
+    [((2**28 - 1, 2, 2, 2, 32), 2, (8, False)),  # just below 2^31 sites
+     ((2**28, 2, 2, 2, 32), 2, (8, True)),  # 2^31 sites: 64-bit offsets
+     ((2**21, 4, 4, 4, 512), 4, (4, True)),  # 2^31 threads of 4 f32 channels
+     ((2**21 - 1, 4, 4, 4, 512), 4, (4, False)),
+     ((1, 2**31, 2, 2, 8), 2, None), ((1, 2, 2, 2, 2**31), 2, None)],  # an extent past int
+)
+def test_pool_bwd_launch_plan_index_width(shape, elem, want):
+    """K3 switches to 64-bit index math where the sites or the threads (a
+    pooled cell and channel vector each) reach 2^31, and refuses extents
+    that do not fit the kernel's int."""
+    from tricolo_tpu_torch.ops.bn_relu_pool import bwd_launch_plan
+
+    if want is None:
+        with pytest.raises(ValueError, match="2\\^31"):
+            bwd_launch_plan(shape, elem)
+        return
+    assert bwd_launch_plan(shape, elem) == want
+
+
+@pytest.mark.parametrize(
+    "tile,halo,C,dtype,shift,want",
+    [(8, 1, 4, "bfloat16", 0, (8, 1, True)),  # x1: ten 8-byte copies a row
+     (8, 0, 1, "bfloat16", 0, (16, 16, True)),  # mask1: one 16-byte copy a row
+     (4, 1, 32, "bfloat16", 0, (16, 1, True)),  # x2
+     (4, 0, 1, "bfloat16", 0, (8, 64, True)),  # mask2: 64 tiles of 16 vectors a block
+     (8, 1, 4, "float32", 0, (16, 1, True)), (4, 0, 1, "float32", 0, (16, 64, True)),
+     (8, 0, 1, "float32", 0, (16, 8, True)), (8, 2, 4, "bfloat16", 0, (16, 1, False)),
+     (2, 1, 32, "bfloat16", 0, (16, 4, False)), (2, 0, 4, "bfloat16", 0, (16, 256, False)),
+     (4, 1, 3, "bfloat16", 0, (2, 1, True)), (4, 1, 3, "float32", 0, (4, 1, True)),
+     (6, 3, 5, "float32", 0, (4, 1, False)), (8, 0, 1, "bfloat16", 1, (2, 2, True)),
+     (8, 0, 1, "bfloat16", 4, (8, 8, True)), (4, 1, 32, "bfloat16", 2, (4, 1, True))],
+)
+def test_gather_launch_plan(tile, halo, C, dtype, shift, want):
+    """K7's plan: the widest copy dividing gcd(tile, halo)·C·elem bytes and
+    the grid's address, tiles a block for about four vectors a thread, and the
+    template form for the dense plan's four (tile, halo); any other runs
+    the generic form."""
+    from tricolo_tpu_torch.ops.tile_gather import launch_plan
+
+    x = _shifted(torch.zeros(1, 2 * tile, 2 * tile, 2 * tile, C, dtype=getattr(torch, dtype)),
+                 shift)
+    plan = launch_plan(1, 2 * tile, C, tile, halo, x.element_size(), x)
+    assert tuple(plan) == want
+    s = tile + 2 * halo
+    units = s**3 * C * x.element_size() // plan.vec_bytes
+    assert plan.tiles_per_block * units <= max(1024, units)
+
+
+@pytest.mark.parametrize(
+    "over,under",
+    [((2**22, 32, 1, 4, 0, 2), (2**22 - 1, 32, 1, 4, 0, 2)),  # 2^31 tiles in the grid
+     ((1, 1024, 2**11, 64, 0, 4), (1, 1024, 2**10, 64, 0, 4))],  # 2^31 bytes a tile
+)
+def test_gather_launch_plan_refuses_32bit_overflow(over, under):
+    """K7's tile ids and its per-block vector index are 32-bit: its plan
+    refuses grids of 2^31 tiles and tiles of 2^31 bytes."""
+    from tricolo_tpu_torch.ops.tile_gather import launch_plan
+
+    with pytest.raises(ValueError, match="2\\^31"):
+        launch_plan(*over)
+    assert launch_plan(*under).vec_bytes in (8, 16)
+
+
+@pytest.mark.parametrize(
     "B,D,want",
     [(128, 512, (128, 1)), (2000, 512, (128, 1)), (2500, 512, (128, 4)),
      (8192, 512, (128, 4)), (8192, 128, (128, 1)), (8192, 64, (64, 1)),
@@ -542,6 +634,76 @@ def test_cuda_bn_relu_pool_bwd_matches_plain(dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("C", [4, 8, 12, 32, 512, 3])
+@pytest.mark.parametrize("spatial", [(4, 6, 4), (2, 6, 10), (6, 2, 14)])
+def test_cuda_bn_relu_pool_bwd_every_channel_plan(C, masked, dtype, spatial):
+    """K3 at each channels-a-thread plan (8/4/2/1 bf16, 4/2/1 f32), masked
+    and unmasked, with odd pooled extents (3 and 5, 1 and 7)."""
+    _need_cuda()
+    y, ga, idx, mask, *vectors = _k3_inputs((3, *spatial, C), C + 11, getattr(torch, dtype),
+                                            "cuda")
+    mask = mask if masked else None
+    got = bn_relu_pool_bwd(y, ga, idx, mask, *vectors)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bn_relu_pool_bwd_plain(y, ga, idx, mask, *vectors))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which,shift", [("values", 1), ("values", 2), ("values", 4),
+                                         ("idx", 1), ("idx", 2), ("vectors", 1),
+                                         ("vectors", 2)])
+def test_cuda_bn_relu_pool_bwd_unaligned_view(dtype, which, shift):
+    """Views that start past an aligned address take a narrower plan and
+    stay exact: y and ga, idx, or one f32 vector shifted by ``shift``
+    elements."""
+    from tricolo_tpu_torch.ops.bn_relu_pool import bwd_launch_plan
+
+    _need_cuda()
+    y, ga, idx, mask, b, c, inv, sub = _k3_inputs((2, 4, 6, 4, 32), 13, getattr(torch, dtype),
+                                                  "cuda")
+    if which == "values":
+        y, ga = _shifted(y, shift), _shifted(ga, shift)
+    elif which == "idx":
+        idx = _shifted(idx, shift)
+    else:
+        sub = _shifted(sub, shift)
+    vec, _ = bwd_launch_plan(y.shape, y.element_size(), (y, ga), idx, (b, c, inv, sub))
+    shifted_bytes = shift * {"values": y.element_size(), "idx": 1, "vectors": 4}[which]
+    assert (vec < 16 // y.element_size()) == (shifted_bytes % 16 != 0)
+    for m in (mask, None):
+        got = bn_relu_pool_bwd(y, ga, idx, m, b, c, inv, sub)
+        torch.cuda.synchronize()
+        assert torch.equal(got, bn_relu_pool_bwd_plain(y, ga, idx, m, b, c, inv, sub))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [True, False])
+def test_cuda_bn_relu_pool_bwd_wide_index_path(dtype, masked):
+    """K3's 64-bit index form (grid-stride loop, 64-bit divisions), asked
+    for through the C entry at a small shape, equals the plain version."""
+    from tricolo_tpu_torch.ops.bn_relu_pool import _DTYPES, _lib_bwd, bwd_launch_plan
+
+    _need_cuda()
+    y, ga, idx, mask, *vectors = _k3_inputs((3, 6, 4, 10, 32), 17, getattr(torch, dtype),
+                                            "cuda")
+    mask = mask if masked else None
+    dy = torch.empty_like(y)
+    vec, wide = bwd_launch_plan(y.shape, y.element_size(), (y, ga, dy), idx, vectors)
+    assert not wide
+    fn = getattr(_lib_bwd(), f"bn_relu_pool_bwd_{_DTYPES[y.dtype]}")
+    status = fn(y.data_ptr(), ga.data_ptr(), idx.data_ptr(),
+                None if mask is None else mask.data_ptr(), *(v.data_ptr() for v in vectors),
+                dy.data_ptr(), 3, 3, 2, 5, 32, vec, 1, torch.cuda.current_stream().cuda_stream)
+    assert status == 0
+    torch.cuda.synchronize()
+    assert torch.equal(dy, bn_relu_pool_bwd_plain(y, ga, idx, mask, *vectors))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,D", [(128, 512), (100, 128), (8192, 512)])
 def test_cuda_nt_xent_matches_plain(B, D):
     _need_cuda()
@@ -655,6 +817,43 @@ def test_cuda_gather_tiles_unaligned_view(dtype):
     view = flat[1:].view(x.shape)
     assert view.is_contiguous() and view.data_ptr() % 16
     assert torch.equal(gather_tiles(view, ids, 4, 1), gather_tiles_plain(x, ids, 4, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [1, 4, 32])
+@pytest.mark.parametrize("tile,halo,generic", [(8, 1, False), (8, 0, False), (4, 1, False),
+                                               (4, 0, False), (8, 1, True), (4, 0, True),
+                                               (2, 3, False), (6, 2, False)])
+def test_cuda_gather_tiles_every_form(dtype, C, tile, halo, generic):
+    """K7 at its four template forms, the same shapes through the generic
+    instantiation, and two generic (tile, halo) (halo past the tile; a tile
+    edge of 6), on windows at the grid's edges and invalid ids: negative,
+    one past the grid, and INT32_MAX, which must give zero tiles."""
+    from tricolo_tpu_torch.ops.tile_gather import _lib, launch_plan
+
+    _need_cuda()
+    D = 4 * tile
+    x, ids = _k7_inputs(2, D, C, tile, D + C, getattr(torch, dtype), "cuda")
+    n = 2 * 4**3
+    ids = torch.cat([ids, torch.tensor([-1, n, -(2**31), 2**31 - 1], dtype=torch.int32,
+                                       device="cuda")])
+    ref = gather_tiles_plain(x, ids, tile, halo)
+    assert (ref[-7:] == 0).all()
+    if not generic:
+        got = gather_tiles(x, ids, tile, halo)
+    else:
+        s = tile + 2 * halo
+        got = torch.empty((ids.shape[0], s, s, s, C), dtype=x.dtype, device="cuda")
+        plan = launch_plan(2, D, C, tile, halo, x.element_size(), x, got)
+        assert plan.fixed
+        status = _lib().tile_gather(
+            x.data_ptr(), ids.data_ptr(), got.data_ptr(), ids.shape[0], 2, D, C, tile, halo,
+            x.element_size(), plan.vec_bytes, plan.tiles_per_block, 0,
+            torch.cuda.current_stream().cuda_stream)
+        assert status == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.cuda

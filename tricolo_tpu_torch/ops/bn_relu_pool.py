@@ -256,15 +256,39 @@ def bn_relu_pool_bwd_plain(y, ga, idx, stats_mask, bcoef, ccoef, invstd, sub):
     return t.to(y.dtype)
 
 
+@functools.cache
 def _lib_bwd():
     lib = _build.load("bn_relu_pool_bwd")
     for suffix in _DTYPES.values():
         fn = getattr(lib, f"bn_relu_pool_bwd_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
     return lib
+
+
+def bwd_launch_plan(shape, elem_bytes: int, values=(), idx=None, vectors=()) -> tuple[int, bool]:
+    """K3's (channels a thread, 64-bit index math). Channels a thread: the
+    most, up to 16 bytes of y's dtype, that divide C and whose bytes divide
+    the addresses of ``values`` (y, ga, dy), whose count divides that of
+    ``idx`` (a byte a channel) and whose f32 bytes, up to 16, divide those
+    of ``vectors`` (bcoef, ccoef, invstd, sub). 64-bit index math where the
+    sites or the threads (one a pooled cell and channel vector) reach 2^31.
+    Raises where an extent does not fit the kernel's 32-bit int."""
+    N, D, H, W, C = shape
+    if max(D, H, W, C) >= 2**31:
+        raise ValueError(f"bn_relu_pool_bwd takes D, H, W and C below 2^31, got {tuple(shape)}")
+    vec = 16 // elem_bytes
+    while vec > 1 and not (
+        C % vec == 0
+        and all(t.data_ptr() % (vec * elem_bytes) == 0 for t in values)
+        and (idx is None or idx.data_ptr() % vec == 0)
+        and all(v.data_ptr() % min(16, 4 * vec) == 0 for v in vectors)
+    ):
+        vec //= 2
+    sites = N * D * H * W
+    return vec, sites >= 2**31 or sites // 8 * (C // vec) >= 2**31
 
 
 def _launch_k3(y, ga, idx, stats_mask, vectors, name):
@@ -283,16 +307,14 @@ def _launch_k3(y, ga, idx, stats_mask, vectors, name):
             raise ValueError(f"{name} needs contiguous inputs on y's device")
     N, D, H, W, C = y.shape
     dy = torch.empty_like(y)
-    vec4 = C % 4 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (y, ga, dy)
-    ) and idx.data_ptr() % 4 == 0
+    vec, wide = bwd_launch_plan(y.shape, y.element_size(), (y, ga, dy), idx, vectors)
     fn = getattr(_lib_bwd(), f"bn_relu_pool_bwd_{_DTYPES[y.dtype]}")
     with torch.cuda.device(y.device):
         status = fn(
             y.data_ptr(), ga.data_ptr(), idx.data_ptr(),
             None if stats_mask is None else stats_mask.data_ptr(),
             *(v.data_ptr() for v in vectors),
-            dy.data_ptr(), N, D, H, W, C, int(vec4),
+            dy.data_ptr(), N, D // 2, H // 2, W // 2, C, vec, int(wide),
             torch.cuda.current_stream(y.device).cuda_stream,
         )
     _build.check(status, name)

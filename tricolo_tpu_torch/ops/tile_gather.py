@@ -20,6 +20,9 @@ atomics, deterministic.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -67,13 +70,49 @@ def gather_tiles_plain(x, ids, tile: int, halo: int = 0):
     return torch.where(valid[:, None, None, None, None], out, 0)
 
 
+@functools.cache
 def _lib():
     lib = _build.load("tile_gather")
-    lib.tile_gather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
+    lib.tile_gather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p
     ]
     lib.tile_gather.restype = ctypes.c_int
     return lib
+
+
+# A block of the kernel has 256 threads, each copying four vectors at a
+# time; it has template instantiations for the dense plan's four (tile,
+# halo) forms, and every other form runs the generic one.
+_THREADS, _UNROLL = 256, 4
+FIXED_FORMS = ((8, 1), (8, 0), (4, 1), (4, 0))
+
+
+class GatherPlan(NamedTuple):
+    vec_bytes: int  # copy width: divides gcd(tile, halo)·C·elem and x's, out's addresses
+    tiles_per_block: int  # output tiles a block (1 to 256): about four vectors a thread
+    fixed: bool  # (tile, halo) is one of FIXED_FORMS
+
+
+def launch_plan(batch: int, grid: int, channels: int, tile: int, halo: int,
+                elem_bytes: int, *tensors) -> GatherPlan:
+    """K7's plan: the widest copy (16, 8, 4 or 2 bytes) that divides
+    gcd(tile, halo)·C·elem bytes — every window row's start and halo edge,
+    in the grid and in the output, then falls on a vector — and the
+    addresses of ``tensors`` (x, out); as many output tiles a block as make
+    about four vectors a thread; the template form of (tile, halo). Raises
+    where the kernel's 32-bit tile ids or a block's vector index would
+    wrap."""
+    s = tile + 2 * halo
+    tile_bytes = s**3 * channels * elem_bytes
+    if batch * (grid // tile) ** 3 >= 2**31 or tile_bytes >= 2**31:
+        raise ValueError(
+            f"gather_tiles takes fewer than 2^31 tiles in the grid and bytes a tile; got "
+            f"{batch}·{grid // tile}³ tiles of {tile_bytes} bytes"
+        )
+    vec = _build.vector_bytes(math.gcd(tile, halo) * channels * elem_bytes, *tensors)
+    units = tile_bytes // vec
+    return GatherPlan(vec, max(1, min(_THREADS, _THREADS * _UNROLL // units)),
+                      (tile, halo) in FIXED_FORMS)
 
 
 def gather_tiles(x, ids, tile: int, halo: int = 0):
@@ -93,15 +132,14 @@ def gather_tiles(x, ids, tile: int, halo: int = 0):
     if ids.device != x.device or not (x.is_contiguous() and ids.is_contiguous()):
         raise ValueError("gather_tiles needs contiguous inputs on one device")
     B, D, C = x.shape[0], x.shape[1], x.shape[-1]
-    if B * (D // tile) ** 3 >= 2**31:
-        raise ValueError("gather_tiles takes fewer than 2^31 tiles in the grid")
     T, s = ids.shape[0], tile + 2 * halo
     out = torch.empty((T, s, s, s, C), dtype=x.dtype, device=x.device)
-    vec = _build.vector_bytes(C * x.element_size(), x, out)
+    plan = launch_plan(B, D, C, tile, halo, x.element_size(), x, out)
     with torch.cuda.device(x.device):
         status = _lib().tile_gather(
             x.data_ptr(), ids.data_ptr(), out.data_ptr(), T, B, D, C, tile, halo,
-            x.element_size(), vec, torch.cuda.current_stream(x.device).cuda_stream,
+            x.element_size(), plan.vec_bytes, plan.tiles_per_block, int(plan.fixed),
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(status, "tile_gather")
     gather_tiles.launches += 1

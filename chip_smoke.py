@@ -212,7 +212,19 @@ Phases (any failure exits non-zero and prints no result line):
     alone writing the checkpoint, whose tensors are whole), then that
     checkpoint served: index launches per batch exactly K1 5 and K2 2, the
     f32 index kernel vs plain (1e-5);
-17. the kernels line (ten rows: K1-K7, K2's global entry, and K1's and
+17. the measuring entry points as a user runs them, each a subprocess:
+    ``python -m tricolo_tpu_torch.bench`` at the flagship widths (2
+    warm-up steps, N = 4, 2 two-point pairs) on the default
+    windowed_compact transfer and on the dense plan, each with ``--trace``
+    and ``python -m tricolo_tpu_torch.trace_report --json`` on that trace,
+    and ``python -m tricolo_tpu_torch.bench_loader`` in ``--mode host``
+    and ``--mode e2e`` over 6 batches: each prints exactly one JSON line;
+    the bench's are not salvaged, hold 2 pairs and this card's name, with
+    launches per timed step exactly phase 7's (K1 5, K2 2, K3 5, pair 3,
+    two-term 6) and the dense plan's (K7 4, K2-global 4, K1 5, K3 5, pair
+    3, two-term 6); the traces show device time in K1-K6 (default) and K7
+    (dense plan); the readings beside phase 7's and phase 10's steps;
+18. the kernels line (ten rows: K1-K7, K2's global entry, and K1's and
     K3's unmasked entries; K7's ``library_ms`` is its yardstick's; the row
     of K4 counts the pair launches, each of which computes K4 twice, and carries
     the pair entry's times, the rows of K5 and K6 likewise the two-term
@@ -840,31 +852,20 @@ def check_host_path(path: str, batches: int) -> dict:
 
 
 def ellipsoid_batch(cfg, n_points=8192, packed=False):
-    """One flagship batch of 128 solid ellipsoids: windowed_compact rows
-    (halo 3), or with ``packed`` the packed site/RGB words. Returns (batch,
-    k = the max per-sample active tiles)."""
-    import numpy as np
-
+    """One flagship batch of 128 solid ellipsoids (``bench_data.host_batch``
+    of seed ``SEED``): windowed_compact rows (halo 3), or with ``packed``
+    the packed site/RGB words. Returns (batch, k = the max per-sample
+    active tiles)."""
+    from tricolo_tpu_torch.bench_data import host_batch
     from tricolo_tpu_torch.data.device_prep import windowed_compact_on_host
-    from tricolo_tpu_torch.data.ellipsoid import ellipsoid_sample
     from tricolo_tpu_torch.ops.tile_sparse import host_sample_tile_counts, sample_tile_budget
 
-    d = cfg.data
-    rng = np.random.default_rng(SEED)
-    B, D = d.batch_size, d.voxel_size
-    flat = np.empty((B, n_points), np.uint32)
-    rgb = np.empty((B, n_points), np.uint32)
-    for i in range(B):
-        flat[i], rgb[i] = ellipsoid_sample(rng, D, n_points)
-    k = sample_tile_budget("auto", (D // 8) ** 3, max(host_sample_tile_counts(flat, D)))
-    batch = {
-        "tokens": rng.integers(1, d.vocab_size, (B, d.max_tokens)).astype(np.int32),
-        "images": rng.integers(0, 256, (B, d.num_views, d.image_size, d.image_size, 3),
-                               dtype=np.uint8),
-    }
-    if packed:
-        batch["voxel_flat"], batch["voxel_rgb"] = flat, rgb
-    else:
+    batch = host_batch(cfg, n_points, seed=SEED)
+    D = cfg.data.voxel_size
+    k = sample_tile_budget("auto", (D // 8) ** 3,
+                           max(host_sample_tile_counts(batch["voxel_flat"], D)))
+    if not packed:
+        flat, rgb = batch.pop("voxel_flat"), batch.pop("voxel_rgb")
         batch["voxel_rows"], batch["voxel_row_ids"], _ = windowed_compact_on_host(
             flat, rgb, D, k, halo=3)
     return batch, k
@@ -1031,6 +1032,16 @@ def profile_step(torch, step, batch, lr) -> dict:
         step(batch, lr)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - tic) * 1e6
+    return profile_summary(prof.key_averages(), prof.key_averages(group_by_input_shape=True),
+                           wall_us)
+
+
+def profile_summary(rows, shape_rows, wall_us: float) -> dict:
+    """A step's profile from ``key_averages()`` rows (``shape_rows``: grouped
+    by input shape) and its host wall: device busy ms and idle share, the
+    port kernels' ms (``trace_report.device_summary``, the arithmetic the
+    trace report uses), the top device kernels and operators."""
+    from tricolo_tpu_torch.trace_report import device_summary
 
     def device_us(event):
         return getattr(event, "self_device_time_total", None) or getattr(
@@ -1038,36 +1049,23 @@ def profile_step(torch, step, batch, lr) -> dict:
 
     # Device-side events only (kernels, copies): an operator's own row also
     # carries the device time of the kernels it launched.
-    events = [e for e in prof.key_averages()
+    events = [e for e in rows
               if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0]
     events.sort(key=device_us, reverse=True)
-    busy_us = sum(device_us(e) for e in events)
     if not events:  # the profiler saw no device activity: nothing measured
         return {"wall_ms": wall_us / 1e3, "device_busy_ms": None, "device_idle_share": None,
                 "port_kernels_ms": None, "top": []}
-    # The port's kernels by their device function names (csrc/*.cu).
-    names = {"K1": ("::bn_relu_pool_kernel",),
-             "K2": ("::scatter_pass_kernel", "::inverse_kernel", "::inverse_global_kernel"),
-             "K3": ("::bn_relu_pool_bwd_kernel",),
-             "K4": ("::nt_xent_fwd_tile_kernel", "::nt_xent_fwd_combine_kernel"),
-             "K5-K6": ("::nt_xent_bwd_cluster_kernel",), "K7": ("::tile_gather_kernel",)}
-    ours = dict.fromkeys(names, 0.0)
-    for e in events:
-        for label, keys in names.items():
-            if any(key in e.key for key in keys):
-                ours[label] += device_us(e)
+    summary = device_summary(((e.key, device_us(e)) for e in events), wall_us)
+
     # The operators behind the device time, with their input shapes.
     def total_us(event):
         return getattr(event, "device_time_total", None) or getattr(
             event, "cuda_time_total", 0.0)
 
-    op_rows = [e for e in prof.key_averages(group_by_input_shape=True)
-               if e.key.startswith("aten::") and total_us(e) > 0]
+    op_rows = [e for e in shape_rows if e.key.startswith("aten::") and total_us(e) > 0]
     op_rows.sort(key=total_us, reverse=True)
     return {
-        "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-        "device_idle_share": 1.0 - busy_us / wall_us,
-        "port_kernels_ms": {k: v / 1e3 for k, v in ours.items()},
+        "wall_ms": wall_us / 1e3, **summary,
         "top": [{"name": e.key[:120], "device_ms": device_us(e) / 1e3, "count": e.count}
                 for e in events[:25]],
         "top_ops": [{"op": e.key, "device_ms": total_us(e) / 1e3, "count": e.count,
@@ -1350,16 +1348,21 @@ LIFECYCLE_LAUNCHES = dict(TRAIN_LAUNCHES, nt_xent_fwd_pair=1, nt_xent_bwd=2)
 DEVICE_EVAL_TOL = 1e-6
 
 
-def _cli(module: str, args: list[str], cwd: Path) -> list[str]:
-    """Run ``python -m tricolo_tpu_torch.<module>`` as a user would; its
-    printed "RR@1 RR@5 NDCG@5 MRR" numbers."""
+def _run_module(module: str, args: list[str], cwd: Path) -> subprocess.CompletedProcess:
+    """Run ``python -m tricolo_tpu_torch.<module>`` as a user would; it
+    must exit 0."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     proc = subprocess.run([sys.executable, "-m", f"tricolo_tpu_torch.{module}", *args],
                           cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
     require(proc.returncode == 0,
             f"{module} CLI failed ({proc.returncode}): {proc.stderr[-2000:]}")
-    lines = proc.stdout.strip().splitlines()
+    return proc
+
+
+def _cli(module: str, args: list[str], cwd: Path) -> list[str]:
+    """Run the CLI; its printed "RR@1 RR@5 NDCG@5 MRR" numbers."""
+    lines = _run_module(module, args, cwd).stdout.strip().splitlines()
     return lines[lines.index("RR@1 RR@5 NDCG@5 MRR") + 1].split()
 
 
@@ -3444,6 +3447,75 @@ def fsdp_phase(torch, card) -> tuple[dict, dict]:
                  "fsdp_serving": out["serving"]["launches"]}
 
 
+# -------------------------------------------------------------- phase 17
+
+# The bench's short form: 2 warm-up steps, N = 4, 2 two-point pairs.
+BENCH_RUN = ["--override", "bench.warmup_steps=2", "--override", "bench.steps=4",
+             "--pairs", "2", "--idle-wait", "0"]
+BENCH_KEYS = {"metric", "value", "unit", "step_ms", "pairs", "salvaged", "config",
+              "voxel_size", "batch_size", "card"}
+LOADER_STEPS = 6
+
+
+def _json_line(module: str, proc) -> dict:
+    """The one line a measuring CLI prints on stdout, parsed."""
+    lines = proc.stdout.strip().splitlines()
+    require(len(lines) == 1, f"{module} printed {len(lines)} stdout lines, not one: {lines[:4]}")
+    return json.loads(lines[0])
+
+
+def measuring(torch, card, reference: dict) -> tuple[dict, dict]:
+    """Phase 17: the bench (default and dense plan, each traced and
+    reported), the loader-included bench in both modes. ``reference``:
+    earlier phases' step ms on this card. Returns (report, the benches'
+    launches over their timed steps)."""
+    out_dir = ROOT / "build" / "chip_smoke" / "bench"
+    runs = {"windowed_compact": ([], TRAIN_LAUNCHES, ("K1", "K2", "K3", "K4", "K5-K6")),
+            "dense_plan": ([a for o in DENSE for a in ("--override", o)], DENSE_TRAIN_LAUNCHES,
+                           ("K7",))}
+    out: dict = {"reference_step_ms": reference}
+    paths: dict = {}
+    torch.cuda.empty_cache()
+    for name, (extra, want, labels) in runs.items():
+        trace_dir = out_dir / name
+        tic = time.perf_counter()
+        proc = _run_module("bench", BENCH_RUN + extra + ["--trace", str(trace_dir)], ROOT)
+        wall = time.perf_counter() - tic
+        result = _json_line("bench", proc)
+        require(set(result) == BENCH_KEYS, f"bench {name}: keys {sorted(result)}")
+        require(result["salvaged"] is False and result["pairs"] == 2,
+                f"bench {name}: salvaged {result['salvaged']}, pairs {result['pairs']}")
+        require(result["value"] > 0 and result["card"] == card,
+                f"bench {name}: value {result['value']}, card {result['card']!r}")
+        counted = json.loads(next(line for line in reversed(proc.stderr.splitlines())
+                                  if line.startswith("bench: {"))[len("bench: "):])
+        require(counted["launches_per_step"] == want,
+                f"bench {name}: launches a step {counted['launches_per_step']} != {want}")
+        report = _json_line("trace_report", _run_module(
+            "trace_report", [str(trace_dir), "--steps", "4", "--json"], ROOT))
+        ours = report["port_kernels_ms_per_step"]
+        require(all(ours[label] > 0 for label in labels),
+                f"bench {name}: trace shows port kernels {ours}, {labels} required")
+        paths[f"bench_{name}"] = {k: v * counted["steps"]
+                                  for k, v in counted["launches_per_step"].items()}
+        out[name] = {"result": result, "launches": counted, "trace": report, "wall_s": wall}
+        log(f"bench {name}: {result['step_ms']:.3f} ms a step = {result['value']:.2f} pairs/s "
+            f"(2 pairs, N 4; phase 7 median {reference['phase7']:.3f} ms, phase 10 ellipsoid "
+            f"step {reference['phase10_ellipsoid']:.3f} ms), trace: device "
+            f"{report['device_ms_per_step']:.3f} ms a step, idle share "
+            f"{report['device_idle_share']:.4f}, fwd/bwd {report['phase_ms_per_step']}, port "
+            f"kernels {ours}, longest gap {report['gaps'][:1]}; {wall:.1f} s [{card}]")
+    for mode in ("host", "e2e"):
+        tic = time.perf_counter()
+        result = _json_line("bench_loader", _run_module(
+            "bench_loader", ["--mode", mode, "--steps", str(LOADER_STEPS)], ROOT))
+        require(result["batches"] == LOADER_STEPS and result["value"] > 0,
+                f"bench_loader {mode}: {result}")
+        out[f"loader_{mode}"] = dict(result, wall_s=time.perf_counter() - tic)
+        log(f"bench_loader {mode}: {result} [{card}]")
+    return out, paths
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -3859,7 +3931,16 @@ def main() -> int:
     walls["fsdp_s"] = time.perf_counter() - tic
     log(f"phase 16: {walls['fsdp_s']:.1f} s")
 
-    # 17. kernels line, card line, result
+    # 17. the measuring entry points: bench (traced, reported) on both
+    # plans, the loader-included bench in both modes.
+    tic = time.perf_counter()
+    report["measuring"], bench_paths = measuring(torch, card, {
+        "phase7": report["train"]["step_ms_median_2_6"],
+        "phase10_ellipsoid": report["ellipsoid_train_step"]["ms"]})
+    walls["measuring_s"] = time.perf_counter() - tic
+    log(f"phase 17: {walls['measuring_s']:.1f} s")
+
+    # 18. kernels line, card line, result
     def total(rows, key):
         return sum(r[key] for r in rows)
 
@@ -3867,7 +3948,7 @@ def main() -> int:
              "dense_serving": report["dense_serving"]["launches"],
              "dense_train": dense_train["launches_fit"], **lifecycle_paths, **unmasked_paths,
              **clip_paths, **dp_paths, **backbone_paths, **c13_paths, **bf16_paths,
-             **fsdp_paths}
+             **fsdp_paths, **bench_paths}
 
     def both(name):
         return {path: counts[name] for path, counts in paths.items()}

@@ -89,9 +89,10 @@ from .steps import dropout_generator, make_train_step
 
 
 @contextlib.contextmanager
-def profile_trace(log_dir: str | None, device: torch.device):
+def profile_trace(log_dir: str | None, device: torch.device, name: str = "fit"):
     """A ``torch.profiler`` trace of the block (host, and the card on CUDA)
-    exported as a Chrome trace under ``log_dir``; a no-op without one."""
+    exported as a Chrome trace ``{name}.<ns>.pt.trace.json`` under
+    ``log_dir``; a no-op without one."""
     if log_dir is None:
         yield
         return
@@ -103,7 +104,7 @@ def profile_trace(log_dir: str | None, device: torch.device):
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
         yield
-    prof.export_chrome_trace(os.path.join(log_dir, f"fit.{time.time_ns()}.pt.trace.json"))
+    prof.export_chrome_trace(os.path.join(log_dir, f"{name}.{time.time_ns()}.pt.trace.json"))
 
 
 class _NullLogger:

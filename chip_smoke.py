@@ -224,7 +224,29 @@ Phases (any failure exits non-zero and prints no result line):
     two-term 6) and the dense plan's (K7 4, K2-global 4, K1 5, K3 5, pair
     3, two-term 6); the traces show device time in K1-K6 (default) and K7
     (dense plan); the readings beside phase 7's and phase 10's steps;
-18. the kernels line (ten rows: K1-K7, K2's global entry, and K1's and
+18. the tools' short forms, each through its CLI: 18a ``bench --roofline``
+    on the default config (2 warm-up steps, N = 4, 1 pair), then
+    ``roofline_report --json``: at least 0.95 of device time attributed to
+    a counted op, rows for K1, K2, K3, the pair forward and the two-term
+    backward (and no other port kernel) with launches a step exactly phase
+    7's, each K row's floor equal to the kernel module's ``work(...)``
+    summed over its recorded launches (and, for K1, K3 and the loss
+    kernels, at phase 3's block shapes for the bench's k), no row above
+    105% of its floor, under 0.1 ms a step of floor in ops that launched
+    nothing, a floor share in (0, 1], ``convolution_backward`` counted with
+    device time (the autograd thread's ops reach the counter), device ms a
+    step within 10% of phase 17's trace; 18b ``profile_step --iters 3``:
+    every row finite and > 0, the full step within 10% of phase 17's
+    bench; 18c ``profile_voxel_blocks --iters 3`` (five blocks, B 128):
+    every cell > 0, the kernel columns launching K1's unmasked entry once
+    and (with the backward) K3's once, the other columns nothing; 18d
+    ``measure_collectives`` over gloo worlds 1 and 2 and one NCCL rank: the
+    gathered bytes equal the JAX formula; 18e ``dryrun 2 --device cuda``
+    (two gloo ranks on cuda:0): all five modes and every check; 18f
+    ``dress_rehearsal`` at scale 0.01 (68 train / 15 val models), one
+    epoch: rc 0 and the report holds every key (the split is deleted);
+    18a-c run alone in turn, 18d-f at once (their gates time nothing);
+19. the kernels line (ten rows: K1-K7, K2's global entry, and K1's and
     K3's unmasked entries; K7's ``library_ms`` is its yardstick's; the row
     of K4 counts the pair launches, each of which computes K4 twice, and carries
     the pair entry's times, the rows of K5 and K6 likewise the two-term
@@ -240,6 +262,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -352,10 +375,6 @@ def make_flush(torch):
     return flush
 
 
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
 # ------------------------------------------------------------ phase 3: K1/K2
 
 
@@ -387,6 +406,7 @@ def check_k1(torch, shapes, flush):
     (idx on, the train step's). Rows of ``plan`` windowed_compact in the
     eval form are the kernels line's total, as in earlier runs."""
     from tricolo_tpu_torch.ops import bn_relu_pool, bn_relu_pool_plain
+    from tricolo_tpu_torch.ops.bn_relu_pool import work
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     max_err, rows = 0.0, []
@@ -407,12 +427,9 @@ def check_k1(torch, shapes, flush):
                 del args
                 torch.cuda.empty_cache()
                 continue
-            y, mul, add, zmask, smask = args
-            pooled = torch.Size((shape[0], shape[1] // 2, shape[2] // 2, shape[3] // 2)).numel()
-            out_bytes = pooled * (shape[4] + 1) * y.element_size()
+            y = args[0]
             for form, want_idx in (("eval", False), ("train", True)):
-                idx_bytes = pooled * shape[4] if want_idx else 0  # uint8
-                bound = ((nbytes(y, zmask, smask) + out_bytes + idx_bytes)
+                bound = (work("K1", shape, y.element_size(), 2 if two else 1, want_idx)[0]
                          / HBM_BYTES_PER_S * 1e3)
                 ms = time_ms(lambda: bn_relu_pool(*args, want_idx=want_idx), torch,
                              flush=flush)
@@ -424,13 +441,14 @@ def check_k1(torch, shapes, flush):
                              "main": plan == "windowed_compact" and form == "eval"})
                 log(f"  K1 {plan:16s} {name:6s} {form:5s} {tuple(shape)} bf16: {ms:.4f} ms "
                     f"(plain {plain:.4f} ms, bound {bound:.4f} ms, {bound / ms:.0%} of bound)")
-            del args, y, mul, add, zmask, smask
+            del args, y
             torch.cuda.empty_cache()
     return max_err, rows
 
 
 def check_k2(torch, ids, grid, flush):
     from tricolo_tpu_torch.ops import scatter_tiles_ps, scatter_tiles_ps_plain
+    from tricolo_tpu_torch.ops.tile_scatter import work
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     B, k = ids.shape
@@ -447,8 +465,8 @@ def check_k2(torch, ids, grid, flush):
             require(torch.equal(got, ref), f"K2 C={C} {dtype}: kernel != plain ({err})")
             if dtype == torch.bfloat16:
                 # Only the rows with a valid id are read (padding rows never).
-                read = n_valid * tiles[0, 0].numel() * tiles.element_size()
-                bound = (read + nbytes(ids, got)) / HBM_BYTES_PER_S * 1e3
+                bound = (work(n_valid, 2, C, tiles.element_size(), ids.numel(), B, grid)[0]
+                         / HBM_BYTES_PER_S * 1e3)
                 ms = time_ms(lambda: scatter_tiles_ps(tiles, ids, grid), torch, flush=flush)
                 plain = time_ms(lambda: scatter_tiles_ps_plain(tiles, ids, grid), torch,
                                 repeats=5, flush=flush)
@@ -480,6 +498,7 @@ def check_k3(torch, shapes, flush):
     """K3 against its plain version, bit-exact in f32 and bf16, timed in
     bf16; rows of ``plan`` windowed_compact are the kernels line's total."""
     from tricolo_tpu_torch.ops import bn_relu_pool_bwd, bn_relu_pool_bwd_plain
+    from tricolo_tpu_torch.ops.bn_relu_pool import work
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     max_err, rows = 0.0, []
@@ -494,8 +513,7 @@ def check_k3(torch, shapes, flush):
             require(torch.equal(got, ref), f"K3 {plan} {name} {dtype}: kernel != plain ({err})")
             del got, ref
             if dtype == torch.bfloat16:  # the main path's dtype
-                y, ga, idx, stats = args[:4]
-                bound = nbytes(y, ga, idx, stats, y) / HBM_BYTES_PER_S * 1e3  # + dy
+                bound = work("K3", shape, args[0].element_size(), 1)[0] / HBM_BYTES_PER_S * 1e3
                 ms = time_ms(lambda: bn_relu_pool_bwd(*args), torch, flush=flush)
                 plain = time_ms(lambda: bn_relu_pool_bwd_plain(*args), torch, repeats=5,
                                 flush=flush)
@@ -534,6 +552,7 @@ def check_k1_unmasked(torch, shapes, flush):
     serving; train: idx on). Bound: y read once, pooled (and idx) written
     once."""
     from tricolo_tpu_torch.ops import bn_relu_pool_plain, bn_relu_pool_unmasked
+    from tricolo_tpu_torch.ops.bn_relu_pool import work
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     max_err, rows = 0.0, []
@@ -553,10 +572,9 @@ def check_k1_unmasked(torch, shapes, flush):
                 del got, ref
             if dtype == torch.bfloat16:  # the main path's dtype is timed
                 y = args[0]
-                pooled = y.numel() // 8
                 for form, want_idx in (("eval", False), ("train", True)):
-                    out_bytes = pooled * (y.element_size() + (1 if want_idx else 0))
-                    bound = (nbytes(y) + out_bytes) / HBM_BYTES_PER_S * 1e3
+                    bound = (work("K1", shape, y.element_size(), 0, want_idx)[0]
+                             / HBM_BYTES_PER_S * 1e3)
                     ms = time_ms(lambda: bn_relu_pool_unmasked(*args, want_idx=want_idx),
                                  torch, flush=flush)
                     plain = time_ms(lambda: bn_relu_pool_plain(*args, want_idx=want_idx),
@@ -579,6 +597,7 @@ def check_k3_unmasked(torch, shapes, flush):
     written once."""
     from tricolo_tpu_torch.ops import (bn_relu_pool_bwd_plain, bn_relu_pool_bwd_unmasked,
                                        bn_relu_pool_unmasked)
+    from tricolo_tpu_torch.ops.bn_relu_pool import work
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     max_err, rows = 0.0, []
@@ -603,7 +622,7 @@ def check_k3_unmasked(torch, shapes, flush):
             require(torch.equal(got, ref), f"K3-unmasked {name} {dtype}: kernel != plain ({err})")
             del got, ref
             if dtype == torch.bfloat16:  # the main path's dtype
-                bound = nbytes(y, args[1], idx, y) / HBM_BYTES_PER_S * 1e3  # + dy
+                bound = work("K3", shape, y.element_size(), 0)[0] / HBM_BYTES_PER_S * 1e3
                 ms = time_ms(lambda: bn_relu_pool_bwd_unmasked(*args), torch, flush=flush)
                 plain = time_ms(lambda: bn_relu_pool_bwd_plain(*args[:3], None, *args[3:]),
                                 torch, repeats=5, flush=flush)
@@ -626,6 +645,7 @@ def check_nt_xent(torch, sizes, flush):
     reduces them both ways; the two-term entry's is K5's plus K6's (the
     logits twice)."""
     from tricolo_tpu_torch import ops
+    from tricolo_tpu_torch.ops.nt_xent import work
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     errs = dict.fromkeys(("nt_xent_fwd", "nt_xent_fwd_pair", "nt_xent_bwd_rows",
@@ -639,17 +659,17 @@ def check_nt_xent(torch, sizes, flush):
         scale = torch.tensor([0.25 * INV_TAU / B], device="cuda")
         scales = torch.tensor([0.25 * INV_TAU / B, 0.75 * INV_TAU / B], device="cuda")
         cases = [
-            ("nt_xent_fwd", ops.nt_xent_fwd, ops.nt_xent_fwd_plain, (zi, zj, INV_TAU), 2),
+            ("nt_xent_fwd", ops.nt_xent_fwd, ops.nt_xent_fwd_plain, (zi, zj, INV_TAU)),
             ("nt_xent_fwd_pair", ops.nt_xent_fwd_pair, ops.nt_xent_fwd_pair_plain,
-             (zi, zj, INV_TAU), 2),
+             (zi, zj, INV_TAU)),
             ("nt_xent_bwd_rows", ops.nt_xent_bwd_rows, ops.nt_xent_bwd_rows_plain,
-             (zi, zj, lse, scale, INV_TAU), 4),
+             (zi, zj, lse, scale, INV_TAU)),
             ("nt_xent_bwd_cols", ops.nt_xent_bwd_cols, ops.nt_xent_bwd_cols_plain,
-             (zj, zi, lse, scale, INV_TAU), 4),
+             (zj, zi, lse, scale, INV_TAU)),
             ("nt_xent_bwd", ops.nt_xent_bwd, ops.nt_xent_bwd_plain,
-             (zi, zj, lse, lse_b, scales, INV_TAU), 4),
+             (zi, zj, lse, lse_b, scales, INV_TAU)),
         ]
-        for name, kernel, plain, args, flops_per in cases:
+        for name, kernel, plain, args in cases:
             got = kernel(*args)
             torch.cuda.synchronize()
             ref = plain(*args)
@@ -657,9 +677,8 @@ def check_nt_xent(torch, sizes, flush):
             limit = NT_XENT_TOL * ref.abs().max().item()
             require(err <= limit, f"{name} B={B}: max |kernel - plain| {err} > {limit}")
             errs[name] = max(errs[name], err)
-            bound = max(flops_per * B * B * D / F32_FLOPS,
-                        nbytes(*[a for a in args if hasattr(a, "numel")], got)
-                        / HBM_BYTES_PER_S) * 1e3
+            moved, flops = work(name, B, D)
+            bound = max(flops / F32_FLOPS, moved / HBM_BYTES_PER_S) * 1e3
             ms = time_ms(lambda: kernel(*args), torch, flush=flush)
             plain_ms = time_ms(lambda: plain(*args), torch, repeats=5, flush=flush)
             rows[name].append({"shape": [B, D], "dtype": "f32", "ms": ms, "plain_ms": plain_ms,
@@ -711,6 +730,7 @@ def check_k7(torch, cases, ids, n_active, flush):
     (bytes written + the active tiles' interiors read once + ids) / HBM;
     library = ``k7_library`` (equal to the kernel on the valid rows)."""
     from tricolo_tpu_torch.ops import gather_tiles, gather_tiles_plain
+    from tricolo_tpu_torch.ops.tile_gather import work
 
     max_err, rows = 0.0, []
     for name, x32, tile, halo in cases:
@@ -723,9 +743,8 @@ def check_k7(torch, cases, ids, n_active, flush):
             max_err = max(max_err, err)
             require(torch.equal(got, ref), f"K7 {name} {dtype}: kernel != plain ({err})")
             if dtype == torch.bfloat16:
-                C = x.shape[-1]
-                read = n_active * tile**3 * C * x.element_size()
-                bound = (nbytes(got, ids) + read) / HBM_BYTES_PER_S * 1e3
+                moved = work(n_active, tile, halo, x.shape[-1], x.element_size(), ids.numel())[0]
+                bound = moved / HBM_BYTES_PER_S * 1e3
                 ms = time_ms(lambda: gather_tiles(x, ids, tile, halo), torch, flush=flush)
                 plain = time_ms(lambda: gather_tiles_plain(x, ids, tile, halo), torch,
                                 repeats=5, flush=flush)
@@ -752,6 +771,7 @@ def check_k2_global(torch, cases, ids, n_active, batch, flush):
     bf16; bound = (the active tiles read once + ids + grid written) / HBM:
     padding rows are never read."""
     from tricolo_tpu_torch.ops import scatter_tiles_global, scatter_tiles_global_plain
+    from tricolo_tpu_torch.ops.tile_scatter import work
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     T = ids.shape[0]
@@ -766,8 +786,8 @@ def check_k2_global(torch, cases, ids, n_active, batch, flush):
             max_err = max(max_err, err)
             require(torch.equal(got, ref), f"K2-global {name} {dtype}: kernel != plain ({err})")
             if dtype == torch.bfloat16:
-                read = n_active * t**3 * C * tiles.element_size()
-                bound = (nbytes(ids, got) + read) / HBM_BYTES_PER_S * 1e3
+                bound = (work(n_active, t, C, tiles.element_size(), T, batch, grid)[0]
+                         / HBM_BYTES_PER_S * 1e3)
                 ms = time_ms(lambda: scatter_tiles_global(tiles, ids, batch, grid), torch,
                              flush=flush)
                 plain = time_ms(lambda: scatter_tiles_global_plain(tiles, ids, batch, grid),
@@ -3516,6 +3536,233 @@ def measuring(torch, card, reference: dict) -> tuple[dict, dict]:
     return out, paths
 
 
+# -------------------------------------------------------------- phase 18
+
+# The roofline's short form: the bench's, 1 pair.
+ROOFLINE_RUN = ["--override", "bench.warmup_steps=2", "--override", "bench.steps=4",
+                "--pairs", "1", "--idle-wait", "0"]
+# The roofline's labels of phase 7's kernels (TRAIN_LAUNCHES' keys).
+ROOFLINE_LABELS = {"K1": "bn_relu_pool", "K2": "scatter_tiles_ps", "K3": "bn_relu_pool_bwd",
+                   "K4-pair": "nt_xent_fwd_pair", "K5-K6": "nt_xent_bwd"}
+MIN_ATTRIBUTED = 0.95
+MAX_IDLE_FLOOR_MS = 0.1
+# A tool's step against phase 17's reading of the same step.
+TOOL_STEP_TOL = 0.10
+DRESS_SCALE = "0.01"
+
+
+def _expected_floors(k: int, batch: int, dim: int) -> dict:
+    """The K rows' floors a step (ms) from phase 3's windowed_compact block
+    shapes at T = batch·k rows (K1 with the argmax, two masks at block 1;
+    K3 one mask) and the loss kernels at (batch, dim): 5 K1, 5 K3, 3 pair
+    forwards, 6 two-term backwards."""
+    from tricolo_tpu_torch.ops.bn_relu_pool import work as k13
+    from tricolo_tpu_torch.ops.nt_xent import work as nt
+    from tricolo_tpu_torch.work import floor_s
+
+    T = batch * k
+    shapes = [((T, 12, 12, 12, 32), 2), ((T, 4, 4, 4, 64), 1), ((batch, 16, 16, 16, 128), 1),
+              ((batch, 8, 8, 8, 256), 1), ((batch, 4, 4, 4, 512), 1)]
+    out = {"K1": sum(floor_s(*k13("K1", s, 2, m, True), "memory") for s, m in shapes),
+           "K3": sum(floor_s(*k13("K3", s, 2, 1), "memory") for s, _ in shapes),
+           "K4-pair": 3 * floor_s(*nt("nt_xent_fwd_pair", batch, dim), "f32"),
+           "K5-K6": 6 * floor_s(*nt("nt_xent_bwd", batch, dim), "f32")}
+    return {label: s * 1e3 for label, s in out.items()}
+
+
+def _record_floors(record: dict, steps: int) -> dict:
+    """Each K label's floor a step (ms), recomputed from the record's
+    kernel arguments through the kernel modules' own ``work``."""
+    import importlib
+
+    from tricolo_tpu_torch.work import floor_s
+
+    out: dict = {}
+    for i, (module, args) in record["kernel_args"].items():
+        label, cls = record["ops"][i][0], record["ops"][i][1]
+        nbytes, flops = importlib.import_module(module).work(*args)
+        out[label] = out.get(label, 0.0) + floor_s(nbytes, flops, cls) * 1e3 / steps
+    return out
+
+
+def roofline_phase(card: str, reference: dict) -> dict:
+    """18a: ``bench --roofline`` on the default config, then
+    ``roofline_report --json`` on it (gates: module docstring)."""
+    from tricolo_tpu_torch.roofline_report import find_record
+    from tricolo_tpu_torch.work import load
+
+    out_dir = ROOT / "build" / "chip_smoke" / "roofline"
+    proc = _run_module("bench", ROOFLINE_RUN + ["--roofline", str(out_dir)], ROOT)
+    result = _json_line("bench", proc)
+    require(result["pairs"] == 1 and not result["salvaged"], f"roofline bench: {result}")
+    k = int(next(line for line in proc.stderr.splitlines() if "(k " in line)
+            .split("(k ", 1)[1].split(")", 1)[0])
+    report = _json_line("roofline_report", _run_module(
+        "roofline_report", [str(out_dir), "--steps", "4", "--json"], ROOT))
+    rows = report["kernel_rows"]
+    record = load(find_record(str(out_dir)))
+    recomputed = _record_floors(record, 4)
+    expected = _expected_floors(k, result["batch_size"], 512)
+    require(report["attributed_share"] >= MIN_ATTRIBUTED,
+            f"roofline: {report['attributed_share']:.4f} of device time attributed")
+    require(set(rows) == set(ROOFLINE_LABELS), f"roofline: kernel rows {sorted(rows)}")
+    for label, wrapper in ROOFLINE_LABELS.items():
+        row = rows[label]
+        require(row["launches"] == TRAIN_LAUNCHES[wrapper],
+                f"roofline {label}: {row['launches']} launches a step, "
+                f"not {TRAIN_LAUNCHES[wrapper]}")
+        require(abs(row["floor_ms"] - recomputed[label]) <= 1e-9 * recomputed[label],
+                f"roofline {label}: floor {row['floor_ms']} ms != work() over its launches "
+                f"{recomputed[label]} ms")
+        if label in expected:
+            require(abs(row["floor_ms"] - expected[label]) <= 1e-9 * expected[label],
+                    f"roofline {label}: floor {row['floor_ms']} ms != work() at phase 3's "
+                    f"shapes, k {k}: {expected[label]} ms")
+    require(not report["impossible"], f"roofline: rows above their floor {report['impossible']}")
+    require(report["no_device_work_floor_ms"] < MAX_IDLE_FLOOR_MS,
+            f"roofline: {report['no_device_work_floor_ms']} ms of floor launched nothing")
+    require(0.0 < report["floor_share"] <= 1.0, f"roofline: floor share {report['floor_share']}")
+    conv_bwd = [r for r in report["rows"] if r["op"] == "aten::convolution_backward"]
+    require(conv_bwd and conv_bwd[0]["device_ms"] > 0,
+            "roofline: no convolution_backward with device time (the backward thread's ops "
+            "were not counted)")
+    ref = reference["trace_device_ms"]
+    require(abs(report["device_ms_per_step"] - ref) <= TOOL_STEP_TOL * ref,
+            f"roofline: device {report['device_ms_per_step']:.3f} ms a step against phase "
+            f"17's trace {ref:.3f}")
+    dgrad = [r for r in report["by_kernel"] if "dgrad2d_grouped_direct" in r["kernel"]]
+    log(f"roofline (default, k {k}): device {report['device_ms_per_step']:.3f} ms a step "
+        f"(phase 17's trace {ref:.3f}), floor {report['floor_ms_per_step']:.3f} ms, share "
+        f"{report['floor_share']:.4f}, attributed {report['attributed_share']:.4f}, no-device "
+        f"floor {report['no_device_work_floor_ms']:.5f} ms; K rows "
+        + ", ".join(f"{lab} {r['device_ms']:.3f}/{r['floor_ms']:.4f} ms x{r['launches']:g}"
+                    for lab, r in sorted(rows.items()))
+        + f"; dgrad2d_grouped_direct {dgrad[:1]}; top rows "
+        + ", ".join(f"{r['op']} {r['device_ms']:.2f}/{r['floor_ms']:.3f}"
+                    for r in report["rows"][:6]) + f" [{card}]")
+    return {"bench": result, "k": k, "report": report, "expected_floors_ms": expected}
+
+
+def collectives_phase(card: str, backend: str, worlds: list[str]) -> dict:
+    """18d: ``measure_collectives`` over ``worlds`` of ``backend`` ranks:
+    every row's gathered bytes equal the JAX formula, its time and loss
+    finite."""
+    lines = _run_module("measure_collectives", ["--backend", backend, "--worlds", *worlds],
+                        ROOT).stdout.strip().splitlines()
+    rows = [json.loads(line) for line in lines[:-1]]
+    require(len(rows) == 3 * len(worlds), f"measure_collectives {backend}: {lines}")
+    for r in rows:
+        want = 0 if r["loss"] == "local" else 2 * 2 * 128 * (r["world"] - 1) * 512 * 4
+        require(r["gathered_bytes_per_rank"] == want,
+                f"measure_collectives {backend}: {r} gathers {want} bytes")
+        require(r["ms_per_step"] > 0 and math.isfinite(r["value"]),
+                f"measure_collectives {backend}: {r}")
+    log(f"measure_collectives {backend}: "
+        + ", ".join(f"world {r['world']} {r['loss']} {r['ms_per_step']:.3f} ms" for r in rows)
+        + f" [{card}]")
+    return {"rows": rows, "summary": json.loads(lines[-1])}
+
+
+def dress_phase(card: str) -> dict:
+    """18f: the dress rehearsal at ``DRESS_SCALE`` for one epoch: generate,
+    run (rc 0), report (every key); the split is deleted after."""
+    from tricolo_tpu_torch.dress_rehearsal import REPORT_KEYS
+
+    root = ROOT / "build" / "chip_smoke" / "dress"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        tic = time.perf_counter()
+        _run_module("dress_rehearsal", ["generate", "--root", str(root), "--scale", DRESS_SCALE],
+                    ROOT)
+        generate_s = time.perf_counter() - tic
+        _run_module("dress_rehearsal", ["run", "--root", str(root), "--epochs", "1",
+                                        "--extra", "trainer.log_every_n_steps=1"], ROOT)
+        result = _json_line("dress_rehearsal", _run_module(
+            "dress_rehearsal", ["report", "--root", str(root)], ROOT))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(set(result) == set(REPORT_KEYS), f"dress rehearsal report keys {sorted(result)}")
+    require(result["steps"] > 0 and result["total_wall_s"] > 0, f"dress rehearsal: {result}")
+    log(f"dress rehearsal x{DRESS_SCALE}: generate {generate_s:.1f} s, {result} [{card}]")
+    return dict(result, generate_s=generate_s)
+
+
+def tools(torch, card: str, reference: dict) -> dict:
+    """Phase 18: the measuring and rehearsal tools' short forms, each
+    through its CLI (module docstring). The roofline and the two profiles
+    run alone, one after another (their times are gated); the collectives,
+    the dry run and the rehearsal, whose gates count and check but compare
+    no time, then run at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    out: dict = {"walls_s": {}}
+
+    def timed(name, fn):
+        tic = time.perf_counter()
+        result = fn()
+        out["walls_s"][name] = time.perf_counter() - tic
+        return result
+
+    out["roofline"] = timed("roofline", lambda: roofline_phase(card, reference))
+    torch.cuda.empty_cache()
+
+    def profile_step():
+        result = _json_line("profile_step", _run_module("profile_step", ["--iters", "3"], ROOT))
+        rows = result["rows"]
+        require(all(math.isfinite(v) and v > 0 for v in rows.values()),
+                f"profile_step: rows {rows}")
+        ref = reference["bench_step_ms"]
+        require(abs(rows["full_step"] - ref) <= TOOL_STEP_TOL * ref,
+                f"profile_step: full step {rows['full_step']:.3f} ms against phase 17's bench "
+                f"{ref:.3f}")
+        log(f"profile_step (B 128, iters 3): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in rows.items()) + f" ms [{card}]")
+        return result
+
+    out["profile_step"] = timed("profile_step", profile_step)
+
+    def voxel_blocks():
+        result = _json_line("profile_voxel_blocks", _run_module(
+            "profile_voxel_blocks", ["--iters", "3"], ROOT))
+        require(len(result["blocks"]) == 5, f"profile_voxel_blocks: {len(result['blocks'])}")
+        one = {"bn_relu_pool_unmasked": 1}
+        both = {"bn_relu_pool_unmasked": 1, "bn_relu_pool_bwd_unmasked": 1}
+        for row in result["blocks"]:
+            cells = {k: v for k, v in row.items() if k not in ("block", "launches")}
+            require(all(v > 0 for v in cells.values()),
+                    f"profile_voxel_blocks {row['block']}: {cells}")
+            want = {"compose_fwd": {}, "compose_fwd_bwd": {}, "plain_fwd": {},
+                    "plain_fwd_bwd": {}, "kernel_fwd": one, "kernel_fwd_bwd": both,
+                    "block_fwd_bwd": both}
+            require(row["launches"] == want,
+                    f"profile_voxel_blocks {row['block']}: launches {row['launches']}")
+            log(f"profile_voxel_blocks {row['block']}: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in cells.items()) + f" ms [{card}]")
+        return result
+
+    def dryrun():
+        lines = _run_module("dryrun", ["2", "--device", "cuda"], ROOT).stdout.splitlines()
+        ran = [line for line in lines if " ran: " in line]
+        require(len(ran) == 5 and any("OK: all modes agree" in line for line in lines),
+                f"dryrun 2: {lines}")
+        log("dryrun(2) on cuda:0: " + "; ".join(line.split(") ", 1)[1] for line in ran)
+            + f" [{card}]")
+        return ran
+
+    out["profile_voxel_blocks"] = timed("profile_voxel_blocks", voxel_blocks)
+    together = {"collectives_gloo": lambda: collectives_phase(card, "gloo", ["1", "2"]),
+                "collectives_nccl": lambda: collectives_phase(card, "nccl", ["1"]),
+                "dryrun": dryrun, "dress_rehearsal": lambda: dress_phase(card)}
+    tic = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(together)) as pool:
+        futures = {name: pool.submit(timed, name, fn) for name, fn in together.items()}
+        for name, future in futures.items():
+            out[name] = future.result()
+    out["walls_s"]["together"] = time.perf_counter() - tic
+    log(f"phase 18 walls (the last four at once): {out['walls_s']}")
+    return out
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -3940,7 +4187,15 @@ def main() -> int:
     walls["measuring_s"] = time.perf_counter() - tic
     log(f"phase 17: {walls['measuring_s']:.1f} s")
 
-    # 18. kernels line, card line, result
+    # 18. the tools: roofline, profiles, collectives, dry run, rehearsal.
+    tic = time.perf_counter()
+    report["tools"] = tools(torch, card, {
+        "trace_device_ms": report["measuring"]["windowed_compact"]["trace"]["device_ms_per_step"],
+        "bench_step_ms": report["measuring"]["windowed_compact"]["result"]["step_ms"]})
+    walls["tools_s"] = time.perf_counter() - tic
+    log(f"phase 18: {walls['tools_s']:.1f} s")
+
+    # 19. kernels line, card line, result
     def total(rows, key):
         return sum(r[key] for r in rows)
 

@@ -2,8 +2,8 @@
 
     python -m tricolo_tpu_torch.bench [--config tri|bi_i|bi_v] [--voxel-size 64]
         [--batch-size 128] [--n-points N] [--override key=value ...]
-        [--trace DIR] [--pairs 5] [--idle-wait 240] [--stall-s S]
-        [--device cuda|cpu]
+        [--trace DIR] [--roofline DIR] [--pairs 5] [--idle-wait 240]
+        [--stall-s S] [--device cuda|cpu]
 
 The port's twin of the JAX package's ``bench.py``: the steady-state train
 step (forward, backward and Adam over BiGRU + MVCNN/ResNet18 + VoxelCNN
@@ -29,7 +29,12 @@ B·N / median estimate (one process: the data-parallel world is 1);
 ``step_ms`` is the median over N. ``--trace DIR`` first runs one extra
 loop of N steps under ``torch.profiler`` (read it with ``python -m
 tricolo_tpu_torch.trace_report DIR --steps N``); that loop feeds no
-estimate.
+estimate. ``--roofline DIR``, after the timed pairs, runs one more loop of
+N steps under ``torch.profiler`` and a ``work.WorkCounter`` and writes its
+trace and the counter's record ``work.<ns>.json`` into DIR (read them with
+``python -m tricolo_tpu_torch.roofline_report DIR --steps N``). The
+counter slows the host, so that loop's idle share means nothing; it feeds
+no estimate either.
 
 A stall watchdog guards the timed loops (``measure``): with no leg
 finished for ``--stall-s`` seconds (default max(300, 10 × the warm-up's
@@ -288,6 +293,10 @@ def parse_args(argv):
                     help="write a torch.profiler Chrome trace of one extra loop of "
                          "bench.steps steps into DIR (python -m tricolo_tpu_torch.trace_report "
                          "DIR --steps N)")
+    ap.add_argument("--roofline", default=None, metavar="DIR",
+                    help="after the timed pairs, write a trace and a work record of one more "
+                         "loop of bench.steps steps into DIR (python -m "
+                         "tricolo_tpu_torch.roofline_report DIR --steps N)")
     ap.add_argument("--pairs", type=int, default=5,
                     help="two-point estimates; the value is their median")
     ap.add_argument("--idle-wait", type=float, default=240.0,
@@ -386,7 +395,15 @@ def main(argv: list[str] | None = None) -> int:
             "card": card,
         }), flush=True)
 
-    return measure(timed_loop, steps, args.pairs, stall_s, emit)
+    code = measure(timed_loop, steps, args.pairs, stall_s, emit)
+    if args.roofline:
+        from .work import WorkCounter
+
+        with profile_trace(args.roofline, device, name="roofline"), WorkCounter() as counter:
+            timed_loop(steps)
+        counter.write(os.path.join(args.roofline, f"work.{time.time_ns()}.json"), card)
+        log(f"roofline: trace and work record of {steps} steps written under {args.roofline}")
+    return code
 
 
 if __name__ == "__main__":

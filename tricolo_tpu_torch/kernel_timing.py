@@ -15,8 +15,8 @@ plan's four gathers, 14,279 active tiles (a synthetic-256 batch's count) of a
 median of 20 calls after a 256 MB L2 flush (``ms``, as ``chip_smoke.py``
 times), the fastest of them (``min_ms``) and the median of 20 more with a
 device spin between the flush and the call (``spin_ms``: the host's time
-to queue the call cannot show), beside the bound (bytes read once and
-written once over 3.35 TB/s, as ``chip_smoke.py`` counts them).
+to queue the call cannot show), beside the bound (the kernel module's
+``work(...)`` bytes, read once and written once, over 3.35 TB/s, as ``chip_smoke.py`` counts them).
 
 ``--sass`` compiles the root's two sources with ``nvcc -Xptxas -v`` to a
 cubin and counts, in ``cuobjdump -sass``, each kernel's instructions, its
@@ -95,10 +95,6 @@ def timings(torch, fn, flush) -> dict:
             "spin_ms": statistics.median(samples(torch, fn, flush, spin=200_000))}
 
 
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
 def k3_inputs(torch, shape, masked, gen):
     N, D, H, W, C = shape
     pooled = (N, D // 2, H // 2, W // 2, C)
@@ -122,6 +118,8 @@ def k7_inputs(torch, gen):
 
 
 def time_k3(torch, ops, flush, gen) -> list:
+    from tricolo_tpu_torch.ops.bn_relu_pool import work as k3_work
+
     rows = []
     cases = [(plan, block, shape, True) for plan, block, shape in K3_MASKED]
     cases += [("unmasked", block, shape, False) for block, shape in K3_UNMASKED]
@@ -131,7 +129,7 @@ def time_k3(torch, ops, flush, gen) -> list:
             fn = lambda: ops.bn_relu_pool_bwd(y, ga, idx, mask, *vectors)  # noqa: E731
         else:
             fn = lambda: ops.bn_relu_pool_bwd_unmasked(y, ga, idx, *vectors)  # noqa: E731
-        bound = nbytes(y, ga, idx, mask, y) / HBM_BYTES_PER_S * 1e3  # + dy
+        bound = k3_work("K3", shape, y.element_size(), int(masked))[0] / HBM_BYTES_PER_S * 1e3
         rows.append({"kernel": "K3", "plan": plan, "block": block, "shape": list(shape),
                      **timings(torch, fn, flush), "bound_ms": bound})
         del y, ga, idx, mask, vectors, fn
@@ -140,13 +138,15 @@ def time_k3(torch, ops, flush, gen) -> list:
 
 
 def time_k7(torch, ops, flush, gen) -> list:
+    from tricolo_tpu_torch.ops.tile_gather import work as k7_work
+
     rows = []
     ids = k7_inputs(torch, gen)
     for name, D, C, tile, halo in K7_CASES:
         x = torch.randn((K7_BATCH, D, D, D, C), generator=gen, device="cuda").to(torch.bfloat16)
         out = ops.gather_tiles(x, ids, tile, halo)
-        read = K7_ACTIVE * tile**3 * C * x.element_size()
-        bound = (nbytes(out, ids) + read) / HBM_BYTES_PER_S * 1e3
+        moved = k7_work(K7_ACTIVE, tile, halo, C, x.element_size(), ids.numel())[0]
+        bound = moved / HBM_BYTES_PER_S * 1e3
         rows.append({"kernel": "K7", "tensor": name, "out": list(out.shape),
                      **timings(torch, lambda: ops.gather_tiles(x, ids, tile, halo), flush),
                      "bound_ms": bound})

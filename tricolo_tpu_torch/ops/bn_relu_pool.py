@@ -48,6 +48,7 @@ import functools
 
 import torch
 
+from .. import work as _work
 from ..parallel.collectives import sum_over_ranks
 from . import _build
 
@@ -138,6 +139,25 @@ def launch_plan(shape, elem_bytes: int, *tensors) -> int:
     return vec
 
 
+def work(kernel: str, shape, elem_bytes: int, masks: int, want_idx: bool = False):
+    """(bytes, flops) of one ``kernel`` call, "K1" or "K3", on y of
+    ``shape`` (N, D, H, W, C) with ``masks`` distinct (N, D, H, W, 1) masks
+    (0 unmasked, 1, or 2: K1's zero and statistics masks), as PERF.md §6
+    bounds it: K1 reads y and the masks and writes the pooled values (and
+    the pooled mask when masked, the uint8 argmax with ``want_idx``); K3
+    reads y, ga, idx and the statistics mask and writes dy. The (C,)
+    vectors are not counted; no FLOPs (both are memory-bound)."""
+    N, D, H, W, C = shape
+    sites = N * D * H * W
+    pooled = sites // 8
+    if kernel == "K1":
+        nbytes = (sites * C + masks * sites + pooled * C + (pooled if masks else 0)) * elem_bytes
+        return nbytes + (pooled * C if want_idx else 0), 0
+    if kernel == "K3":
+        return (2 * sites * C + pooled * C + min(masks, 1) * sites) * elem_bytes + pooled * C, 0
+    raise ValueError(f"kernel must be K1 or K3, got {kernel!r}")
+
+
 def _launch_k1(y, mul, add, zero_mask, stats_mask, want_idx):
     """Check K1's inputs and launch it; masks None for the unmasked entry."""
     name = "bn_relu_pool" if zero_mask is not None else "bn_relu_pool_unmasked"
@@ -160,7 +180,9 @@ def _launch_k1(y, mul, add, zero_mask, stats_mask, want_idx):
     )
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     fn = getattr(_lib(), f"bn_relu_pool_{_DTYPES[y.dtype]}")
-    with torch.cuda.device(y.device):
+    masks = 0 if zero_mask is None else 1 if stats_mask is zero_mask else 2
+    with torch.cuda.device(y.device), _work.launch(name, work, "K1", y.shape, y.element_size(),
+                                                   masks, want_idx):
         status = fn(
             y.data_ptr(), mul.data_ptr(), add.data_ptr(), ptr(zero_mask), ptr(stats_mask),
             pooled.data_ptr(), ptr(pooled_mask), ptr(idx),
@@ -309,7 +331,8 @@ def _launch_k3(y, ga, idx, stats_mask, vectors, name):
     dy = torch.empty_like(y)
     vec, wide = bwd_launch_plan(y.shape, y.element_size(), (y, ga, dy), idx, vectors)
     fn = getattr(_lib_bwd(), f"bn_relu_pool_bwd_{_DTYPES[y.dtype]}")
-    with torch.cuda.device(y.device):
+    with torch.cuda.device(y.device), _work.launch(name, work, "K3", y.shape, y.element_size(),
+                                                   int(stats_mask is not None)):
         status = fn(
             y.data_ptr(), ga.data_ptr(), idx.data_ptr(),
             None if stats_mask is None else stats_mask.data_ptr(),

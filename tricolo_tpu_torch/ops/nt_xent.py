@@ -37,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import work as _work
 from ..models.common import l2_normalize
 from . import _build
 
@@ -161,6 +162,22 @@ def _lib():
     return lib
 
 
+def work(entry: str, B: int, D: int) -> tuple[int, int]:
+    """(bytes, flops) of one call of ``entry`` (a wrapper's name) on (B, D)
+    f32 operands, as PERF.md §6 bounds them: the operands, the
+    logsumexps and scales read once, the output written once; 2·B²·D FLOPs
+    a forward (the pair's column statistics reuse its logits), 4·B²·D a
+    backward (one logits and one coefficient product, the two-term entry
+    included)."""
+    operands = 2 * B * D * 4
+    if entry in ("nt_xent_fwd", "nt_xent_fwd_pair"):
+        return operands + B * (3 if entry == "nt_xent_fwd_pair" else 2) * 4, 2 * B * B * D
+    if entry not in ("nt_xent_bwd", "nt_xent_bwd_rows", "nt_xent_bwd_cols"):
+        raise ValueError(f"unknown NT-Xent entry {entry!r}")
+    lses = 2 if entry == "nt_xent_bwd" else 1
+    return operands + lses * (B + 1) * 4 + B * D * 4, 4 * B * B * D
+
+
 def _device(t, name):
     if t.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {t.device}")
@@ -173,7 +190,7 @@ def _fwd(wrapper, zi, zj, inv_tau, pair):
     plan = fwd_launch_plan(B, pair)
     out = torch.empty((B, 3 if pair else 2), dtype=torch.float32, device=zi.device)
     scratch = torch.empty(plan.scratch, dtype=torch.float32, device=zi.device)
-    with torch.cuda.device(zi.device):
+    with torch.cuda.device(zi.device), _work.launch(name, work, name, B, D):
         status = getattr(_lib(), name)(
             zi.data_ptr(), zj.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, D,
             float(inv_tau), plan.bm, torch.cuda.current_stream(zi.device).cuda_stream,
@@ -209,7 +226,7 @@ def _bwd(wrapper, own, oth, lses, scales, inv_tau):
         raise ValueError(f"{name}: each lse must be ({B},), with one scale per lse")
     ds, wm = bwd_launch_plan(B, D)
     out = torch.empty_like(own)
-    with torch.cuda.device(own.device):
+    with torch.cuda.device(own.device), _work.launch(name, work, name, B, D):
         status = getattr(_lib(), name)(
             own.data_ptr(), oth.data_ptr(), *(t.data_ptr() for t in lses), scales.data_ptr(),
             out.data_ptr(), B, D, float(inv_tau), ds, wm,

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .. import work as _work
 from . import _build
 
 
@@ -115,6 +116,15 @@ def launch_plan(batch: int, grid: int, channels: int, tile: int, halo: int,
                       (tile, halo) in FIXED_FORMS)
 
 
+def work(active: int, tile: int, halo: int, channels: int, elem_bytes: int, ids: int):
+    """(bytes, flops) of one K7 call as PERF.md §6 bounds it: the ``ids``
+    windows of s³ sites (s = tile + 2·halo) written, the int32 ids read,
+    and the ``active`` tiles' interiors read once (halo sites are re-reads
+    of neighbours; padding ids read nothing); no FLOPs."""
+    s = tile + 2 * halo
+    return (ids * s**3 + active * tile**3) * channels * elem_bytes + ids * 4, 0
+
+
 def gather_tiles(x, ids, tile: int, halo: int = 0):
     """(T, s, s, s, C) windows, s = tile + 2·halo, of the tiles ``ids`` (T,)
     int32 global ids (b·tg³ + (tz·tg + ty)·tg + tx; ids outside [0, B·tg³)
@@ -135,7 +145,9 @@ def gather_tiles(x, ids, tile: int, halo: int = 0):
     T, s = ids.shape[0], tile + 2 * halo
     out = torch.empty((T, s, s, s, C), dtype=x.dtype, device=x.device)
     plan = launch_plan(B, D, C, tile, halo, x.element_size(), x, out)
-    with torch.cuda.device(x.device):
+    active = functools.partial(_work.valid_ids, ids, B * (D // tile) ** 3)
+    with torch.cuda.device(x.device), _work.launch("gather_tiles", work, active, tile, halo, C,
+                                                   x.element_size(), T):
         status = _lib().tile_gather(
             x.data_ptr(), ids.data_ptr(), out.data_ptr(), T, B, D, C, tile, halo,
             x.element_size(), plan.vec_bytes, plan.tiles_per_block, int(plan.fixed),

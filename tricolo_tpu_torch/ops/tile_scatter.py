@@ -24,6 +24,7 @@ import functools
 
 import torch
 
+from .. import work as _work
 from . import _build
 
 
@@ -81,6 +82,15 @@ def launch_plan(batch: int, rows: int, tile: int, grid: int, channels: int,
     return _build.vector_bytes(tile * channels * elem_bytes, *tensors)
 
 
+def work(valid_rows: int, tile: int, channels: int, elem_bytes: int, ids: int, batch: int,
+         grid: int) -> tuple[int, int]:
+    """(bytes, flops) of one K2 call, either entry, as PERF.md §6 bounds
+    it: the ``valid_rows`` tile rows whose id lies in the grid read once
+    (padding rows never), the ``ids`` int32 ids read, the (batch, grid³,
+    channels) grid written; no FLOPs."""
+    return (valid_rows * tile**3 + batch * grid**3) * channels * elem_bytes + ids * 4, 0
+
+
 def scatter_tiles_ps(tiles, local_ids, grid: int):
     """(B, k, t, t, t, C) tiles + (B, k) int32 local ids (``(tz·tg + ty)·tg
     + tx``; ids outside [0, tg³) are padding) → (B, G, G, G, C), zeros where
@@ -104,7 +114,9 @@ def scatter_tiles_ps(tiles, local_ids, grid: int):
     vec = launch_plan(B, B * k, t, grid, C, tiles.element_size(), tiles)
     out = torch.empty((B, grid, grid, grid, C), dtype=tiles.dtype, device=tiles.device)
     inv = torch.empty(B * tg**3, dtype=torch.int32, device=tiles.device)
-    with torch.cuda.device(tiles.device):
+    valid = functools.partial(_work.valid_ids, local_ids, tg**3)
+    with torch.cuda.device(tiles.device), _work.launch("scatter_tiles_ps", work, valid, t, C,
+                                                       tiles.element_size(), B * k, B, grid):
         status = _lib().tile_scatter(
             tiles.data_ptr(), local_ids.data_ptr(), inv.data_ptr(), out.data_ptr(),
             B, k, t, tg, C, tiles.element_size(), vec,
@@ -214,7 +226,9 @@ def scatter_tiles_global(tiles, ids, batch: int, grid: int):
     vec = launch_plan(batch, T, t, grid, C, tiles.element_size(), tiles)
     out = torch.empty((batch, grid, grid, grid, C), dtype=tiles.dtype, device=tiles.device)
     inv = torch.empty(batch * tg**3, dtype=torch.int32, device=tiles.device)
-    with torch.cuda.device(tiles.device):
+    valid = functools.partial(_work.valid_ids, ids, batch * tg**3)
+    with torch.cuda.device(tiles.device), _work.launch("scatter_tiles_global", work, valid, t, C,
+                                                       tiles.element_size(), T, batch, grid):
         status = _lib().tile_scatter_global(
             tiles.data_ptr(), ids.data_ptr(), inv.data_ptr(), out.data_ptr(),
             batch, T, t, tg, C, tiles.element_size(), vec,

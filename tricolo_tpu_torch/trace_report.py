@@ -101,19 +101,27 @@ def _inside(starts, merged, t: float) -> bool:
     return i >= 0 and t <= merged[i][1]
 
 
-def analyse(trace: dict, steps: int, top: int = 30, gaps: int = 5) -> dict:
-    """The report of one parsed Chrome trace over ``steps`` steps."""
+def parse(trace: dict):
+    """(spans, device events, host events, launches by correlation id) of
+    one parsed Chrome trace: its complete events, those on the device
+    (``DEVICE_CATS``) and on the host (``HOST_CATS``), and each CUDA
+    API call that carries a ``correlation`` id."""
     spans = [e for e in trace["traceEvents"] if e.get("ph") == "X" and "dur" in e]
     if not spans:
         raise ValueError("the trace holds no complete events")
     device = [e for e in spans if e.get("cat") in DEVICE_CATS]
     host = [e for e in spans if e.get("cat") in HOST_CATS]
-    start = min(e["ts"] for e in spans)
-    window_us = max(e["ts"] + e["dur"] for e in spans) - start
-
     launches = {e["args"]["correlation"]: e for e in host
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
+    return spans, device, host, launches
+
+
+def analyse(trace: dict, steps: int, top: int = 30, gaps: int = 5) -> dict:
+    """The report of one parsed Chrome trace over ``steps`` steps."""
+    spans, device, host, launches = parse(trace)
+    start = min(e["ts"] for e in spans)
+    window_us = max(e["ts"] + e["dur"] for e in spans) - start
     backward = collections.defaultdict(list)
     for e in host:
         if e["name"].startswith(BACKWARD):

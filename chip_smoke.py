@@ -843,11 +843,10 @@ def index_breakdown(torch, dm, model) -> dict:
 
 
 def reset_host_counts() -> None:
-    from tricolo_tpu_torch import native
-    from tricolo_tpu_torch.inference import to_device_batch
+    from tricolo_tpu_torch import native, tracing
 
     native.reset_calls()
-    to_device_batch.copies.update(pinned=0, pageable=0)
+    tracing.reset_counts("to_device.")
 
 
 def check_host_path(path: str, batches: int) -> dict:
@@ -855,10 +854,10 @@ def check_host_path(path: str, batches: int) -> dict:
     ``to_device_batch`` came from pinned memory (no synchronous pageable
     copy), and each of the ``batches`` batches went through the C++
     windowed_compact sweep."""
-    from tricolo_tpu_torch import native
-    from tricolo_tpu_torch.inference import to_device_batch
+    from tricolo_tpu_torch import native, tracing
 
-    copies, calls = dict(to_device_batch.copies), native.call_counts()
+    copies = {k: tracing.counter("to_device." + k) for k in ("pinned", "pageable")}
+    calls = native.call_counts()
     require(copies["pageable"] == 0 and copies["pinned"] > 0,
             f"{path}: {copies['pageable']} arrays reached to_device_batch from pageable "
             f"memory, {copies['pinned']} from pinned memory")

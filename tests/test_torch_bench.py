@@ -278,8 +278,12 @@ def test_cli_on_cpu(tmp_path):
     # The trace report reads it: host events only on the CPU.
     from tricolo_tpu_torch.trace_report import analyse, find_trace
 
-    report = analyse(json.loads(Path(find_trace(str(tmp_path))).read_text()), steps=1)
+    merged = json.loads(Path(find_trace(str(tmp_path))).read_text())
+    report = analyse(merged, steps=1)
     assert report["device_busy_ms"] == 0.0 and report["window_ms"] > 0
+    # The port's spans are merged in: one step span for each traced step.
+    assert sum(e.get("cat") == "program_span" and e["name"] == "step"
+               for e in merged["traceEvents"]) == 1
     assert report["device_idle_share"] == 1.0 and report["gaps"][0]["host_op"]
 
 

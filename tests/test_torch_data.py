@@ -334,6 +334,7 @@ def test_collate_never_calls_the_plain_sweeps(monkeypatch):
 
 
 def test_cpu_to_device_batch_pins_nothing():
+    from tricolo_tpu_torch import tracing
     from tricolo_tpu_torch.data import DataModule
     from tricolo_tpu_torch.inference import to_device_batch
 
@@ -341,14 +342,14 @@ def test_cpu_to_device_batch_pins_nothing():
     dm.setup("test")
     loader = dm.test_loader()
     assert loader.prefetch and not loader.pin_memory
-    copies = dict(to_device_batch.copies)
+    copies = tracing.counts("to_device.")
     for batch in loader:
         out = to_device_batch(batch, torch.device("cpu"))
         assert out.keys() == {"tokens", "images", "voxel_rows", "voxel_row_ids"}
         assert not any(t.is_pinned() for t in out.values())
         np.testing.assert_array_equal(out["voxel_rows"].numpy().view(np.uint32),
                                       batch["voxel_rows"])
-    assert to_device_batch.copies == copies  # counts only copies to a CUDA device
+    assert tracing.counts("to_device.") == copies  # counts only copies to a CUDA device
 
 
 @pytest.mark.parametrize("workers", [1, 4])

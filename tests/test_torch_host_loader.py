@@ -280,6 +280,7 @@ def test_pinned_batches_copy_non_blocking():
         pytest.skip("needs a CUDA device: pinned memory is CUDA's")
     from tricolo_tpu_torch.config import load_config
     from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch import tracing
     from tricolo_tpu_torch.inference import to_device_batch
 
     dm = DataModule(load_config([
@@ -287,13 +288,13 @@ def test_pinned_batches_copy_non_blocking():
         "model.voxel_encoder=VoxelCNNEncoder", "data.batch_size=2", "data.num_models=5"]))
     dm.setup("test")
     device = torch.device("cuda")
-    to_device_batch.copies.update(pinned=0, pageable=0)
+    tracing.reset_counts("to_device.")
     for pinned, plain in zip(dm.test_loader(pin_memory=True), dm.test_loader()):
         assert all(pinned[k].is_pinned() for k in ("tokens", "images", "voxel_rows"))
         a, b = to_device_batch(pinned, device), to_device_batch(plain, device)
         for key in a:
             assert torch.equal(a[key], b[key])
-    assert to_device_batch.copies["pinned"] == to_device_batch.copies["pageable"] > 0
+    assert tracing.counter("to_device.pinned") == tracing.counter("to_device.pageable") > 0
 
 
 @pytest.mark.cuda
@@ -304,6 +305,7 @@ def test_clip_fields_reach_the_card_pinned():
         pytest.skip("needs a CUDA device: pinned memory is CUDA's")
     from tricolo_tpu_torch.config import load_config
     from tricolo_tpu_torch.data import DataModule
+    from tricolo_tpu_torch import tracing
     from tricolo_tpu_torch.inference import to_device_batch
 
     dm = DataModule(load_config([
@@ -311,11 +313,11 @@ def test_clip_fields_reach_the_card_pinned():
         "model.voxel_encoder=VoxelCNNEncoder", "model.text_encoder=CLIPTextEncoder",
         "model.image_encoder=CLIPImageEncoder"]))
     dm.setup("test")
-    to_device_batch.copies.update(pinned=0, pageable=0)
+    tracing.reset_counts("to_device.")
     keys = ("clip_embeddings_img", "clip_embeddings_text")
     for pinned, plain in zip(dm.test_loader(pin_memory=True), dm.test_loader()):
         assert all(pinned[k].is_pinned() for k in keys)
         a = to_device_batch(pinned, torch.device("cuda"))
         b = to_device_batch(plain, torch.device("cuda"))
         assert all(torch.equal(a[k], b[k]) and a[k].is_cuda for k in keys)
-    assert to_device_batch.copies["pinned"] == to_device_batch.copies["pageable"] > 0
+    assert tracing.counter("to_device.pinned") == tracing.counter("to_device.pageable") > 0

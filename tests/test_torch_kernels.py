@@ -518,6 +518,13 @@ def test_nt_xent_fwd_launch_plan(B, pair, want):
 # ---------------------------------------------------------------- card
 
 
+
+def _launches(kernel) -> int:
+    """The kernel's launches so far (``ops.launches``)."""
+    from tricolo_tpu_torch import ops
+
+    return ops.launches()[kernel.__name__]
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
@@ -529,10 +536,10 @@ def test_cuda_bn_relu_pool_matches_plain(dtype, shape, two):
     _need_cuda()
     args = _k1_inputs(shape, 4, getattr(torch, dtype), "cuda", two)
     for want_idx in (False, True):
-        before = bn_relu_pool.launches
+        before = _launches(bn_relu_pool)
         got = bn_relu_pool(*args, want_idx=want_idx)
         torch.cuda.synchronize()
-        assert bn_relu_pool.launches == before + 1
+        assert _launches(bn_relu_pool) == before + 1
         for a, b in zip(got, bn_relu_pool_plain(*args, want_idx=want_idx)):
             assert torch.equal(a, b)
 
@@ -581,11 +588,11 @@ def test_cuda_bn_relu_pool_unmasked_matches_plain(dtype, C):
     _need_cuda()
     y, mul, add = _k1_inputs((3, 4, 6, 4, C), C + 1, getattr(torch, dtype), "cuda", False)[:3]
     for want_idx in (False, True):
-        before, masked = bn_relu_pool_unmasked.launches, bn_relu_pool.launches
+        before, masked = _launches(bn_relu_pool_unmasked), _launches(bn_relu_pool)
         got = bn_relu_pool(y, mul, add, want_idx=want_idx)
         torch.cuda.synchronize()
-        assert bn_relu_pool_unmasked.launches == before + 1
-        assert bn_relu_pool.launches == masked
+        assert _launches(bn_relu_pool_unmasked) == before + 1
+        assert _launches(bn_relu_pool) == masked
         ref = bn_relu_pool_plain(y, mul, add, want_idx=want_idx)
         for a, b in zip(got if want_idx else [got], ref if want_idx else [ref]):
             assert torch.equal(a, b)
@@ -597,10 +604,10 @@ def test_cuda_bn_relu_pool_unmasked_matches_plain(dtype, C):
 def test_cuda_bn_relu_pool_bwd_unmasked_matches_plain(dtype, shape):
     _need_cuda()
     y, ga, idx, _, *vectors = _k3_inputs(shape, 7, getattr(torch, dtype), "cuda")
-    before = bn_relu_pool_bwd_unmasked.launches
+    before = _launches(bn_relu_pool_bwd_unmasked)
     got = bn_relu_pool_bwd(y, ga, idx, None, *vectors)
     torch.cuda.synchronize()
-    assert bn_relu_pool_bwd_unmasked.launches == before + 1
+    assert _launches(bn_relu_pool_bwd_unmasked) == before + 1
     assert torch.equal(got, bn_relu_pool_bwd_plain(y, ga, idx, None, *vectors))
 
 
@@ -610,10 +617,10 @@ def test_cuda_bn_relu_pool_bwd_unmasked_matches_plain(dtype, shape):
 def test_cuda_scatter_tiles_matches_plain(dtype, C):
     _need_cuda()
     tiles, ids = _k2_inputs(16, 40, C, 16, C, getattr(torch, dtype), "cuda")
-    before = scatter_tiles_ps.launches
+    before = _launches(scatter_tiles_ps)
     got = scatter_tiles_ps(tiles, ids, 16)
     torch.cuda.synchronize()
-    assert scatter_tiles_ps.launches == before + 1
+    assert _launches(scatter_tiles_ps) == before + 1
     assert torch.equal(got, scatter_tiles_ps_plain(tiles, ids, 16))
 
 
@@ -626,10 +633,10 @@ def test_cuda_scatter_tiles_matches_plain(dtype, C):
 def test_cuda_bn_relu_pool_bwd_matches_plain(dtype, shape):
     _need_cuda()
     args = _k3_inputs(shape, 5, getattr(torch, dtype), "cuda")
-    before = bn_relu_pool_bwd.launches
+    before = _launches(bn_relu_pool_bwd)
     got = bn_relu_pool_bwd(*args)
     torch.cuda.synchronize()
-    assert bn_relu_pool_bwd.launches == before + 1
+    assert _launches(bn_relu_pool_bwd) == before + 1
     assert torch.equal(got, bn_relu_pool_bwd_plain(*args))
 
 
@@ -715,10 +722,10 @@ def test_cuda_nt_xent_matches_plain(B, D):
         (nt_xent_bwd_cols, nt_xent_bwd_cols_plain, (zj, zi, lse, scale, INV_TAU)),
     ]
     for kernel, plain, args in pairs:
-        before = kernel.launches
+        before = _launches(kernel)
         got = kernel(*args)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert _launches(kernel) == before + 1
         ref = plain(*args)
         err = (got - ref).abs().max().item()
         assert err <= NT_XENT_TOL * ref.abs().max().item(), (kernel.__name__, err)
@@ -738,10 +745,10 @@ def test_cuda_nt_xent_fwd_pair_matches_plain(B, D):
     outs = {}
     for kernel, plain in ((nt_xent_fwd_pair, nt_xent_fwd_pair_plain),
                           (nt_xent_fwd, nt_xent_fwd_plain)):
-        before = kernel.launches
+        before = _launches(kernel)
         got, again = kernel(zi, zj, INV_TAU), kernel(zi, zj, INV_TAU)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 2
+        assert _launches(kernel) == before + 2
         assert torch.equal(got, again), kernel.__name__
         ref = plain(zi, zj, INV_TAU)
         err = (got - ref).abs().max().item()
@@ -776,10 +783,10 @@ def test_cuda_nt_xent_bwd_matches_plain(B, D):
         (nt_xent_bwd_cols, nt_xent_bwd_cols_plain, (zj, zi, lse_a, scales(-0.5 * s), INV_TAU)),
     ]
     for kernel, plain, args in cases:
-        before = kernel.launches
+        before = _launches(kernel)
         got = kernel(*args)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
+        assert _launches(kernel) == before + 1
         ref = plain(*args)
         err = (got - ref).abs().max().item()
         assert err <= NT_XENT_TOL * ref.abs().max().item(), (kernel.__name__, args[-2], err)
@@ -797,10 +804,10 @@ def test_cuda_gather_tiles_matches_plain(dtype, B, D, C, tile, halo):
     and on padding ids; C = 3 runs 2-byte or 4-byte copies."""
     _need_cuda()
     x, ids = _k7_inputs(B, D, C, tile, B * D + C, getattr(torch, dtype), "cuda")
-    before = gather_tiles.launches
+    before = _launches(gather_tiles)
     got = gather_tiles(x, ids, tile, halo)
     torch.cuda.synchronize()
-    assert gather_tiles.launches == before + 1
+    assert _launches(gather_tiles) == before + 1
     ref = gather_tiles_plain(x, ids, tile, halo)
     assert torch.equal(got, ref)
     assert (ref[-3:] == 0).all() and (ref[:-3] != 0).any()
@@ -863,10 +870,10 @@ def test_cuda_gather_tiles_every_form(dtype, C, tile, halo, generic):
 def test_cuda_scatter_tiles_global_matches_plain(dtype, B, G, C, t):
     _need_cuda()
     tiles, ids = _k2g_inputs(B, G, C, t, G + C, getattr(torch, dtype), "cuda")
-    before = scatter_tiles_global.launches
+    before = _launches(scatter_tiles_global)
     got = scatter_tiles_global(tiles, ids, B, G)
     torch.cuda.synchronize()
-    assert scatter_tiles_global.launches == before + 1
+    assert _launches(scatter_tiles_global) == before + 1
     assert torch.equal(got, scatter_tiles_global_plain(tiles, ids, B, G))
 
 
@@ -891,10 +898,10 @@ def test_cuda_scatter_tiles_every_vector_plan(entry, C, t, dtype):
     bytes, copies of 2 to 16 bytes."""
     _need_cuda()
     kernel, plain, args = _scatter_case(entry, C, t, 100 * t + C, getattr(torch, dtype))
-    before = kernel.launches
+    before = _launches(kernel)
     got = kernel(*args)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert _launches(kernel) == before + 1
     ref = plain(*args)
     assert torch.equal(got, ref)
     assert (ref == 0).any() and (ref != 0).any()

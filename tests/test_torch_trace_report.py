@@ -13,7 +13,7 @@ from types import SimpleNamespace
 import pytest
 
 STEPS = 2
-MAIN, BACKWARD_THREAD = (1, 1), (1, 2)
+MAIN, BACKWARD_THREAD, PREFETCH_THREAD = (1, 1), (1, 2), (1, 3)
 
 
 def _host(cat, name, ts, dur, thread=MAIN, correlation=None):
@@ -157,3 +157,42 @@ def test_cli_reads_the_newest_trace(tmp_path, capsys):
     assert "K3" in text and "bwd" in text
     with pytest.raises(SystemExit):
         trace_report.main([str(tmp_path / "empty"), "--steps", "1"])
+
+
+def _span(name, ts, dur, thread=MAIN, parent=None):
+    return {"ph": "X", "cat": "program_span", "name": name, "pid": thread[0], "tid": thread[1],
+            "ts": ts, "dur": dur, "args": {"span": ts, "parent": parent}}
+
+
+def test_program_spans_place_device_time_and_gaps():
+    """With the port's spans merged in (``tracing.merge_into``): each device
+    event goes to the innermost span of its launching thread, each idle gap
+    to the innermost span over its midpoint of the threads that launch
+    device work, beside its host operation and the innermost span of the
+    other threads (a prefetch thread's ``loader.collate``, shorter than the
+    ``step`` it overlaps, does not take the gap); the rest of the report is
+    unchanged."""
+    from tricolo_tpu_torch.trace_report import analyse, format_report
+
+    merged = trace()
+    merged["traceEvents"] += [
+        _span("step", 0.0, 1000.0), _span("forward.voxel", 10.0, 50.0),
+        _span("to_device", 640.0, 20.0),
+        _span("backward.voxel", 300.0, 25.0, BACKWARD_THREAD),
+        _span("backward.loss", 325.0, 15.0, BACKWARD_THREAD),
+        _span("loader.collate", 700.0, 200.0, PREFETCH_THREAD)]
+    r = analyse(merged, STEPS)
+    plain = analyse(trace(), STEPS)
+    assert "span_ms_per_step" not in plain and all("span" not in g for g in plain["gaps"])
+    assert r["span_ms_per_step"] == pytest.approx({
+        "backward.voxel": 0.1, "forward.voxel": 0.05, "(none)": 0.025, "to_device": 0.01,
+        "backward.loss": 0.005})
+    assert [g["span"] for g in r["gaps"]] == ["backward.voxel", "step", "forward.voxel",
+                                              "to_device", "step"]
+    assert [g["other_span"] for g in r["gaps"]] == [None, "loader.collate", None, None, None]
+    assert [g["host_op"] for g in r["gaps"]] == [g["host_op"] for g in plain["gaps"]]
+    assert r["device_ms_per_step"] == plain["device_ms_per_step"]
+    text = format_report(r)
+    assert "device time by program span: backward.voxel 0.100" in text
+    assert "host: cudaDeviceSynchronize  span: backward.voxel" in text
+    assert "host: None  span: step (beside loader.collate)" in text

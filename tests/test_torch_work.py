@@ -300,7 +300,11 @@ def test_bench_roofline_record_flops_equal_flop_counter(tmp_path):
     proc = subprocess.run([sys.executable, "-m", "tricolo_tpu_torch.bench", *args], cwd=ROOT,
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert len(list(tmp_path.glob("roofline.*.pt.trace.json"))) == 1
+    traces = list(tmp_path.glob("roofline.*.pt.trace.json"))
+    assert len(traces) == 1
+    # The roofline loop runs with tracing off: no program span, no anchor.
+    assert not [e for e in json.loads(traces[0].read_text())["traceEvents"]
+                if e.get("cat") == "program_span" or "tracing.anchor" in e.get("name", "")]
     record = json.loads(Path(find_record(str(tmp_path))).read_text())
     assert record["card"] == "cpu" and record["kernel_args"] == {}  # CPU: the plain versions
     counted = sum(op[3] for op in record["ops"])

@@ -27,10 +27,11 @@ N = ``bench.steps``, each leg a host clock around N steps that ends in a
 synchronize, so every per-loop constant cancels. ``value`` is
 B·N / median estimate (one process: the data-parallel world is 1);
 ``step_ms`` is the median over N. ``--trace DIR`` first runs one extra
-loop of N steps under ``torch.profiler`` (read it with ``python -m
-tricolo_tpu_torch.trace_report DIR --steps N``); that loop feeds no
-estimate. ``--roofline DIR``, after the timed pairs, runs one more loop of
-N steps under ``torch.profiler`` and a ``work.WorkCounter`` and writes its
+loop of N steps under ``torch.profiler``, with the port's spans merged in
+(``tracing``; read it with ``python -m tricolo_tpu_torch.trace_report DIR
+--steps N``); that loop feeds no estimate. ``--roofline DIR``, after the
+timed pairs, runs one more loop of N steps under ``torch.profiler`` and a
+``work.WorkCounter``, with tracing off, and writes its
 trace and the counter's record ``work.<ns>.json`` into DIR (read them with
 ``python -m tricolo_tpu_torch.roofline_report DIR --steps N``). The
 counter slows the host, so that loop's idle share means nothing; it feeds
@@ -399,7 +400,8 @@ def main(argv: list[str] | None = None) -> int:
     if args.roofline:
         from .work import WorkCounter
 
-        with profile_trace(args.roofline, device, name="roofline"), WorkCounter() as counter:
+        with (profile_trace(args.roofline, device, name="roofline", spans=False),
+              WorkCounter() as counter):
             timed_loop(steps)
         counter.write(os.path.join(args.roofline, f"work.{time.time_ns()}.json"), card)
         log(f"roofline: trace and work record of {steps} steps written under {args.roofline}")

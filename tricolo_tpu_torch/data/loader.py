@@ -47,6 +47,7 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops.tile_sparse import sample_tile_budget, windowed_halo
 from ..parallel.multiprocess import local_batch_size, process_count, process_index
 from .datasets import CLIP_KEYS, build_dataset
@@ -79,9 +80,14 @@ def pin_batch(batch: dict) -> dict:
     """The batch with each array copied into a page-locked CPU tensor, from
     which a ``non_blocking`` copy to the card is asynchronous. Every call
     allocates new pinned buffers (PyTorch's pinned-memory cache reuses one
-    only after the copies that read it have finished)."""
-    return {key: host_tensor(key, value).pin_memory() if key in ARRAY_DTYPES else value
-            for key, value in batch.items()}
+    only after the copies that read it have finished); the ``tracing``
+    counter ``loader.pinned_bytes`` counts their bytes, which each
+    ``loader.pin`` span records."""
+    out = {key: host_tensor(key, value).pin_memory() if key in ARRAY_DTYPES else value
+           for key, value in batch.items()}
+    tracing.count("loader.pinned_bytes", sum(out[key].nbytes for key in batch
+                                             if key in ARRAY_DTYPES))
+    return out
 
 
 def collate(
@@ -221,13 +227,16 @@ class BatchIterator:
         """Advance the shuffle stream (a new seeded permutation each epoch)."""
         self.epoch = epoch
 
-    def _batches(self, pin: bool) -> Iterator[dict]:
-        """The epoch's batches, collated in the caller's thread."""
+    def _batches(self, pin: bool) -> Iterator[tuple]:
+        """The epoch's ``((epoch, index), batch)`` pairs, collated in the
+        caller's thread under the spans ``loader.collate`` and
+        ``loader.pin``."""
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
             order = np.random.default_rng((self.seed, self.epoch)).permutation(n)
-        for start in range(0, n, self.batch_size):
+        for index, start in enumerate(range(0, n, self.batch_size)):
+            batch_id = (self.epoch, index)
             chunk = order[start : start + self.batch_size]
             valid = len(chunk)
             if valid < self.batch_size:
@@ -241,28 +250,38 @@ class BatchIterator:
                 chunk = chunk[self.process_index * local:(self.process_index + 1) * local]
                 valid = local
             compact = self.with_voxels and self.voxel_transfer == "windowed_compact"
-            batch = collate(
-                [self.dataset[int(i)] for i in chunk],
-                self.dataset.max_voxel_points,
-                self.voxel_transfer,
-                self.voxel_size,
-                self.with_images,
-                self.with_voxels,
-                self.tile_budget_rows if compact else 0,
-                self.windowed_halo,
-                self.tile_overflow,
-            )
+            with tracing.span("loader.collate", request=batch_id):
+                batch = collate(
+                    [self.dataset[int(i)] for i in chunk],
+                    self.dataset.max_voxel_points,
+                    self.voxel_transfer,
+                    self.voxel_size,
+                    self.with_images,
+                    self.with_voxels,
+                    self.tile_budget_rows if compact else 0,
+                    self.windowed_halo,
+                    self.tile_overflow,
+                )
             batch["num_valid"] = valid
-            yield pin_batch(batch) if pin else batch
+            if pin:
+                with tracing.span("loader.pin", request=batch_id,
+                                  counters="loader.pinned_bytes"):
+                    batch = pin_batch(batch)
+            yield batch_id, batch
 
     def peek(self) -> dict:
         """The first batch, collated here and unpinned, without starting
         the prefetch thread (the trainer's tile-budget canary)."""
-        return next(self._batches(pin=False))
+        return next(self._batches(pin=False))[1]
 
     def __iter__(self) -> Iterator[dict]:
+        """The batches; the consumer's ``loader.wait`` span and later spans
+        of its thread carry each batch's ``(epoch, index)``
+        (``tracing.set_batch``)."""
         if not self.prefetch:
-            yield from self._batches(self.pin_memory)
+            for batch_id, batch in self._batches(self.pin_memory):
+                tracing.set_batch(batch_id)
+                yield batch
             return
         q: queue.Queue = queue.Queue(maxsize=2)
         done = object()
@@ -271,15 +290,16 @@ class BatchIterator:
 
         def produce():
             try:
-                for batch in self._batches(self.pin_memory):
+                for item in self._batches(self.pin_memory):
                     # A bounded put that notices an abandoned consumer, so
                     # a dropped iterator never leaves a thread blocked.
-                    while not stop.is_set():
-                        try:
-                            q.put(batch, timeout=0.1)
-                            break
-                        except queue.Full:
-                            continue
+                    with tracing.span("loader.put_wait", request=item[0]):
+                        while not stop.is_set():
+                            try:
+                                q.put(item, timeout=0.1)
+                                break
+                            except queue.Full:
+                                continue
                     if stop.is_set():
                         return
             except BaseException as exc:  # raised again in the consumer below
@@ -290,8 +310,14 @@ class BatchIterator:
         thread = threading.Thread(target=produce, name="tricolo-prefetch", daemon=True)
         thread.start()
         try:
-            while (batch := q.get()) is not done:
-                yield batch
+            while True:
+                with tracing.span("loader.wait"):
+                    item = q.get()
+                    if item is not done:
+                        tracing.set_batch(item[0])
+                if item is done:
+                    break
+                yield item[1]
         finally:
             stop.set()
             while True:  # drain, so the producer's last put never blocks

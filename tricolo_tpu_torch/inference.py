@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from . import tracing
 from .data.device_prep import prepare_device_batch
 from .data.loader import ARRAY_DTYPES, host_tensor
 from .losses import pairwise_losses
@@ -42,23 +43,22 @@ def to_device_batch(batch: dict, device: torch.device) -> dict:
     ``data.loader.ARRAY_DTYPES`` the batch holds. The arrays are numpy
     arrays or, from a ``pin_memory`` loader, page-locked CPU tensors; a
     pinned tensor goes to a CUDA device with ``non_blocking=True``
-    (PyTorch keeps its buffer until the copy has run).
-    ``to_device_batch.copies`` counts the arrays sent to a CUDA device from
+    (PyTorch keeps its buffer until the copy has run). Under the span
+    ``to_device``; the ``tracing`` counters ``to_device.pinned`` and
+    ``to_device.pageable`` count the arrays sent to a CUDA device from
     pinned and from pageable memory."""
     out = {}
-    for key in ARRAY_DTYPES:
-        if key not in batch:
-            continue
-        value = batch[key]
-        tensor = value if isinstance(value, torch.Tensor) else host_tensor(key, value)
-        pinned = device.type == "cuda" and tensor.is_pinned()
-        if device.type == "cuda":
-            to_device_batch.copies["pinned" if pinned else "pageable"] += 1
-        out[key] = tensor.to(device, non_blocking=pinned)
+    with tracing.span("to_device"):
+        for key in ARRAY_DTYPES:
+            if key not in batch:
+                continue
+            value = batch[key]
+            tensor = value if isinstance(value, torch.Tensor) else host_tensor(key, value)
+            pinned = device.type == "cuda" and tensor.is_pinned()
+            if device.type == "cuda":
+                tracing.count("to_device.pinned" if pinned else "to_device.pageable")
+            out[key] = tensor.to(device, non_blocking=pinned)
     return out
-
-
-to_device_batch.copies = {"pinned": 0, "pageable": 0}
 
 
 def prepare_inputs(model, batch: dict) -> dict:

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .. import tracing
 from .bigru import BiGRUEncoder
 from .clip_heads import CLIPImageEncoder, CLIPTextEncoder
 from .mvcnn import MVCNNEncoder
@@ -142,23 +143,30 @@ class TriCoLoNet(nn.Module):
         voxel_row_ids (B, k) int32, or voxels (B, D, D, D, 4) float.
         ``generator`` (train mode, CLIP heads, EfficientNet): the dropout
         and stochastic-depth masks' source, drawn by the text head, then the
-        image encoder."""
-        if isinstance(self.text_encoder, CLIPTextEncoder):
-            text = self.text_encoder(batch["clip_embeddings_text"], generator)
-        else:
-            text = self.text_encoder(batch["tokens"])
-        out = {"text_features": text}
-        if isinstance(self.image_encoder, CLIPImageEncoder):
-            out["image_features"] = self.image_encoder(batch["clip_embeddings_img"], generator)
-        elif self.image_encoder is not None:
-            out["image_features"] = self.image_encoder(batch["images"], generator)
+        image encoder. Traced (``tracing``) as ``forward.<encoder>`` spans,
+        each output marked so that its backward opens ``backward.<encoder>``."""
+        with tracing.span("forward.text"):
+            if isinstance(self.text_encoder, CLIPTextEncoder):
+                text = self.text_encoder(batch["clip_embeddings_text"], generator)
+            else:
+                text = self.text_encoder(batch["tokens"])
+        out = {"text_features": tracing.mark(text, "backward.text")}
+        if self.image_encoder is not None:
+            with tracing.span("forward.image"):
+                if isinstance(self.image_encoder, CLIPImageEncoder):
+                    image = self.image_encoder(batch["clip_embeddings_img"], generator)
+                else:
+                    image = self.image_encoder(batch["images"], generator)
+            out["image_features"] = tracing.mark(image, "backward.image")
         enc = self.voxel_encoder
         if enc is not None:
-            if "voxel_windows" in batch:
-                features = enc(windows=batch["voxel_windows"], tile_occ=batch["voxel_tile_occ"])
-            elif "voxel_rows" in batch:
-                features = enc(batch["voxel_rows"], batch["voxel_row_ids"])
-            else:
-                features = enc(voxels=batch["voxels"])
-            out["voxel_features"] = features
+            with tracing.span("forward.voxel"):
+                if "voxel_windows" in batch:
+                    features = enc(windows=batch["voxel_windows"],
+                                   tile_occ=batch["voxel_tile_occ"])
+                elif "voxel_rows" in batch:
+                    features = enc(batch["voxel_rows"], batch["voxel_row_ids"])
+                else:
+                    features = enc(voxels=batch["voxels"])
+            out["voxel_features"] = tracing.mark(features, "backward.voxel")
         return out

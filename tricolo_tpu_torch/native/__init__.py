@@ -19,8 +19,8 @@ the GIL for the length of a foreign call, so the loader's prefetch thread
 runs a sweep while the main thread launches the step.
 
 The wrappers take and return numpy arrays with the signatures and outputs
-of the JAX package's binding; each counts its calls in ``calls``
-(``reset_calls``, ``call_counts``), so a run can show that its host path
+of the JAX package's binding; each counts its calls as the ``tracing``
+counter ``native.<name>`` (``reset_calls``, ``call_counts``), so a run can show that its host path
 went through the C++ sweeps. Their numpy formulations are the ``*_plain``
 functions of ``data/device_prep.py`` and ``data/datasets.py``.
 """
@@ -33,6 +33,8 @@ import threading
 from pathlib import Path
 
 import numpy as np
+
+from .. import tracing
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "host_loader.cpp"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-pthread", "-shared"]
@@ -98,22 +100,16 @@ def threads() -> int:
 
 # ------------------------------------------------------------------ counts
 
-_count_lock = threading.Lock()
-
-
 def _count(fn) -> None:
-    with _count_lock:  # the split load calls from several threads
-        fn.calls += 1
+    tracing.count("native." + fn.__name__)
 
 
 def reset_calls() -> None:
-    with _count_lock:
-        for fn in SWEEPS:
-            fn.calls = 0
+    tracing.reset_counts("native.")
 
 
 def call_counts() -> dict[str, int]:
-    return {fn.__name__: fn.calls for fn in SWEEPS}
+    return {fn.__name__: tracing.counter("native." + fn.__name__) for fn in SWEEPS}
 
 
 # ------------------------------------------------------------------ sweeps
@@ -215,7 +211,6 @@ def packed_to_windowed_compact(flat: np.ndarray, rgb: np.ndarray, d: int, k: int
 
 SWEEPS = (dense_rgba_to_packed, packed_to_dense, packed_to_windowed,
           packed_to_windowed_compact)
-reset_calls()
 
 __all__ = [
     "SWEEPS",

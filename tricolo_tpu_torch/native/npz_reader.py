@@ -15,7 +15,8 @@ split load does not switch to ``np.load`` quietly.
 
 The wrappers keep the signatures, outputs and errors of the JAX package's
 binding (``load_npz_voxels_packed``, ``npz_read``, ``gzip_decode``); each
-counts its calls in ``calls`` (``reset_calls``, ``call_counts``), so a run
+counts its calls as the ``tracing`` counter ``npz_reader.<name>``
+(``reset_calls``, ``call_counts``), so a run
 can show that its split load went through the fused reader.
 """
 
@@ -27,6 +28,8 @@ import threading
 from pathlib import Path
 
 import numpy as np
+
+from .. import tracing
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "npz_reader.cpp"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
@@ -83,22 +86,16 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-_count_lock = threading.Lock()
-
-
 def _count(fn) -> None:
-    with _count_lock:  # the split load calls from several threads
-        fn.calls += 1
+    tracing.count("npz_reader." + fn.__name__)
 
 
 def reset_calls() -> None:
-    with _count_lock:
-        for fn in READERS:
-            fn.calls = 0
+    tracing.reset_counts("npz_reader.")
 
 
 def call_counts() -> dict[str, int]:
-    return {fn.__name__: fn.calls for fn in READERS}
+    return {fn.__name__: tracing.counter("npz_reader." + fn.__name__) for fn in READERS}
 
 
 def load_npz_voxels_packed(path: str, member: str, n_cap: int | None = None):
@@ -156,7 +153,6 @@ def gzip_decode(data: bytes, expected_size: int) -> bytes:
 
 
 READERS = (load_npz_voxels_packed, npz_read, gzip_decode)
-reset_calls()
 
 __all__ = [
     "READERS",

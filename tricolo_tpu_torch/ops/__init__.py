@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
-PyTorch version and a launch counter.
+PyTorch version; each launch counts ``launches.<wrapper>`` in ``tracing``
+(``launches()``, ``reset_launches()``).
 
 * ``bn_relu_pool`` (K1, ``csrc/bn_relu_pool.cu``) — masked BN → ReLU →
   zero → MaxPool(2³) + first argmax; replaces ``fused_bn_pool._fwd_kernel``;
@@ -26,6 +27,7 @@ input gradient written as a forward conv) and the tile-sparse helpers of
 ``tile_sparse``.
 """
 
+from .. import tracing
 from .bn_relu_pool import (
     batch_stats,
     bn_relu_pool,
@@ -81,12 +83,12 @@ KERNELS = (
 
 
 def reset_launches() -> None:
-    for wrapper in KERNELS:
-        wrapper.launches = 0
+    tracing.reset_counts("launches.")
 
 
 def launches() -> dict[str, int]:
-    return {wrapper.__name__: wrapper.launches for wrapper in KERNELS}
+    return {wrapper.__name__: tracing.counter("launches." + wrapper.__name__)
+            for wrapper in KERNELS}
 
 
 __all__ = [

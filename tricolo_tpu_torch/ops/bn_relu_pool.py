@@ -48,6 +48,7 @@ import functools
 
 import torch
 
+from .. import tracing as _tracing
 from .. import work as _work
 from ..parallel.collectives import sum_over_ranks
 from . import _build
@@ -215,11 +216,8 @@ def bn_relu_pool(y, mul, add, zero_mask=None, stats_mask=None, want_idx=False):
     _on_cuda(y, "bn_relu_pool")
     stats_mask = zero_mask if stats_mask is None else stats_mask
     pooled, pooled_mask, idx = _launch_k1(y, mul, add, zero_mask, stats_mask, want_idx)
-    bn_relu_pool.launches += 1
+    _tracing.count("launches.bn_relu_pool")
     return (pooled, pooled_mask, idx) if want_idx else (pooled, pooled_mask)
-
-
-bn_relu_pool.launches = 0
 
 
 def bn_relu_pool_unmasked(y, mul, add, want_idx=False):
@@ -230,11 +228,8 @@ def bn_relu_pool_unmasked(y, mul, add, want_idx=False):
         return bn_relu_pool_plain(y, mul, add, want_idx=want_idx)
     _on_cuda(y, "bn_relu_pool_unmasked")
     pooled, _, idx = _launch_k1(y, mul, add, None, None, want_idx)
-    bn_relu_pool_unmasked.launches += 1
+    _tracing.count("launches.bn_relu_pool_unmasked")
     return (pooled, idx) if want_idx else pooled
-
-
-bn_relu_pool_unmasked.launches = 0
 
 
 # ------------------------------------------------------------------ K3
@@ -358,11 +353,8 @@ def bn_relu_pool_bwd(y, ga, idx, stats_mask, bcoef, ccoef, invstd, sub):
         return bn_relu_pool_bwd_plain(y, ga, idx, stats_mask, bcoef, ccoef, invstd, sub)
     _on_cuda(y, "bn_relu_pool_bwd")
     dy = _launch_k3(y, ga, idx, stats_mask, (bcoef, ccoef, invstd, sub), "bn_relu_pool_bwd")
-    bn_relu_pool_bwd.launches += 1
+    _tracing.count("launches.bn_relu_pool_bwd")
     return dy
-
-
-bn_relu_pool_bwd.launches = 0
 
 
 def bn_relu_pool_bwd_unmasked(y, ga, idx, bcoef, ccoef, invstd, sub):
@@ -375,11 +367,8 @@ def bn_relu_pool_bwd_unmasked(y, ga, idx, bcoef, ccoef, invstd, sub):
     _on_cuda(y, "bn_relu_pool_bwd_unmasked")
     dy = _launch_k3(y, ga, idx, None, (bcoef, ccoef, invstd, sub),
                     "bn_relu_pool_bwd_unmasked")
-    bn_relu_pool_bwd_unmasked.launches += 1
+    _tracing.count("launches.bn_relu_pool_bwd_unmasked")
     return dy
-
-
-bn_relu_pool_bwd_unmasked.launches = 0
 
 
 # ------------------------------------------------------- train-mode op

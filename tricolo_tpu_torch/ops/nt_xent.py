@@ -37,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing as _tracing
 from .. import work as _work
 from ..models.common import l2_normalize
 from . import _build
@@ -196,7 +197,7 @@ def _fwd(wrapper, zi, zj, inv_tau, pair):
             float(inv_tau), plan.bm, torch.cuda.current_stream(zi.device).cuda_stream,
         )
     _build.check(status, name)
-    wrapper.launches += 1
+    _tracing.count("launches." + name)
     return out
 
 
@@ -233,7 +234,7 @@ def _bwd(wrapper, own, oth, lses, scales, inv_tau):
             torch.cuda.current_stream(own.device).cuda_stream,
         )
     _build.check(status, name)
-    wrapper.launches += 1
+    _tracing.count("launches." + name)
     return out
 
 
@@ -262,13 +263,6 @@ def nt_xent_bwd_cols(zj, zi, lse, scale, inv_tau: float):
     if zj.device.type == "cpu":
         return nt_xent_bwd_cols_plain(zj, zi, lse, scale, inv_tau)
     return _bwd(nt_xent_bwd_cols, zj, zi, (lse,), scale, inv_tau)
-
-
-nt_xent_fwd.launches = 0
-nt_xent_fwd_pair.launches = 0
-nt_xent_bwd.launches = 0
-nt_xent_bwd_rows.launches = 0
-nt_xent_bwd_cols.launches = 0
 
 
 class _BlockedNTXent(torch.autograd.Function):

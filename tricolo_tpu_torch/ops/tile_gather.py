@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .. import tracing as _tracing
 from .. import work as _work
 from . import _build
 
@@ -154,11 +155,8 @@ def gather_tiles(x, ids, tile: int, halo: int = 0):
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(status, "tile_gather")
-    gather_tiles.launches += 1
+    _tracing.count("launches.gather_tiles")
     return out
-
-
-gather_tiles.launches = 0
 
 
 def _fold_axis(w, axis: int, tile: int, halo: int):

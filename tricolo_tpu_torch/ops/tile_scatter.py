@@ -24,6 +24,7 @@ import functools
 
 import torch
 
+from .. import tracing as _tracing
 from .. import work as _work
 from . import _build
 
@@ -123,11 +124,8 @@ def scatter_tiles_ps(tiles, local_ids, grid: int):
             torch.cuda.current_stream(tiles.device).cuda_stream,
         )
     _build.check(status, "tile_scatter")
-    scatter_tiles_ps.launches += 1
+    _tracing.count("launches.scatter_tiles_ps")
     return out
-
-
-scatter_tiles_ps.launches = 0
 
 
 def gather_tiles_ps(dy, local_ids, tile: int):
@@ -235,11 +233,8 @@ def scatter_tiles_global(tiles, ids, batch: int, grid: int):
             torch.cuda.current_stream(tiles.device).cuda_stream,
         )
     _build.check(status, "tile_scatter_global")
-    scatter_tiles_global.launches += 1
+    _tracing.count("launches.scatter_tiles_global")
     return out
-
-
-scatter_tiles_global.launches = 0
 
 
 def gather_tiles_global(dy, ids, tile: int):

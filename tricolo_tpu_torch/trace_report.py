@@ -21,7 +21,15 @@ N is the number of steps it traced. It reports:
   ``bwd``, any other linked event ``fwd`` (the optimizer's too), and one
   with no launch in the trace ``unlinked``;
 * the longest idle gaps of the device in the window, each with the
-  innermost host operation that spans the gap's midpoint.
+  innermost host operation that spans the gap's midpoint and, when the
+  trace carries the port's spans (``tracing.merge_into``: ``trainer.
+  profiler=xplane``, ``bench --trace``), the innermost program span that
+  does on the threads that launch device work (the dispatching thread and
+  the autograd engine's), with beside it the innermost span of the other
+  threads (the loader's prefetch thread);
+* with spans, device ms a step by program span: each device event goes to
+  the innermost span of the thread that launched it (its ``correlation``
+  id's host event), ``(none)`` when no span holds the launch.
 
 It prints a table, or with ``--json`` one JSON line. ``device_summary`` is
 the busy / idle / port-kernel arithmetic that ``chip_smoke.py``'s profiled
@@ -40,6 +48,7 @@ import sys
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "cuda_runtime", "cuda_driver", "user_annotation")
+SPAN_CAT = "program_span"  # tracing.CATEGORY
 BACKWARD = "autograd::engine::evaluate_function:"
 # The port's kernels by their device function names (csrc/*.cu).
 PORT_KERNELS = {
@@ -101,6 +110,12 @@ def _inside(starts, merged, t: float) -> bool:
     return i >= 0 and t <= merged[i][1]
 
 
+def _innermost(events, t: float) -> str | None:
+    """The name of the shortest of ``events`` that holds ``t``, or None."""
+    around = [e for e in events if e["ts"] <= t <= e["ts"] + e["dur"]]
+    return min(around, key=lambda e: e["dur"])["name"] if around else None
+
+
 def parse(trace: dict):
     """(spans, device events, host events, launches by correlation id) of
     one parsed Chrome trace: its complete events, those on the device
@@ -157,13 +172,33 @@ def analyse(trace: dict, steps: int, top: int = 30, gaps: int = 5) -> dict:
         idle.append((cursor, start + window_us))
     idle.sort(key=lambda g: g[0] - g[1])
 
-    def host_op(t: float) -> str | None:
-        around = [e for e in host if e["ts"] <= t <= e["ts"] + e["dur"]]
-        return min(around, key=lambda e: e["dur"])["name"] if around else None
+    program = [e for e in spans if e.get("cat") == SPAN_CAT]
+    by_thread = collections.defaultdict(list)
+    for e in program:
+        by_thread[(e["pid"], e["tid"])].append(e)
+    by_span: dict = collections.defaultdict(float)
+    dispatching = set()  # the threads that launched device work
+    for e in device if program else ():
+        launch = launches.get(e.get("args", {}).get("correlation"))
+        owner = None
+        if launch is not None:
+            dispatching.add((launch["pid"], launch["tid"]))
+            owner = _innermost(by_thread.get((launch["pid"], launch["tid"]), ()), launch["ts"])
+        by_span[owner or "(none)"] += e["dur"]
+    launching = [e for e in program if (e["pid"], e["tid"]) in dispatching]
+    others = [e for e in program if (e["pid"], e["tid"]) not in dispatching]
 
     per = 1e3 * steps
     rows = sorted(buckets.items(), key=lambda kv: -kv[1][0])[:top]
-    return {
+    gap_rows = []
+    for s, e in idle[:gaps]:
+        row = {"at_ms": (s - start) / 1e3, "ms": (e - s) / 1e3,
+               "host_op": _innermost(host, (s + e) / 2)}
+        if program:
+            row["span"] = _innermost(launching, (s + e) / 2)
+            row["other_span"] = _innermost(others, (s + e) / 2)
+        gap_rows.append(row)
+    report = {
         "steps": steps,
         "window_ms": window_us / 1e3,
         "device_ms_per_step": summary["device_busy_ms"] / steps,
@@ -173,9 +208,12 @@ def analyse(trace: dict, steps: int, top: int = 30, gaps: int = 5) -> dict:
         "phase_ms_per_step": {k: v / per for k, v in phases.items()},
         "top": [{"phase": p, "name": name, "label": port_kernel(name),
                  "ms_per_step": us / per, "count": n} for (p, name), (us, n) in rows],
-        "gaps": [{"at_ms": (s - start) / 1e3, "ms": (e - s) / 1e3,
-                  "host_op": host_op((s + e) / 2)} for s, e in idle[:gaps]],
+        "gaps": gap_rows,
     }
+    if program:
+        report["span_ms_per_step"] = {k: v / per for k, v in
+                                      sorted(by_span.items(), key=lambda kv: -kv[1])}
+    return report
 
 
 def format_report(report: dict) -> str:
@@ -192,9 +230,18 @@ def format_report(report: dict) -> str:
         label = row["label"] or ""
         lines.append(f"{row['ms_per_step']:9.3f} ms  {row['phase']:<8} {label:<5} "
                      f"x{row['count']:<5d} {row['name'][:100]}")
+    if "span_ms_per_step" in report:
+        lines.append("device time by program span: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in report["span_ms_per_step"].items()) + " ms/step")
     lines.append("longest device idle gaps:")
     for gap in report["gaps"]:
-        lines.append(f"{gap['ms']:9.3f} ms  at +{gap['at_ms']:.3f} ms  host: {gap['host_op']}")
+        span = ""
+        if "span" in gap:
+            span = f"  span: {gap['span']}"
+            if gap["other_span"]:
+                span += f" (beside {gap['other_span']})"
+        lines.append(f"{gap['ms']:9.3f} ms  at +{gap['at_ms']:.3f} ms  host: {gap['host_op']}"
+                     + span)
     return "\n".join(lines)
 
 

@@ -27,6 +27,13 @@ before the step is made, so the step holds the sharded parameters) the
 order is: FSDP's reduce-scatter of the sharded leaves' gradients inside the
 backward, then the all-reduce of the leaves kept whole, then Adam on each
 rank's shards.
+
+The step is traced (``tracing``) as the span ``step``, which records its
+kernel launches (the ``launches.*`` counters), with the children
+``step.prepare``, ``forward.<encoder>`` (``TriCoLoNet.forward``),
+``loss.forward``, ``backward`` (``backward.loss``, then each encoder's
+``backward.<encoder>`` as the engine reaches it), ``all_reduce`` (data
+parallel) and ``optimizer``.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import tracing
 from ..inference import autocast, prepare_inputs
 from ..losses import make_loss_fn, pairwise_losses
 from ..parallel import all_reduce_gradients, make_parallel_loss_fn
@@ -64,19 +72,24 @@ def make_train_step(model, optimizer, cfg, use_kernels: bool = True,
     params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(batch: dict, lr: float, generator: torch.Generator | None = None) -> dict:
-        model.train()
-        inputs = prepare_inputs(model, batch)
-        with autocast(model, batch["tokens"].device.type):
-            output = model(inputs, generator)
-        output = {k: v.float() for k, v in output.items()}
-        loss_dict = pairwise_losses(loss_pair, output, "train_loss")
-        optimizer.zero_grad(set_to_none=True)
-        loss_dict["train_loss/total_loss"].backward()
-        if world is not None:
-            all_reduce_gradients(params, world)
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
-        return {k: v.detach() for k, v in loss_dict.items()}
+        with tracing.span("step", counters="launches."):
+            model.train()
+            with tracing.span("step.prepare"):
+                inputs = prepare_inputs(model, batch)
+            with autocast(model, batch["tokens"].device.type):
+                output = model(inputs, generator)
+            with tracing.span("loss.forward"):
+                output = {k: v.float() for k, v in output.items()}
+                loss_dict = pairwise_losses(loss_pair, output, "train_loss")
+            optimizer.zero_grad(set_to_none=True)
+            tracing.backward(loss_dict["train_loss/total_loss"])
+            if world is not None:
+                with tracing.span("all_reduce"):
+                    all_reduce_gradients(params, world)
+            for group in optimizer.param_groups:
+                group["lr"] = lr
+            with tracing.span("optimizer"):
+                optimizer.step()
+            return {k: v.detach() for k, v in loss_dict.items()}
 
     return train_step

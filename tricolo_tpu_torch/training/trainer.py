@@ -24,7 +24,9 @@ Port of ``tricolo_tpu.training.Trainer``:
 trace written under ``{logger.save_dir}/xplane``, as the JAX package's
 ``profile_trace`` does with ``jax.profiler``; the file is PyTorch's own
 Chrome trace (``*.pt.trace.json``, for Perfetto or chrome://tracing), not
-an XPlane protobuf.
+an XPlane protobuf, with the port's spans (``tracing``: the fit's phases,
+the loader's prefetch thread, the copy, each step's forward, loss,
+backward and optimizer) merged into it on its clock.
 
 Under ``parallel.multiprocess=true`` (``tricolo_tpu_torch.parallel``)
 every rank runs this loop on its stripe of each global batch, with the
@@ -52,6 +54,7 @@ dense-input plan, the full windowed transfer).
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import pickle
 import time
@@ -61,6 +64,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from .. import tracing
 from ..convert import jax_to_torch
 from ..evaluation import compute_metrics, compute_metrics_on_device, write_nearest_info
 from ..inference import collect_embeddings, resolve_device, to_device_batch
@@ -89,10 +93,13 @@ from .steps import dropout_generator, make_train_step
 
 
 @contextlib.contextmanager
-def profile_trace(log_dir: str | None, device: torch.device, name: str = "fit"):
+def profile_trace(log_dir: str | None, device: torch.device, name: str = "fit",
+                  spans: bool = True):
     """A ``torch.profiler`` trace of the block (host, and the card on CUDA)
     exported as a Chrome trace ``{name}.<ns>.pt.trace.json`` under
-    ``log_dir``; a no-op without one."""
+    ``log_dir``; a no-op without one. With ``spans``, tracing is on for the
+    block and the port's spans of every thread are merged into the trace
+    (``tracing.merge_into``); without, the block runs as it is."""
     if log_dir is None:
         yield
         return
@@ -102,9 +109,29 @@ def profile_trace(log_dir: str | None, device: torch.device, name: str = "fit"):
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, f"{name}.{time.time_ns()}.pt.trace.json"))
+    if not spans:
+        with profile(activities=activities) as prof:
+            yield
+        prof.export_chrome_trace(os.path.join(log_dir, f"{name}.{time.time_ns()}.pt.trace.json"))
+        return
+    was_on = tracing.enabled()
+    tracing.enable()
+    try:
+        with profile(activities=activities) as prof:
+            tracing.anchor()
+            yield
+    finally:
+        if not was_on:
+            tracing.disable()
+    path = os.path.join(log_dir, f"{name}.{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    tracing.merge_into(trace)
+    with open(path, "w") as f:
+        json.dump(trace, f)
+    if not was_on:
+        tracing.clear()
 
 
 class _NullLogger:
@@ -143,8 +170,11 @@ class Trainer:
     ``dropout_generator(train_seed, step)``); ``step`` counts the steps
     taken; ``metrics`` holds the last validation's retrieval metrics;
     ``timers`` the seconds ``fit`` spent by phase (``data_load``, ``train``
-    — loader iteration and steps —, ``validate``, ``checkpoint``), printed
-    after the fit with ``trainer.profiler=simple``.
+    — loader iteration and steps —, ``validate``, ``checkpoint``), the
+    lengths of its ``fit.<phase>`` spans (``tracing``; timed whether
+    tracing is on or not), printed after the fit with
+    ``trainer.profiler=simple``. ``trainer.profiler=xplane`` turns tracing
+    on for the fit and writes its spans into the trace (``profile_trace``).
     """
 
     def __init__(self, cfg, device=None, backend: str | None = None):
@@ -165,7 +195,12 @@ class Trainer:
         self.val_loss = make_loss_fn(cfg)
         self.step = 0
         self.metrics = None
-        self.timers: dict[str, float] = defaultdict(float)
+        self.phase_s: dict[str, float] = defaultdict(float)
+
+    @property
+    def timers(self) -> dict[str, float]:
+        """Seconds by phase of ``fit``, from its ``fit.<phase>`` spans."""
+        return {name.removeprefix("fit."): s for name, s in self.phase_s.items()}
 
     def _graft_pretrained_backbone(self) -> None:
         """Copy the ``pretrained_path`` npz over the image backbone (the JAX
@@ -279,9 +314,8 @@ class Trainer:
     def fit(self, data_module, resume_ckpt: str | None = None) -> CheckpointManager:
         cfg = self.cfg
         np.random.seed(cfg.train_seed)
-        tic = time.perf_counter()
-        data_module.setup("fit")
-        self.timers["data_load"] += time.perf_counter() - tic
+        with tracing.span("fit.data_load", totals=self.phase_s):
+            data_module.setup("fit")
         pin = self.device.type == "cuda"  # non_blocking copies from pinned batches
         train_loader = data_module.train_loader(pin_memory=pin)
         val_loader = data_module.val_loader(pin_memory=pin)
@@ -305,9 +339,8 @@ class Trainer:
             with profile_trace(os.path.join(logger.save_dir, "xplane") if trace else None,
                                self.device):
                 self._fit_epochs(train_loader, val_loader, logger, manager, start_epoch)
-            tic = time.perf_counter()
-            manager.wait()  # the async writes land before fit returns
-            self.timers["checkpoint"] += time.perf_counter() - tic
+            with tracing.span("fit.checkpoint", totals=self.phase_s):
+                manager.wait()  # the async writes land before fit returns
         finally:
             if writer is not None:
                 writer.close()
@@ -334,36 +367,34 @@ class Trainer:
         for epoch in range(start_epoch, cfg.trainer.max_epochs):
             lr = lr_for_epoch(cfg, epoch)
             train_loader.set_epoch(epoch)
-            tic = time.perf_counter()
-            for batch in train_loader:
-                loss_dict = self.train_step(
-                    to_device_batch(batch, self.device), lr,
-                    dropout_generator(cfg.train_seed, self.step, self.device))
-                self.step += 1
-                if self.step % log_every == 0:
-                    logger.log({**{k: float(v) for k, v in loss_dict.items()}, "lr": lr},
-                               self.step, epoch)
-            self._sync()
-            self.timers["train"] += time.perf_counter() - tic
+            with tracing.span("fit.train", totals=self.phase_s):
+                for batch in train_loader:
+                    tracing.set_step(self.step)
+                    loss_dict = self.train_step(
+                        to_device_batch(batch, self.device), lr,
+                        dropout_generator(cfg.train_seed, self.step, self.device))
+                    self.step += 1
+                    if self.step % log_every == 0:
+                        logger.log({**{k: float(v) for k, v in loss_dict.items()}, "lr": lr},
+                                   self.step, epoch)
+                self._sync()
 
             if (epoch + 1) % val_every == 0 or epoch == last:
-                tic = time.perf_counter()
-                embeddings, val_losses = collect_embeddings(
-                    self.model, val_loader, self.device, loss_fn=self.val_loss)
-                nearest = (os.path.join(logger.save_dir, "nearest.jsonl") if self.is_main
-                           else None)
-                self.metrics = self._run_retrieval_eval(embeddings, nearest_path=nearest)
-                summary = self.metrics.summary("val_eval/")
-                logger.log({**summary, **val_losses}, self.step, epoch)
-                if self.is_main:
-                    print(f"epoch {epoch}: " + " ".join(
-                        f"{k.split('/')[-1]}={v:.2f}" for k, v in summary.items()))
-                self.timers["validate"] += time.perf_counter() - tic
+                with tracing.span("fit.validate", totals=self.phase_s):
+                    embeddings, val_losses = collect_embeddings(
+                        self.model, val_loader, self.device, loss_fn=self.val_loss)
+                    nearest = (os.path.join(logger.save_dir, "nearest.jsonl") if self.is_main
+                               else None)
+                    self.metrics = self._run_retrieval_eval(embeddings, nearest_path=nearest)
+                    summary = self.metrics.summary("val_eval/")
+                    logger.log({**summary, **val_losses}, self.step, epoch)
+                    if self.is_main:
+                        print(f"epoch {epoch}: " + " ".join(
+                            f"{k.split('/')[-1]}={v:.2f}" for k, v in summary.items()))
 
                 if (epoch + 1) % ckpt_every == 0 or epoch == last:
-                    tic = time.perf_counter()
-                    manager.save(self.state(), epoch, {**summary, **val_losses})
-                    self.timers["checkpoint"] += time.perf_counter() - tic
+                    with tracing.span("fit.checkpoint", totals=self.phase_s):
+                        manager.save(self.state(), epoch, {**summary, **val_losses})
 
     # -- evaluation -------------------------------------------------------
 

@@ -7,7 +7,7 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. card — ``nvidia-smi`` name and power limit;
 2. build — every ``tricolo_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, all
-   sources at once (K1-K7);
+   sources at once (K1-K8);
 3. kernels — each against its plain PyTorch version on the card, timed
    beside its bound: K1 (bn_relu_pool) at the five flagship voxel-block
    shapes and the dense plan's two tile-sparse blocks, idx off and on, in
@@ -31,7 +31,13 @@ Phases (any failure exits non-zero and prints no result line):
    (bn_relu_pool_unmasked idx off and on, bn_relu_pool_bwd_unmasked) at
    the five dense blocks of the masked_bn=false flagship, (128, 64³, 32) …
    (128, 4³, 512), in f32 and bf16, bit-exact, on inputs with ties, dead
-   windows and one γ = 0 channel (K3 on K1's argmax of them);
+   windows and one γ = 0 channel (K3 on K1's argmax of them); K8
+   (conv3d_valid_dgrad, block 2's input gradient) at train_spread's rows
+   (17,536), the flagship batch's, the dense plan's budget and C13/128³'s
+   (27,680), and at the dense plan's third tile-sparse block (4³ × 64 ←
+   2³ × 128), bf16, within one bf16 ulp plus ``K8_SUM_TOL``·max|plain| of
+   its plain version (cuDNN's ``convolution_backward``, which is also its
+   ``library_ms``), the same from launch to launch;
 4. serving — ``RetrievalServer.build_index`` over a 256-model synthetic
    split at the flagship widths (Tri(I+V), 64³ voxels, 6×128² views,
    batch 128, bf16), four token queries and one image query, with the
@@ -52,8 +58,8 @@ Phases (any failure exits non-zero and prints no result line):
 7. training — ``Trainer.fit`` for one epoch of the 256-model synthetic
    train split (768 captions: 6 steps of 128) at the flagship widths, bf16,
    ``use_pallas=true``; per-step losses (finite), CUDA-event step times and
-   launches (K1 5, K2 2, K3 5, pair forward 3, two-term backward 6, K4/K5/K6
-   alone 0 a step), peak memory; the
+   launches (K1 5, K2 2, K3 5, pair forward 3, two-term backward 6, K8 1,
+   K4/K5/K6 alone 0 a step), peak memory; the
    launch counts are reset just before ``fit`` and read just after it;
 8. the trained checkpoint (the fit's best ``epoch=0.ckpt``) serves:
    ``RetrievalServer.from_checkpoint`` builds an index and answers a query;
@@ -72,7 +78,8 @@ Phases (any failure exits non-zero and prints no result line):
     the config default), a profile of
     one explicit-dgrad dense-plan step (top device kernels and operators,
     idle share, the port kernels' share), and block 2's input gradient alone
-    both ways with the kernels that compute it;
+    three ways (cuDNN's transposed convolution, the explicit forward conv,
+    K8) with the kernels that compute it;
 10d. the training-run lifecycle — Bi(V) on ``data=structured
     data.num_models=150`` at the flagship widths (450 captions, 3 steps an
     epoch): ``Trainer.fit`` for 2 epochs with validation every epoch (finite
@@ -222,13 +229,13 @@ Phases (any failure exits non-zero and prints no result line):
     the bench's are not salvaged, hold 2 pairs and this card's name, with
     launches per timed step exactly phase 7's (K1 5, K2 2, K3 5, pair 3,
     two-term 6) and the dense plan's (K7 4, K2-global 4, K1 5, K3 5, pair
-    3, two-term 6); the traces show device time in K1-K6 (default) and K7
-    (dense plan); the readings beside phase 7's and phase 10's steps;
+    3, two-term 6), K8 1 in both; the traces show device time in K1-K6 and
+    K8 (default) and K7 and K8 (dense plan); the readings beside phase 7's and phase 10's steps;
 18. the tools' short forms, each through its CLI: 18a ``bench --roofline``
     on the default config (2 warm-up steps, N = 4, 1 pair), then
     ``roofline_report --json``: at least 0.95 of device time attributed to
-    a counted op, rows for K1, K2, K3, the pair forward and the two-term
-    backward (and no other port kernel) with launches a step exactly phase
+    a counted op, rows for K1, K2, K3, the pair forward, the two-term
+    backward and K8 (and no other port kernel) with launches a step exactly phase
     7's, each K row's floor equal to the kernel module's ``work(...)``
     summed over its recorded launches (and, for K1, K3 and the loss
     kernels, at phase 3's block shapes for the bench's k), no row above
@@ -246,12 +253,17 @@ Phases (any failure exits non-zero and prints no result line):
     ``dress_rehearsal`` at scale 0.01 (68 train / 15 val models), one
     epoch: rc 0 and the report holds every key (the split is deleted);
     18a-c run alone in turn, 18d-f at once (their gates time nothing);
-19. the kernels line (ten rows: K1-K7, K2's global entry, and K1's and
+19. the kernels line (eleven rows: K1-K8, K2's global entry, and K1's and
     K3's unmasked entries; K7's ``library_ms`` is its yardstick's; the row
     of K4 counts the pair launches, each of which computes K4 twice, and carries
     the pair entry's times, the rows of K5 and K6 likewise the two-term
     launches and times), then the card line, then
     ``{"ok": true, ...}``.
+
+Every bf16 train step of a masked voxel path at the flagship widths
+(``ef_dim`` 32) launches K8 once (block 2's input gradient; the remat step
+too, whose backward runs once), beside the counts each phase names; an
+f32-compute step, every eval pass and other widths launch it never.
 
 Details go to ``chiprun_out/chip_smoke.json``. The script imports nothing
 of JAX and nothing of the JAX package.
@@ -301,6 +313,12 @@ ZERO_GRAD = 1e-5
 # may lie beyond one bf16 ulp between two steps from one state (each within
 # 2·lr: Adam's first step on a gradient near zero or near eps).
 BF16_BEYOND_ULP = 1e-3
+# K8 against its plain version (cuDNN's convolution_backward, bf16): both sum
+# in f32, in another order (~1e-7 of the terms, under K8_SUM_TOL of the
+# largest |dx| at these fan-ins), and round once to bf16, so an element may
+# land one bf16 ulp (at most 2⁻⁷ of its magnitude) apart.
+K8_ULP = 2.0**-7
+K8_SUM_TOL = 1e-5
 FLAGSHIP = [
     "data=synthetic",
     "model.image_encoder=MVCNNEncoder",
@@ -766,6 +784,49 @@ def check_k7(torch, cases, ids, n_active, flush):
     return max_err, rows
 
 
+def check_k8(torch, cases, flush):
+    """K8 against its plain version in bf16 (``K8_ULP`` of each element plus
+    ``K8_SUM_TOL`` of the largest), the same from launch to launch; bound =
+    max(bytes / HBM, true FLOPs / 989 TFLOP/s bf16) of ``work(...)``; the
+    plain version is cuDNN's ``convolution_backward`` for the input alone,
+    so it is also the row's ``library_ms``, the yardstick the port no longer
+    calls on this path. ``cases``: (label, rows, (S, Cin, Cout), main)."""
+    from tricolo_tpu_torch.ops import conv3d_valid_dgrad, conv3d_valid_dgrad_plain
+    from tricolo_tpu_torch.ops.conv3d import work
+    from tricolo_tpu_torch.work import floor_s
+
+    max_err, rows = 0.0, []
+    for label, n, (size, cin, cout), main in cases:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        d = size - 2
+        dy = torch.randn((n, d, d, d, cout), generator=gen, device="cuda").to(torch.bfloat16)
+        dy = dy.permute(0, 4, 1, 2, 3)
+        w = torch.randn((cout, cin, 3, 3, 3), generator=gen, device="cuda") / math.sqrt(27 * cin)
+        w = w.to(torch.bfloat16)
+        got = conv3d_valid_dgrad(dy, w)
+        torch.cuda.synchronize()
+        ref = conv3d_valid_dgrad_plain(dy, w).float()
+        top = ref.abs().max().item()
+        past = ((got.float() - ref).abs() - K8_ULP * ref.abs()).max().item() / top
+        max_err = max(max_err, (got.float() - ref).abs().max().item())
+        require(past <= K8_SUM_TOL, f"K8 {label} ({n} rows): kernel vs plain {past} of max past "
+                                    f"one bf16 ulp (tol {K8_SUM_TOL})")
+        require(torch.equal(conv3d_valid_dgrad(dy, w), got), f"K8 {label}: launch to launch")
+        del ref
+        bound = floor_s(*work(n, size, cin, cout), "bf16") * 1e3
+        ms = time_ms(lambda: conv3d_valid_dgrad(dy, w), torch, flush=flush)
+        plain = time_ms(lambda: conv3d_valid_dgrad_plain(dy, w), torch, repeats=3, warmup=1,
+                        flush=flush)
+        rows.append({"block": label, "rows": n, "form": [size, cin, cout], "dtype": "bf16",
+                     "main": main, "ms": ms, "plain_ms": plain, "library_ms": plain,
+                     "bound_ms": bound, "past_ulp_of_max": past})
+        log(f"  K8 {label:22s} ({n}, {size}³, {cin}) <- {d}³ x {cout} bf16: {ms:.4f} ms (plain = "
+            f"library {plain:.3f} ms, bound {bound:.4f} ms, {bound / ms:.0%} of bound)")
+        del dy, w, got
+        torch.cuda.empty_cache()
+    return max_err, rows
+
+
 def check_k2_global(torch, cases, ids, n_active, batch, flush):
     """K2's global entry against its plain version, bit-exact in f32 and
     bf16; bound = (the active tiles read once + ids + grid written) / HBM:
@@ -899,16 +960,18 @@ TRAIN_LAUNCHES = {"bn_relu_pool": 5, "scatter_tiles_ps": 2, "bn_relu_pool_bwd": 
                   "nt_xent_fwd": 0, "nt_xent_fwd_pair": 3, "nt_xent_bwd_rows": 0,
                   "nt_xent_bwd_cols": 0, "nt_xent_bwd": 6, "gather_tiles": 0,
                   "scatter_tiles_global": 0, "bn_relu_pool_unmasked": 0,
-                  "bn_relu_pool_bwd_unmasked": 0}
+                  "bn_relu_pool_bwd_unmasked": 0, "conv3d_valid_dgrad": 1}
+# An f32-compute step keeps cuDNN's input gradient for block 2 (K8 is bf16).
+F32_TRAIN_LAUNCHES = dict(TRAIN_LAUNCHES, conv3d_valid_dgrad=0)
 # The dense-input plan, 2 sparse blocks: K7 for x and the mask of each, K2's
 # global entry for each handoff, K1 in all five blocks; no per-sample K2.
 DENSE_EVAL_LAUNCHES = {"bn_relu_pool": 5, "scatter_tiles_ps": 0, "bn_relu_pool_bwd": 0,
                        "nt_xent_fwd": 0, "nt_xent_fwd_pair": 0, "nt_xent_bwd_rows": 0,
                        "nt_xent_bwd_cols": 0, "nt_xent_bwd": 0, "gather_tiles": 4,
                        "scatter_tiles_global": 4, "bn_relu_pool_unmasked": 0,
-                       "bn_relu_pool_bwd_unmasked": 0}
+                       "bn_relu_pool_bwd_unmasked": 0, "conv3d_valid_dgrad": 0}
 DENSE_TRAIN_LAUNCHES = dict(DENSE_EVAL_LAUNCHES, bn_relu_pool_bwd=5, nt_xent_fwd_pair=3,
-                            nt_xent_bwd=6)
+                            nt_xent_bwd=6, conv3d_valid_dgrad=1)
 
 
 def timed_step(torch, step, rows):
@@ -1255,10 +1318,12 @@ def dense_training(torch, card):
 
 def block2_dgrad(torch, rows, flush):
     """Block 2's VALID conv input gradient alone at the flagship shape
-    (bf16, channels-last): autograd's transposed convolution against the
-    explicit forward conv — CUDA-event times of each, and the kernels the
-    profiler sees (the transposed one profiled with its forward conv, as
-    a train step runs it)."""
+    (bf16, channels-last): cuDNN's transposed convolution (autograd's
+    before K8), the explicit forward conv and K8 (the default route) —
+    CUDA-event times of each, and the kernels the profiler sees (the
+    transposed one profiled with its forward conv, as a train step ran
+    it)."""
+    from tricolo_tpu_torch.ops import conv3d_valid_dgrad
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
@@ -1280,11 +1345,14 @@ def block2_dgrad(torch, rows, flush):
     def transposed_autograd():  # the step's own path, for the profiler
         F.conv3d(x.detach().requires_grad_(), w).backward(dy)
 
+    def k8():
+        return conv3d_valid_dgrad(dy, w)
+
     a, b = transposed().float(), explicit().float()
     rel = ((a - b).abs().max() / a.abs().max()).item()
     out = {"rows": rows, "rel_diff_of_max": rel}
     for name, fn, traced in (("transposed", transposed, transposed_autograd),
-                             ("explicit", explicit, explicit)):
+                             ("explicit", explicit, explicit), ("k8", k8, k8)):
         ms = time_ms(fn, torch, repeats=10, flush=flush)
         prof = profile_step(torch, lambda *_: traced(), None, None)
         out[name] = {"ms": ms, "kernels": prof["top"][:4]}
@@ -1308,9 +1376,9 @@ def explicit_dgrad_diagnostic(torch, trainer, step, batch, dense_trainer, dense_
             times.setdefault(explicit, []).append(
                 time_ms(lambda: fn(b, lr), torch, repeats=3, warmup=1))
         enc.explicit_dgrad = False
-        out[label] = {"autograd_ms": min(times[False]), "explicit_ms": min(times[True]),
-                      "runs": {"autograd": times[False], "explicit": times[True]}}
-        log(f"explicit_dgrad, {label} train step: autograd {out[label]['autograd_ms']:.3f} ms, "
+        out[label] = {"default_ms": min(times[False]), "explicit_ms": min(times[True]),
+                      "runs": {"default": times[False], "explicit": times[True]}}
+        log(f"explicit_dgrad, {label} train step: default (K8) {out[label]['default_ms']:.3f} ms, "
             f"explicit {out[label]['explicit_ms']:.3f} ms [{card}]")
     # Where an explicit-dgrad dense-plan step spends its device time.
     enc = dense_trainer.model.voxel_encoder
@@ -1331,7 +1399,7 @@ def explicit_dgrad_diagnostic(torch, trainer, step, batch, dense_trainer, dense_
         log(f"    {row['device_ms']:9.3f} ms x{row['count']:<4d} {row['op']} {row['shapes']}")
     flush = make_flush(torch)
     out["block2_dgrad"] = alone = block2_dgrad(torch, rows, flush)
-    for name in ("transposed", "explicit"):
+    for name in ("transposed", "explicit", "k8"):
         top = alone[name]["kernels"][0] if alone[name]["kernels"] else {"name": "?"}
         log(f"  block-2 input gradient ({rows} rows), {name}: {alone[name]['ms']:.3f} ms, "
             f"top kernel {top['name'][:100]} [{card}]")
@@ -2285,7 +2353,7 @@ def data_parallel(torch, card) -> tuple[dict, dict]:
                 f"12b rank {r}: local batch {res['local_batch']}")
         require(res["planned_B"] == [global_b], f"12b rank {r}: loss kernels planned for "
                                                 f"B {res['planned_B']}, not {global_b}")
-        require(res["launches_f32"] == DP_TRAIN_LAUNCHES,
+        require(res["launches_f32"] == F32_TRAIN_LAUNCHES,
                 f"12b rank {r}: f32 step launches {res['launches_f32']}")
         dev = _f32_deviation(res["step_f32"], ref)
         spread = ref["spread"]
@@ -3428,7 +3496,7 @@ def fsdp_phase(torch, card) -> tuple[dict, dict]:
     for r, res in enumerate(ranks):
         cmp, floor = res["f32_vs_replicated"], res["f32_floor_replicated_twice"]
         require(res["local_batch"] == 64, f"16b rank {r}: local batch {res['local_batch']}")
-        require(res["launches_f32"] == DP_TRAIN_LAUNCHES,
+        require(res["launches_f32"] == F32_TRAIN_LAUNCHES,
                 f"16b rank {r}: FSDP f32 step launches {res['launches_f32']}")
         require(res["leaves_equal_rule"], f"16b rank {r}: local elements unlike fsdp_axis's")
         # Two ranks: each gradient element is a sum of two terms, which
@@ -3489,9 +3557,9 @@ def measuring(torch, card, reference: dict) -> tuple[dict, dict]:
     earlier phases' step ms on this card. Returns (report, the benches'
     launches over their timed steps)."""
     out_dir = ROOT / "build" / "chip_smoke" / "bench"
-    runs = {"windowed_compact": ([], TRAIN_LAUNCHES, ("K1", "K2", "K3", "K4", "K5-K6")),
+    runs = {"windowed_compact": ([], TRAIN_LAUNCHES, ("K1", "K2", "K3", "K4", "K5-K6", "K8")),
             "dense_plan": ([a for o in DENSE for a in ("--override", o)], DENSE_TRAIN_LAUNCHES,
-                           ("K7",))}
+                           ("K7", "K8"))}
     out: dict = {"reference_step_ms": reference}
     paths: dict = {}
     torch.cuda.empty_cache()
@@ -3542,7 +3610,8 @@ ROOFLINE_RUN = ["--override", "bench.warmup_steps=2", "--override", "bench.steps
                 "--pairs", "1", "--idle-wait", "0"]
 # The roofline's labels of phase 7's kernels (TRAIN_LAUNCHES' keys).
 ROOFLINE_LABELS = {"K1": "bn_relu_pool", "K2": "scatter_tiles_ps", "K3": "bn_relu_pool_bwd",
-                   "K4-pair": "nt_xent_fwd_pair", "K5-K6": "nt_xent_bwd"}
+                   "K4-pair": "nt_xent_fwd_pair", "K5-K6": "nt_xent_bwd",
+                   "K8": "conv3d_valid_dgrad"}
 MIN_ATTRIBUTED = 0.95
 MAX_IDLE_FLOOR_MS = 0.1
 # A tool's step against phase 17's reading of the same step.
@@ -3868,17 +3937,27 @@ def main() -> int:
     k2g_err, k2g_rows = check_k2_global(torch, [("x1", 4, 32, 32), ("mask1", 4, 1, 32),
                                                 ("x2", 2, 64, 16), ("mask2", 2, 1, 16)],
                                         dense_ids, n_active, B, flush)
-    del flush, dense_ids
+    del dense_ids
+    # K8 at block 2's row counts: train_spread's, this batch's, the dense
+    # plan's budget, C13/128³'s; and the dense plan's third tile-sparse block.
+    k8_err, k8_rows = check_k8(torch, [("train_spread block2", 17_536, (6, 32, 64), False),
+                                       ("windowed_compact block2", T, (6, 32, 64), True),
+                                       ("dense_plan block2", budget, (6, 32, 64), False),
+                                       ("c13_128 block2", 27_680, (6, 32, 64), False),
+                                       ("dense_plan block3", budget, (4, 64, 128), False)],
+                               flush)
+    del flush
     torch.cuda.empty_cache()
     walls["kernels_s"] = time.perf_counter() - tic
     report["k1"], report["k2"], report["k3"], report["nt_xent"] = (
         k1_rows, k2_rows, k3_rows, nt_rows)
     report["k7"], report["k2_global"] = k7_rows, k2g_rows
-    report["k1_unmasked"], report["k3_unmasked"] = k1u_rows, k3u_rows
+    report["k1_unmasked"], report["k3_unmasked"], report["k8"] = k1u_rows, k3u_rows, k8_rows
     report["dense_plan_tiles"] = {"budget": budget, "active": n_active}
     log(f"kernels: K1 max err {k1_err}, K2 max err {k2_err}, K3 max err {k3_err}, "
         f"K7 max err {k7_err}, K2-global max err {k2g_err}, K1-unmasked max err {k1u_err}, "
-        f"K3-unmasked max err {k3u_err} (bit-exact required); "
+        f"K3-unmasked max err {k3u_err} (bit-exact required); K8 max err {k8_err} "
+        f"(limit one bf16 ulp + {K8_SUM_TOL}·max|plain|); "
         f"K4-K6, pair and two-term max err {nt_errs} (limit {NT_XENT_TOL}·max|plain|); dense "
         f"plan: "
         f"{n_active} active tiles of a {budget}-row budget")
@@ -4310,6 +4389,16 @@ def main() -> int:
          "bound_ms": total(k3u_rows, "bound_ms"), "bound_by": "bytes", "library_ms": None,
          "shapes": k3u_rows},
     ]
+    k8_main = [r for r in k8_rows if r["main"]]
+    kernels.append(
+        {"name": "conv3d_valid_dgrad", "route": "cuda",
+         "source": "tricolo_tpu_torch/csrc/conv3d_dgrad.cu",
+         "replaces": None,  # XLA's convolution backward; cuDNN's direct dgrad on the card
+         "launches": on_paths("conv3d_valid_dgrad"),
+         "launches_by_path": both("conv3d_valid_dgrad"), "max_abs_err": k8_err,
+         "ms": total(k8_main, "ms"), "plain_ms": total(k8_main, "plain_ms"),
+         "bound_ms": total(k8_main, "bound_ms"), "bound_by": "operations",
+         "library_ms": total(k8_main, "library_ms"), "shapes": k8_rows})
     for row in kernels:
         require(row["launches"] > 0, f"kernel {row['name']} was launched on no path")
     report["kernels"] = kernels

@@ -21,6 +21,10 @@ PyTorch version; each launch counts ``launches.<wrapper>`` in ``tracing``
   one operand in one launch (the loss's backward).
 * ``gather_tiles`` (K7, ``csrc/tile_gather.cu``) — halo'd tile gather from
   a dense grid by global tile id; replaces ``_graveyard/dma_tiles._gather_kernel``.
+* ``conv3d_valid_dgrad`` (K8, ``csrc/conv3d_dgrad.cu``) — the input
+  gradient of the VALID 3³ tile convolution in bf16; replaces no TPU kernel
+  (the JAX package leaves it to XLA), but cuDNN's choice for it;
+  ``conv3d_valid_kernel_dgrad`` is the convolution whose backward takes it.
 
 Beside them: ``conv3d_valid_explicit_dgrad`` (cuDNN convolutions with the
 input gradient written as a forward conv) and the tile-sparse helpers of
@@ -40,7 +44,12 @@ from .bn_relu_pool import (
     fold_bn,
     masked_bn_relu_pool_train,
 )
-from .conv3d import conv3d_valid_explicit_dgrad
+from .conv3d import (
+    conv3d_valid_dgrad,
+    conv3d_valid_dgrad_plain,
+    conv3d_valid_explicit_dgrad,
+    conv3d_valid_kernel_dgrad,
+)
 from .nt_xent import (
     blocked_nt_xent_loss,
     nt_xent_bwd,
@@ -79,6 +88,7 @@ KERNELS = (
     scatter_tiles_global,
     bn_relu_pool_unmasked,
     bn_relu_pool_bwd_unmasked,
+    conv3d_valid_dgrad,
 )
 
 
@@ -102,7 +112,10 @@ __all__ = [
     "bn_relu_pool_plain",
     "bn_relu_pool_train",
     "bn_relu_pool_unmasked",
+    "conv3d_valid_dgrad",
+    "conv3d_valid_dgrad_plain",
     "conv3d_valid_explicit_dgrad",
+    "conv3d_valid_kernel_dgrad",
     "fold_bn",
     "gather_tiles",
     "gather_tiles_autograd",

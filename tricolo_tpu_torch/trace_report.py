@@ -58,6 +58,7 @@ PORT_KERNELS = {
     "K4": ("::nt_xent_fwd_tile_kernel", "::nt_xent_fwd_combine_kernel"),
     "K5-K6": ("::nt_xent_bwd_cluster_kernel",),
     "K7": ("::tile_gather_kernel",),
+    "K8": ("::conv3d_dgrad_kernel",),
 }
 
 

@@ -85,7 +85,11 @@ LABELS = {
     "bn_relu_pool_bwd": "K3", "bn_relu_pool_bwd_unmasked": "K3-unmasked",
     "nt_xent_fwd": "K4", "nt_xent_fwd_pair": "K4-pair", "nt_xent_bwd_rows": "K5",
     "nt_xent_bwd_cols": "K6", "nt_xent_bwd": "K5-K6", "gather_tiles": "K7",
+    "conv3d_valid_dgrad": "K8",
 }
+# Port kernels whose FLOPs run on the tensor cores in bf16; the others' run
+# outside them in f32.
+TENSOR_CORE_LABELS = frozenset({"K8"})
 _GATES = {0: 1, 1: 1, 2: 4, 3: 3}  # cuDNN RNN modes: RNN_RELU, RNN_TANH, LSTM, GRU
 
 
@@ -298,11 +302,13 @@ class WorkCounter(TorchDispatchMode):
 
     def kernel(self, label: str, work_fn: Callable, args: tuple):
         """The record and range of one port-kernel call, (bytes, flops) =
-        ``work_fn(*args)`` (f32 class when it counts FLOPs: the NT-Xent
-        kernels run outside the tensor cores); ``kernel_args`` keeps the
-        work function's module and arguments."""
+        ``work_fn(*args)`` (when it counts FLOPs, class bf16 for
+        ``TENSOR_CORE_LABELS``, else f32: the NT-Xent kernels run outside
+        the tensor cores); ``kernel_args`` keeps the work function's module
+        and arguments."""
         nbytes, flops = work_fn(*args)
-        i = self._record(label, "f32" if flops else "memory", flops, nbytes)
+        cls = ("bf16" if label in TENSOR_CORE_LABELS else "f32") if flops else "memory"
+        i = self._record(label, cls, flops, nbytes)
         self.kernel_args[i] = [work_fn.__module__, [list(a) if isinstance(a, tuple) else a
                                                     for a in args]]
         return torch.profiler.record_function(f"work#{i}:{label}")

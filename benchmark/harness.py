@@ -41,7 +41,7 @@ from tricolo_tpu_torch.training import dropout_generator, make_optimizer, make_t
 from . import weights as seeded
 from .metrics import _flops, _kernel_work, _trace
 from .reference import batch as ref_batch
-from .reference.model import param_specs, running, trainable
+from .reference.model import identity, param_specs, running, trainable
 from .reference.precision import fp8
 from .reference.train import follow
 
@@ -297,7 +297,7 @@ class Run:
         control (fp8 operands); ``rows`` and ``frozen`` plant faults
         (``reference.train.follow``)."""
         w0 = seeded.make(self.specs, self.seed, self.device)
-        q = fp8 if control else (lambda x: x)
+        q = fp8 if control else identity
         out = follow(self.m, self.hyper, self.specs, w0, self.compared_items(), self.device,
                      q=q, rows=rows, frozen=frozen)
         del w0

@@ -24,6 +24,11 @@ BatchNorm in train mode normalises with the batch's biased statistics and
 moves its running statistics as ``0.9·running + 0.1·batch``. ``q`` is the
 operand rounding of every convolution and matrix product: the identity for
 the f32 reference, ``precision.fp8`` for the control.
+
+``Model.voxel_blocked`` is the voxel encoder over the batch in blocks of
+samples, for a configuration whose whole-batch graph does not fit the card
+(``train.reference_voxel_block``): the same arithmetic, with each
+BatchNorm's statistics still over the whole batch.
 """
 
 from __future__ import annotations
@@ -38,7 +43,10 @@ MOMENTUM = 0.9
 STAGES = (2, 2, 2, 2)  # ResNet18
 
 
-def identity(x):
+VOXEL_DIMS, VOXEL_SHAPE = (0, 2, 3, 4), (1, -1, 1, 1, 1)  # a voxel BN's sums, its (C,) view
+
+
+def identity(x, amax=None):
     return x
 
 
@@ -235,6 +243,87 @@ class Model:
             x, mask = F.max_pool3d(y, 2), F.max_pool3d(mask, 2)
         flat = x.permute(0, 2, 3, 4, 1).reshape(x.shape[0], -1)
         return l2n(self._head("voxel_encoder.head", flat))
+
+    def voxel_blocked(self, rgb, occupied, block: int):
+        """``voxel`` over the samples in blocks of ``block``. Each BatchNorm
+        takes its mean and then its variance (Σ (y − mean)²·m / n) over the
+        occupied sites of the whole batch, summed block by block, and moves
+        the running statistics once; the control's rounding takes its scale
+        from the whole batch's operand. Between the forward and the backward
+        only the inputs and each block's pooled outputs are kept: the
+        backward computes a block's convolution again (``_Recomputed``), so
+        the memory follows the block, not the batch."""
+        cuts = [slice(a, a + block) for a in range(0, rgb.shape[0], block)]
+        xs = [(rgb[c] * occupied[c, ..., None]).permute(0, 4, 1, 2, 3) for c in cuts]
+        masks = [occupied[c, None] for c in cuts]
+        run = _Recomputed.apply
+        for i in range(5):
+            p = f"voxel_encoder.blocks.{i}"
+            weight = self.w[f"{p}.conv.weight"]
+            if i == 0:
+                weight = weight[:, :3]  # the published 3 input channels
+            amax = torch.stack([x.detach().abs().amax() for x in xs]).amax()
+            sums, squares, pooled = _voxel_passes(self.q, amax)
+            n = torch.stack([m.sum() for m in masks]).sum()
+            mean = torch.stack([run(sums, x, weight, m) for x, m in zip(xs, masks)]).sum(0) / n
+            var = torch.stack([run(squares, x, weight, m, mean)
+                               for x, m in zip(xs, masks)]).sum(0) / n
+            for key, value in (("running_mean", mean), ("running_var", var)):
+                name = f"{p}.bn.{key}"
+                self.stats[name] = MOMENTUM * self.stats[name] + (1.0 - MOMENTUM) * value.detach()
+            inv = torch.rsqrt(var + EPS)
+            gamma, beta = self.w[f"{p}.bn.weight"], self.w[f"{p}.bn.bias"]
+            xs = [run(pooled, x, weight, m, mean, inv, gamma, beta) for x, m in zip(xs, masks)]
+            masks = [F.max_pool3d(m, 2) for m in masks]
+        x = torch.cat(xs)
+        flat = x.permute(0, 2, 3, 4, 1).reshape(x.shape[0], -1)
+        return l2n(self._head("voxel_encoder.head", flat))
+
+
+def _voxel_passes(q, amax):
+    """One voxel block's three functions of a sample block ``x``, as
+    ``Model.voxel`` computes them on the whole batch: the masked sums, the
+    masked centred squares, and normalize → ReLU → mask → 2³ max pool."""
+    def conv(x, w):
+        return F.conv3d(q(x, amax), q(w), padding=1)
+
+    def sums(x, w, m):
+        return (conv(x, w) * m).sum(dim=VOXEL_DIMS)
+
+    def squares(x, w, m, mean):
+        return ((conv(x, w) - mean.view(VOXEL_SHAPE)).square() * m).sum(dim=VOXEL_DIMS)
+
+    def pooled(x, w, m, mean, inv, gamma, beta):
+        y = ((conv(x, w) - mean.view(VOXEL_SHAPE)) * inv.view(VOXEL_SHAPE)
+             * gamma.view(VOXEL_SHAPE) + beta.view(VOXEL_SHAPE))
+        return F.max_pool3d(torch.relu(y) * m, 2)
+
+    return sums, squares, pooled
+
+
+class _Recomputed(torch.autograd.Function):
+    """``fn(*inputs)`` that keeps only its inputs for the backward and
+    computes ``fn`` again there, so that what ``fn`` makes on the way is
+    alive only while its own gradient is taken. Unlike
+    ``torch.utils.checkpoint``, both what it keeps and what the backward
+    computes again pass through autograd's saved-tensor hooks, where the
+    tests count them."""
+
+    @staticmethod
+    def forward(ctx, fn, *inputs):
+        ctx.fn = fn
+        ctx.save_for_backward(*inputs)
+        return fn(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[1:])]
+        with torch.enable_grad():
+            out = ctx.fn(*inputs)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad, allow_unused=True))
+        return (None, *(next(grads) if t.requires_grad else None for t in inputs))
 
 
 def nt_xent(zi, zj, temperature: float, alpha: float):

@@ -20,7 +20,11 @@ g ← g + wd·p; m ← b1·m + (1 − b1)·g; v ← b2·v + (1 − b2)·g²;
 p ← p − lr/(1 − b1ᵗ) · m / (√v / √(1 − b2ᵗ) + eps). TF32 is off while it
 runs. ``q`` rounds the operands of convolutions and matrix products
 (``precision.fp8`` for the control); ``rows`` keeps only the first rows of
-each batch (a planted fault: half the batch left out).
+each batch (a planted fault: half the batch left out). With
+``reference_voxel_block`` in ``hyper`` (the configuration's ``train``), the
+voxel encoder runs over blocks of that many samples
+(``Model.voxel_blocked``), for a configuration whose whole-batch graph
+does not fit the card.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ def no_tf32():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-def encode(model: Model, m: dict, items: list, device) -> dict:
+def encode(model: Model, m: dict, items: list, device, block: int | None = None) -> dict:
     tokens = torch.from_numpy(np.stack([it["tokens"] for it in items]))
     out = {"text": model.text(tokens.long().to(device))}
     if m["image"]:
@@ -55,7 +59,8 @@ def encode(model: Model, m: dict, items: list, device) -> dict:
         out["image"] = model.image(images.to(device))
     if m["voxel"]:
         rgb, occupied = dense_voxels(packed_grid(items, m["voxel_size"], device))
-        out["voxel"] = model.voxel(rgb, occupied)
+        out["voxel"] = (model.voxel_blocked(rgb, occupied, int(block)) if block
+                        else model.voxel(rgb, occupied))
     return out
 
 
@@ -83,7 +88,7 @@ def follow(m: dict, hyper: dict, specs: list, weights0: dict, batches: list, dev
         for t, items in enumerate(batches, start=1):
             items = items[:rows] if rows else items
             model = Model(m, w, stats if not frozen else dict(stats), q)
-            emb = encode(model, m, items, device)
+            emb = encode(model, m, items, device, hyper.get("reference_voxel_block"))
             loss = total_loss(emb, hyper)
             grads = torch.autograd.grad(loss, [w[n] for n in names])
             out["loss"].append(float(loss.detach()))

@@ -29,6 +29,8 @@ import time
 T_START = time.time()
 
 import argparse  # noqa: E402
+import ctypes  # noqa: E402
+import ctypes.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
@@ -36,6 +38,11 @@ import sys  # noqa: E402
 from .spec import ROOT, load_cell  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tricolo_tpu")
+INTRA_OP_THREADS = 4
+# glibc's mallopt parameters (malloc.h) and what environment() sets them to:
+# one arena, no mmap'd chunks, no trimming, 64 MiB of heap grown at a time.
+MALLOPT = {"M_ARENA_MAX": (-8, 1), "M_MMAP_MAX": (-4, 0),
+           "M_TRIM_THRESHOLD": (-1, 2**31 - 1), "M_TOP_PAD": (-2, 64 << 20)}
 
 
 def parse_args(argv):
@@ -107,12 +114,26 @@ def execute(cell, seed: int, seconds: float, trace: bool, device, tiny=None,
 
 
 def environment() -> None:
-    """Every build and kernel cache at a fixed path inside the checkout,
-    and one intra-op thread for torch's CPU work: a pool of spinning threads
-    on the host's few cores contends with the loader's thread and the
-    dispatching thread, and moved a host-paced cell's rate by ±8% from run
-    to run (PERF.md). Set before torch is imported."""
-    os.environ["OMP_NUM_THREADS"] = "1"
+    """Every build and kernel cache at a fixed path inside the checkout;
+    ``INTRA_OP_THREADS`` threads for torch's CPU work, which sleep when
+    idle (``OMP_WAIT_POLICY=PASSIVE``): the loader's thread copies each
+    batch's ~220 MiB into pinned memory through that pool (35 ms a batch
+    on one thread, 10 on four, on the H100's host), while a pool that
+    spins between its calls contends with the loader's and the
+    dispatching thread on the host's few cores; and glibc's malloc held to
+    memory it has once faulted in (``MALLOPT``). The loader's thread
+    allocates some 230 MB of fresh arrays a batch; served by ``mmap``,
+    every batch paid its page faults, zeroing and ``munmap`` in 135-209 ms
+    of system time a step, by an amount that swung with the host. On one
+    arena that keeps what is freed, a batch's arrays take the memory the
+    last one left (PERF.md). Set before torch is imported and before any
+    thread starts."""
+    libc = ctypes.CDLL(ctypes.util.find_library("c") or "libc.so.6")
+    for name, (param, value) in MALLOPT.items():
+        if libc.mallopt(param, value) != 1:
+            raise RuntimeError(f"mallopt({name}, {value}) failed: not glibc's malloc?")
+    os.environ["OMP_NUM_THREADS"] = str(INTRA_OP_THREADS)
+    os.environ["OMP_WAIT_POLICY"] = "PASSIVE"
     build = ROOT / "build"
     os.environ["TRITON_CACHE_DIR"] = str(build / "triton")
     os.environ["TORCH_EXTENSIONS_DIR"] = str(build / "torch_extensions")
@@ -125,7 +146,7 @@ def main(argv=None) -> int:
     environment()
     import torch
 
-    torch.set_num_threads(1)
+    torch.set_num_threads(INTRA_OP_THREADS)
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
         print(f"benchmark: {args.workload} needs {cell.chips} CUDA device(s); "

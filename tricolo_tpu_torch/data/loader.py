@@ -59,6 +59,8 @@ from .device_prep import (
 )
 
 TRANSFERS = ("packed", "dense", "windowed", "windowed_compact")
+# The counter of a windowed batch's active tiles (rows with id < (D/8)³).
+ACTIVE_TILES = "loader.voxel_active_tiles"
 # Packed u32 voxel words, carried as their int32 bit view in tensors.
 PACKED_KEYS = ("voxel_flat", "voxel_rgb", "voxel_grid", "voxel_windows", "voxel_rows")
 # The arrays of a batch that go to the device, with the dtype each carries.
@@ -108,7 +110,8 @@ def collate(
     (windowed), or voxel_rows (B, k, s³) u32 + voxel_row_ids (B, k) int32
     (windowed_compact); and the items' precached CLIP features, when they
     carry them, as clip_embeddings_img / clip_embeddings_text (B, F)
-    float32."""
+    float32. A windowed batch adds its active tiles to the ``tracing``
+    counter ``ACTIVE_TILES``."""
     batch: dict[str, Any] = {
         "model_id": [item["model_id"] for item in items],
         "category": [item["category"] for item in items],
@@ -131,6 +134,7 @@ def collate(
             batch["voxel_windows"], batch["voxel_tile_occ"] = windowed_on_host(
                 flat, rgb, voxel_size, halo=windowed_halo
             )
+            tracing.count(ACTIVE_TILES, int(np.count_nonzero(batch["voxel_tile_occ"])))
         elif voxel_transfer == "windowed_compact":
             if tile_budget_rows <= 0:
                 raise ValueError("windowed_compact collate needs tile_budget_rows > 0")
@@ -148,6 +152,7 @@ def collate(
                 logging.getLogger(__name__).warning("%s (highest tiles dropped)", msg)
             batch["voxel_rows"] = rows
             batch["voxel_row_ids"] = local_ids
+            tracing.count(ACTIVE_TILES, int((local_ids < (voxel_size // 8) ** 3).sum()))
         else:
             batch["voxel_flat"] = flat
             batch["voxel_rgb"] = rgb
@@ -250,7 +255,9 @@ class BatchIterator:
                 chunk = chunk[self.process_index * local:(self.process_index + 1) * local]
                 valid = local
             compact = self.with_voxels and self.voxel_transfer == "windowed_compact"
-            with tracing.span("loader.collate", request=batch_id):
+            # Level 2: the span records the batch's active tiles.
+            with tracing.span("loader.collate", request=batch_id,
+                              counters=ACTIVE_TILES if tracing.level() >= 2 else None):
                 batch = collate(
                     [self.dataset[int(i)] for i in chunk],
                     self.dataset.max_voxel_points,

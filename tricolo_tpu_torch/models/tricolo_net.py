@@ -144,7 +144,8 @@ class TriCoLoNet(nn.Module):
         ``generator`` (train mode, CLIP heads, EfficientNet): the dropout
         and stochastic-depth masks' source, drawn by the text head, then the
         image encoder. Traced (``tracing``) as ``forward.<encoder>`` spans,
-        each output marked so that its backward opens ``backward.<encoder>``."""
+        each output marked so that its backward opens ``backward.<encoder>``
+        (at level 2 the voxel encoder's two stages, ``models.voxel_cnn``)."""
         with tracing.span("forward.text"):
             if isinstance(self.text_encoder, CLIPTextEncoder):
                 text = self.text_encoder(batch["clip_embeddings_text"], generator)
@@ -160,7 +161,11 @@ class TriCoLoNet(nn.Module):
             out["image_features"] = tracing.mark(image, "backward.image")
         enc = self.voxel_encoder
         if enc is not None:
-            with tracing.span("forward.voxel"):
+            # Level 2: the span records the batch's tile rows, and the
+            # encoder's stage marks open its backward phases in place of
+            # ``backward.voxel``.
+            stages = tracing.level() >= 2
+            with tracing.span("forward.voxel", counters="voxel.tile_rows" if stages else None):
                 if "voxel_windows" in batch:
                     features = enc(windows=batch["voxel_windows"],
                                    tile_occ=batch["voxel_tile_occ"])
@@ -168,5 +173,6 @@ class TriCoLoNet(nn.Module):
                     features = enc(batch["voxel_rows"], batch["voxel_row_ids"])
                 else:
                     features = enc(voxels=batch["voxels"])
-            out["voxel_features"] = tracing.mark(features, "backward.voxel")
+            out["voxel_features"] = features if stages else tracing.mark(features,
+                                                                         "backward.voxel")
         return out

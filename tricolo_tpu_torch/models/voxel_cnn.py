@@ -88,6 +88,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import tracing
 from ..data.device_prep import unpack_windowed_rows
 from ..ops.bn_relu_pool import (
     bn_relu_pool,
@@ -212,9 +213,23 @@ class VoxelCNNEncoder(nn.Module):
         (B·tg³,) (windowed); ``voxels`` (B, D, D, D, 3 or 4) float (dense)."""
         inputs = dict(rows=rows, row_ids=row_ids, voxels=voxels, windows=windows,
                       tile_occ=tile_occ)
+        tracing.count("voxel.tile_rows", self.tile_rows(rows, voxels, windows))
         if self.remat and self.training and torch.is_grad_enabled():
             return self._remat_forward(inputs)
         return self._forward(**inputs)
+
+    def tile_rows(self, rows=None, voxels=None, windows=None) -> int:
+        """The tile rows a call runs its first blocks on, from shapes: B·k
+        (windowed_compact), the static budget (windowed, the dense plan's
+        tile-sparse blocks), else 0. The ``voxel.tile_rows`` counter adds
+        it a call (a remat recompute does not count again)."""
+        tg3 = (self.voxel_size // _TILE) ** 3
+        if voxels is not None:
+            sparse = self.masked_bn and self.tile_sparse and min(self.tile_sparse_blocks, 3) > 0
+            return tile_budget(self.tile_budget_frac, voxels.shape[0], tg3) if sparse else 0
+        if windows is not None:
+            return tile_budget(self.tile_budget_frac, windows.shape[0] // tg3, tg3)
+        return rows.shape[0] * rows.shape[1] if rows is not None and rows.ndim == 3 else 0
 
     def _remat_forward(self, inputs: dict):
         """The forward under ``checkpoint``; every path runs the five blocks
@@ -240,14 +255,29 @@ class VoxelCNNEncoder(nn.Module):
         return out
 
     def _forward(self, rows=None, row_ids=None, voxels=None, windows=None, tile_occ=None):
+        """The tile stage (the blocks on tile rows and their scatter, or the
+        dense input's preparation), then the dense tail. At tracing level 2
+        each stage is a span (``forward.voxel.tiles`` / ``.dense``) and its
+        output a mark, so that the backward opens ``backward.voxel.dense``
+        and then ``backward.voxel.tiles``."""
+        with tracing.span("forward.voxel.tiles", level=2):
+            x, mask, dense_from = self._tile_stage(rows, row_ids, voxels, windows, tile_occ)
+        x = tracing.mark(x, "backward.voxel.tiles", level=2)
+        with tracing.span("forward.voxel.dense", level=2):
+            out = self._dense_tail(x, mask, dense_from)
+        return tracing.mark(out, "backward.voxel.dense", level=2)
+
+    def _tile_stage(self, rows, row_ids, voxels, windows, tile_occ):
+        """→ (x, mask or None, index of the first dense block) on the grid
+        the dense tail starts from."""
         if voxels is not None:
-            return self._dense_forward(voxels)
+            return self._dense_input(voxels)
         if not self.masked_bn:
             # Windowed rows are tile-sparse input: only the masked
             # (submanifold) semantics makes that restriction exact.
             raise ValueError("windowed voxel input requires masked_bn=true")
         if windows is not None:
-            return self._full_windowed_forward(windows, tile_occ)
+            return self._full_windowed_tiles(windows, tile_occ)
         if rows is None or row_ids is None or rows.ndim != 3 or row_ids.ndim != 2:
             raise ValueError(
                 "compact windowed input must be per-sample: rows (B, k, s³) + ids (B, k); "
@@ -261,7 +291,7 @@ class VoxelCNNEncoder(nn.Module):
         kernels = self.use_kernels
         x = scatter_tiles(x_t.reshape(batch, k, t, t, t, -1), ids, grid, kernels)
         mask = scatter_tiles(m_t.reshape(batch, k, t, t, t, 1), ids, grid, kernels)
-        return self._dense_tail(x, mask, dense_from)
+        return x, mask, dense_from
 
     def _row_blocks(self, rows):
         """Blocks 1(-2) on packed window rows (R, s³) → (tiles, tile masks,
@@ -288,7 +318,7 @@ class VoxelCNNEncoder(nn.Module):
         x_t, m_t = self.blocks[1](x_t, m2, **valid)
         return x_t, m_t, 2, self.voxel_size // 4
 
-    def _full_windowed_forward(self, windows, tile_occ):
+    def _full_windowed_tiles(self, windows, tile_occ):
         """The ``windowed`` transfer: take the active rows under the static
         budget, run them as the compact rows, scatter by global id."""
         tg3 = (self.voxel_size // _TILE) ** 3
@@ -302,18 +332,18 @@ class VoxelCNNEncoder(nn.Module):
         kernels = self.use_kernels
         x = scatter_tiles_global_autograd(x_t, ids, batch, grid, kernels)
         mask = scatter_tiles_global_autograd(m_t, ids, batch, grid, kernels)
-        return self._dense_tail(x, mask, dense_from)
+        return x, mask, dense_from
 
-    def _dense_forward(self, voxels):
-        """The dense-input plan: sparse blocks on the input's active tiles,
-        then dense masked blocks; without ``masked_bn``, five dense
-        all-site blocks."""
+    def _dense_input(self, voxels):
+        """The dense-input plan's tile stage: the sparse blocks on the
+        input's active tiles, then dense masked blocks; without
+        ``masked_bn``, the padded input for five dense all-site blocks."""
         D = self.voxel_size
         if voxels.ndim != 5 or voxels.shape[1:4] != (D, D, D):
             raise ValueError(f"expected {D}^3 grids, got {tuple(voxels.shape[1:4])}")
         x = voxels.to(self.compute_dtype)
         if not self.masked_bn:
-            return self._dense_tail(F.pad(x[..., :3], (0, 1)).contiguous(), None, 0)
+            return F.pad(x[..., :3], (0, 1)).contiguous(), None, 0
         if x.shape[-1] == 4:
             mask = x[..., 3:]
         else:
@@ -338,7 +368,7 @@ class VoxelCNNEncoder(nn.Module):
             grid //= 2
             x = scatter_tiles_global_autograd(x_t, ids, batch, grid, kernels)
             mask = scatter_tiles_global_autograd(m_t, ids, batch, grid, kernels)
-        return self._dense_tail(x, mask, n_sparse)
+        return x, mask, n_sparse
 
     def _dense_tail(self, x, mask, dense_from: int):
         """Dense SAME-conv blocks from ``dense_from`` on, masked unless

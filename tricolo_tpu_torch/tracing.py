@@ -1,11 +1,20 @@
 """Spans and counters of the port, and their place on a profiler trace's clock.
 
-One switch for the whole process: ``enable()``, ``disable()``, ``enabled()``.
-Every call site reads it when it runs, so tracing can be turned on between
-two steps of a running loop. Off, ``span(...)`` returns one shared no-op
-context, records nothing and allocates nothing, ``mark`` returns its tensor
-and ``backward`` is ``loss.backward()``: the step's autograd graph is the
-same as without tracing.
+One switch for the whole process: ``enable(level=1)``, ``disable()``,
+``enabled()``, ``level()``. Every call site reads it when it runs, so
+tracing can be turned on between two steps of a running loop. Off,
+``span(...)`` returns one shared no-op context, records nothing and
+allocates nothing, ``mark`` returns its tensor and ``backward`` is
+``loss.backward()``: the step's autograd graph is the same as without
+tracing.
+
+* **Levels**: a span or mark made with ``level=2`` records only when
+  tracing is on at level 2. Level 1 (``enable()``) gives the step's spans
+  and the encoders' backward phases; level 2 adds the voxel encoder's
+  stages (``forward.voxel.tiles`` / ``.dense``, whose backward phases
+  ``backward.voxel.dense`` and ``backward.voxel.tiles`` take the place of
+  ``backward.voxel``) and the per-batch counter moves that pair the
+  loader's active tiles with the encoder's tile rows.
 
 * **Spans** (``span(name, request=None)``): name, parent (the innermost
   open span of the thread), the request they serve (``batch``: the loader's
@@ -49,7 +58,7 @@ import torch
 CATEGORY = "program_span"
 ANCHOR = "tracing.anchor#"
 
-_on = False
+_level = 0  # 0: off
 _lock = threading.Lock()
 _counts: dict[str, int] = {}
 _spans: list = []
@@ -62,18 +71,25 @@ _backward = None  # the running ``backward`` span, whose phases the marks open
 clock = time.perf_counter_ns
 
 
-def enable() -> None:
-    global _on
-    _on = True
+def enable(level: int = 1) -> None:
+    global _level
+    if level not in (1, 2):
+        raise ValueError(f"tracing level must be 1 or 2, got {level!r}")
+    _level = level
 
 
 def disable() -> None:
-    global _on
-    _on = False
+    global _level
+    _level = 0
 
 
 def enabled() -> bool:
-    return _on
+    return _level > 0
+
+
+def level() -> int:
+    """The level tracing is on at; 0 when it is off."""
+    return _level
 
 
 # ------------------------------------------------------------------ counters
@@ -192,12 +208,13 @@ class _Timer:
 _OFF = _Off()
 
 
-def span(name: str, request=None, totals=None, counters: str | None = None):
-    """A context that records the span ``name`` while tracing is on.
-    ``request``: the batch it serves (else its parent's or the thread's);
-    ``totals``: a mapping that takes its seconds under ``name``, on or off;
-    ``counters``: a counter prefix whose moves the span records."""
-    if not _on:
+def span(name: str, request=None, totals=None, counters: str | None = None, level: int = 1):
+    """A context that records the span ``name`` while tracing is on at
+    ``level`` or above. ``request``: the batch it serves (else its parent's
+    or the thread's); ``totals``: a mapping that takes its seconds under
+    ``name``, on or off; ``counters``: a counter prefix whose moves the span
+    records."""
+    if _level < level:
         return _OFF if totals is None else _Timer(name, totals)
     return Span(name, batch=request, totals=totals, counters=counters)
 
@@ -212,7 +229,7 @@ def _stack() -> list:
 def set_batch(batch) -> None:
     """The batch this thread now serves: the request of its later root
     spans and of the span open now (the loader's wait that took it)."""
-    if not _on:
+    if not _level:
         return
     _local.batch = batch
     stack = _stack()
@@ -222,7 +239,7 @@ def set_batch(batch) -> None:
 
 def set_step(step: int) -> None:
     """The global step of this thread's later root spans."""
-    if _on:
+    if _level:
         _local.step = step
 
 
@@ -252,10 +269,11 @@ class _Mark(torch.autograd.Function):
         return grad, None
 
 
-def mark(x: torch.Tensor, name: str) -> torch.Tensor:
-    """``x``, with (tracing on, ``x`` in a graph) a node whose backward
-    opens the phase ``name`` of the running ``backward``."""
-    if not _on or not x.requires_grad:
+def mark(x: torch.Tensor, name: str, level: int = 1) -> torch.Tensor:
+    """``x``, with (tracing on at ``level`` or above, ``x`` in a graph) a
+    node whose backward opens the phase ``name`` of the running
+    ``backward``."""
+    if _level < level or not x.requires_grad:
         return x
     return _Mark.apply(x, name)
 
@@ -275,7 +293,7 @@ def backward(loss: torch.Tensor) -> None:
     ``backward.loss`` and the phases that ``mark`` put on the graph. One
     backward at a time in the process."""
     global _backward
-    if not _on:
+    if not _level:
         loss.backward()
         return
     with span("backward") as run:

@@ -115,7 +115,8 @@ def profile_trace(log_dir: str | None, device: torch.device, name: str = "fit",
         prof.export_chrome_trace(os.path.join(log_dir, f"{name}.{time.time_ns()}.pt.trace.json"))
         return
     was_on = tracing.enabled()
-    tracing.enable()
+    if not was_on:  # on already: keep its level
+        tracing.enable()
     try:
         with profile(activities=activities) as prof:
             tracing.anchor()

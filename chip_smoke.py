@@ -7,7 +7,7 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. card — ``nvidia-smi`` name and power limit;
 2. build — every ``tricolo_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, all
-   sources at once (K1-K8);
+   sources at once (K1-K9);
 3. kernels — each against its plain PyTorch version on the card, timed
    beside its bound: K1 (bn_relu_pool) at the five flagship voxel-block
    shapes and the dense plan's two tile-sparse blocks, idx off and on, in
@@ -37,6 +37,12 @@ Phases (any failure exits non-zero and prints no result line):
    (27,680), and at the dense plan's third tile-sparse block (4³ × 64 ←
    2³ × 128), bf16, within one bf16 ulp plus ``K8_SUM_TOL``·max|plain| of
    its plain version (cuDNN's ``convolution_backward``, which is also its
+   ``library_ms``), the same from launch to launch; K9 (conv3d_valid_wgrad,
+   block 1's weight gradient) at the three cells' rows (17,536, 16,384 and
+   91,776: train_spread, train_narrow and C13/128³ train_spread) and at the
+   10³ form (the dense plan's first tile-sparse block, 32,768 rows), bf16,
+   against the float64 sum no further than ``K9_LIB_RATIO`` times its plain
+   version (cuDNN's ``convolution_backward`` for the weight, also its
    ``library_ms``), the same from launch to launch;
 4. serving — ``RetrievalServer.build_index`` over a 256-model synthetic
    split at the flagship widths (Tri(I+V), 64³ voxels, 6×128² views,
@@ -58,7 +64,7 @@ Phases (any failure exits non-zero and prints no result line):
 7. training — ``Trainer.fit`` for one epoch of the 256-model synthetic
    train split (768 captions: 6 steps of 128) at the flagship widths, bf16,
    ``use_pallas=true``; per-step losses (finite), CUDA-event step times and
-   launches (K1 5, K2 2, K3 5, pair forward 3, two-term backward 6, K8 1,
+   launches (K1 5, K2 2, K3 5, pair forward 3, two-term backward 6, K8 1, K9 1,
    K4/K5/K6 alone 0 a step), peak memory; the
    launch counts are reset just before ``fit`` and read just after it;
 8. the trained checkpoint (the fit's best ``epoch=0.ckpt``) serves:
@@ -229,13 +235,14 @@ Phases (any failure exits non-zero and prints no result line):
     the bench's are not salvaged, hold 2 pairs and this card's name, with
     launches per timed step exactly phase 7's (K1 5, K2 2, K3 5, pair 3,
     two-term 6) and the dense plan's (K7 4, K2-global 4, K1 5, K3 5, pair
-    3, two-term 6), K8 1 in both; the traces show device time in K1-K6 and
-    K8 (default) and K7 and K8 (dense plan); the readings beside phase 7's and phase 10's steps;
+    3, two-term 6), K8 1 and K9 1 in both; the traces show device time in
+    K1-K6, K8 and K9 (default) and K7, K8 and K9 (dense plan); the readings
+    beside phase 7's and phase 10's steps;
 18. the tools' short forms, each through its CLI: 18a ``bench --roofline``
     on the default config (2 warm-up steps, N = 4, 1 pair), then
     ``roofline_report --json``: at least 0.95 of device time attributed to
     a counted op, rows for K1, K2, K3, the pair forward, the two-term
-    backward and K8 (and no other port kernel) with launches a step exactly phase
+    backward, K8 and K9 (and no other port kernel) with launches a step exactly phase
     7's, each K row's floor equal to the kernel module's ``work(...)``
     summed over its recorded launches (and, for K1, K3 and the loss
     kernels, at phase 3's block shapes for the bench's k), no row above
@@ -253,7 +260,7 @@ Phases (any failure exits non-zero and prints no result line):
     ``dress_rehearsal`` at scale 0.01 (68 train / 15 val models), one
     epoch: rc 0 and the report holds every key (the split is deleted);
     18a-c run alone in turn, 18d-f at once (their gates time nothing);
-19. the kernels line (eleven rows: K1-K8, K2's global entry, and K1's and
+19. the kernels line (twelve rows: K1-K9, K2's global entry, and K1's and
     K3's unmasked entries; K7's ``library_ms`` is its yardstick's; the row
     of K4 counts the pair launches, each of which computes K4 twice, and carries
     the pair entry's times, the rows of K5 and K6 likewise the two-term
@@ -261,9 +268,10 @@ Phases (any failure exits non-zero and prints no result line):
     ``{"ok": true, ...}``.
 
 Every bf16 train step of a masked voxel path at the flagship widths
-(``ef_dim`` 32) launches K8 once (block 2's input gradient; the remat step
-too, whose backward runs once), beside the counts each phase names; an
-f32-compute step, every eval pass and other widths launch it never.
+(``ef_dim`` 32) launches K8 once (block 2's input gradient) and K9 once
+(block 1's weight gradient; the remat step too, whose backward runs once),
+beside the counts each phase names; an f32-compute step, every eval pass
+and other widths launch them never.
 
 Details go to ``chiprun_out/chip_smoke.json``. The script imports nothing
 of JAX and nothing of the JAX package.
@@ -319,6 +327,10 @@ BF16_BEYOND_ULP = 1e-3
 # land one bf16 ulp (at most 2⁻⁷ of its magnitude) apart.
 K8_ULP = 2.0**-7
 K8_SUM_TOL = 1e-5
+# K9 against the float64 sum: both it and cuDNN sum in f32 and cast once to
+# bf16, so each lies about half a bf16 ulp of the largest weight from the
+# exact sum; K9 may lie no further than twice cuDNN's own distance.
+K9_LIB_RATIO = 2.0
 FLAGSHIP = [
     "data=synthetic",
     "model.image_encoder=MVCNNEncoder",
@@ -827,6 +839,70 @@ def check_k8(torch, cases, flush):
     return max_err, rows
 
 
+def exact_wgrad(torch, dy, x, chunk=4096):
+    """The float64 weight gradient of a VALID 3³ conv (dy (R, Cout, d, d,
+    d), x (R, Cin, d + 2, ...)): per tap, dyᵀ · x shifted, summed over row
+    chunks (DGEMM on the card)."""
+    d = dy.shape[2]
+    out = torch.zeros((dy.shape[1], x.shape[1], 3, 3, 3), dtype=torch.float64, device=dy.device)
+    for r in range(0, dy.shape[0], chunk):
+        dyc = dy[r:r + chunk].permute(0, 2, 3, 4, 1).double().reshape(-1, dy.shape[1])
+        xc = x[r:r + chunk].permute(0, 2, 3, 4, 1).double()
+        for tap in range(27):
+            tz, ty, tx = tap // 9, tap // 3 % 3, tap % 3
+            xs = xc[:, tz:tz + d, ty:ty + d, tx:tx + d].reshape(-1, x.shape[1])
+            out[:, :, tz, ty, tx] += dyc.T @ xs
+        del dyc, xc
+    return out
+
+
+def check_k9(torch, cases, flush):
+    """K9 against the float64 sum, no further from it (max |error| of max
+    |sum|) than ``K9_LIB_RATIO`` times cuDNN's own weight gradient on the
+    same bf16 inputs (the plain version), the same from launch to launch;
+    bound = max(bytes / HBM, true FLOPs / 989 TFLOP/s bf16) of
+    ``work(...)``; the plain version is cuDNN's ``convolution_backward``
+    for the weight alone, so it is also the row's ``library_ms``, the
+    yardstick the port no longer calls on this path. ``cases``: (label,
+    rows, S, main)."""
+    from tricolo_tpu_torch.ops import conv3d_valid_wgrad, conv3d_valid_wgrad_plain
+    from tricolo_tpu_torch.ops.conv3d import work
+    from tricolo_tpu_torch.work import floor_s
+
+    worst, rows = 0.0, []
+    for label, n, size, main in cases:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+        d = size - 2
+        x = torch.randn((n, size, size, size, 4), generator=gen, device="cuda",
+                        dtype=torch.bfloat16).permute(0, 4, 1, 2, 3)
+        dy = torch.randn((n, d, d, d, 32), generator=gen, device="cuda",
+                         dtype=torch.bfloat16).permute(0, 4, 1, 2, 3)
+        got = conv3d_valid_wgrad(dy, x)
+        torch.cuda.synchronize()
+        exact = exact_wgrad(torch, dy, x)
+        top = exact.abs().max().item()
+        err = (got.double() - exact).abs().max().item() / top
+        lib_err = (conv3d_valid_wgrad_plain(dy, x).double() - exact).abs().max().item() / top
+        del exact
+        worst = max(worst, err / lib_err)
+        require(err <= K9_LIB_RATIO * lib_err,
+                f"K9 {label} ({n} rows): error {err} of max against cuDNN's {lib_err}")
+        require(torch.equal(conv3d_valid_wgrad(dy, x), got), f"K9 {label}: launch to launch")
+        bound = floor_s(*work(n, size, 4, 32), "bf16") * 1e3
+        ms = time_ms(lambda: conv3d_valid_wgrad(dy, x), torch, flush=flush)
+        plain = time_ms(lambda: conv3d_valid_wgrad_plain(dy, x), torch, repeats=5, warmup=1,
+                        flush=flush)
+        rows.append({"block": label, "rows": n, "form": [size, 4, 32], "dtype": "bf16",
+                     "main": main, "ms": ms, "plain_ms": plain, "library_ms": plain,
+                     "bound_ms": bound, "err_of_max": err, "library_err_of_max": lib_err})
+        log(f"  K9 {label:22s} ({n}, {size}³, 4) x {d}³ x 32 bf16: {ms:.4f} ms (plain = "
+            f"library {plain:.3f} ms, bound {bound:.4f} ms, {bound / ms:.0%} of bound; error "
+            f"{err:.3g} of max, cuDNN's {lib_err:.3g})")
+        del dy, x, got
+        torch.cuda.empty_cache()
+    return worst, rows
+
+
 def check_k2_global(torch, cases, ids, n_active, batch, flush):
     """K2's global entry against its plain version, bit-exact in f32 and
     bf16; bound = (the active tiles read once + ids + grid written) / HBM:
@@ -960,18 +1036,21 @@ TRAIN_LAUNCHES = {"bn_relu_pool": 5, "scatter_tiles_ps": 2, "bn_relu_pool_bwd": 
                   "nt_xent_fwd": 0, "nt_xent_fwd_pair": 3, "nt_xent_bwd_rows": 0,
                   "nt_xent_bwd_cols": 0, "nt_xent_bwd": 6, "gather_tiles": 0,
                   "scatter_tiles_global": 0, "bn_relu_pool_unmasked": 0,
-                  "bn_relu_pool_bwd_unmasked": 0, "conv3d_valid_dgrad": 1}
-# An f32-compute step keeps cuDNN's input gradient for block 2 (K8 is bf16).
-F32_TRAIN_LAUNCHES = dict(TRAIN_LAUNCHES, conv3d_valid_dgrad=0)
+                  "bn_relu_pool_bwd_unmasked": 0, "conv3d_valid_dgrad": 1,
+                  "conv3d_valid_wgrad": 1}
+# An f32-compute step keeps cuDNN's input gradient for block 2 and weight
+# gradient for block 1 (K8 and K9 are bf16).
+F32_TRAIN_LAUNCHES = dict(TRAIN_LAUNCHES, conv3d_valid_dgrad=0, conv3d_valid_wgrad=0)
 # The dense-input plan, 2 sparse blocks: K7 for x and the mask of each, K2's
 # global entry for each handoff, K1 in all five blocks; no per-sample K2.
 DENSE_EVAL_LAUNCHES = {"bn_relu_pool": 5, "scatter_tiles_ps": 0, "bn_relu_pool_bwd": 0,
                        "nt_xent_fwd": 0, "nt_xent_fwd_pair": 0, "nt_xent_bwd_rows": 0,
                        "nt_xent_bwd_cols": 0, "nt_xent_bwd": 0, "gather_tiles": 4,
                        "scatter_tiles_global": 4, "bn_relu_pool_unmasked": 0,
-                       "bn_relu_pool_bwd_unmasked": 0, "conv3d_valid_dgrad": 0}
+                       "bn_relu_pool_bwd_unmasked": 0, "conv3d_valid_dgrad": 0,
+                       "conv3d_valid_wgrad": 0}
 DENSE_TRAIN_LAUNCHES = dict(DENSE_EVAL_LAUNCHES, bn_relu_pool_bwd=5, nt_xent_fwd_pair=3,
-                            nt_xent_bwd=6, conv3d_valid_dgrad=1)
+                            nt_xent_bwd=6, conv3d_valid_dgrad=1, conv3d_valid_wgrad=1)
 
 
 def timed_step(torch, step, rows):
@@ -3557,9 +3636,10 @@ def measuring(torch, card, reference: dict) -> tuple[dict, dict]:
     earlier phases' step ms on this card. Returns (report, the benches'
     launches over their timed steps)."""
     out_dir = ROOT / "build" / "chip_smoke" / "bench"
-    runs = {"windowed_compact": ([], TRAIN_LAUNCHES, ("K1", "K2", "K3", "K4", "K5-K6", "K8")),
+    runs = {"windowed_compact": ([], TRAIN_LAUNCHES,
+                                 ("K1", "K2", "K3", "K4", "K5-K6", "K8", "K9")),
             "dense_plan": ([a for o in DENSE for a in ("--override", o)], DENSE_TRAIN_LAUNCHES,
-                           ("K7", "K8"))}
+                           ("K7", "K8", "K9"))}
     out: dict = {"reference_step_ms": reference}
     paths: dict = {}
     torch.cuda.empty_cache()
@@ -3611,7 +3691,7 @@ ROOFLINE_RUN = ["--override", "bench.warmup_steps=2", "--override", "bench.steps
 # The roofline's labels of phase 7's kernels (TRAIN_LAUNCHES' keys).
 ROOFLINE_LABELS = {"K1": "bn_relu_pool", "K2": "scatter_tiles_ps", "K3": "bn_relu_pool_bwd",
                    "K4-pair": "nt_xent_fwd_pair", "K5-K6": "nt_xent_bwd",
-                   "K8": "conv3d_valid_dgrad"}
+                   "K8": "conv3d_valid_dgrad", "K9": "conv3d_valid_wgrad"}
 MIN_ATTRIBUTED = 0.95
 MAX_IDLE_FLOOR_MS = 0.1
 # A tool's step against phase 17's reading of the same step.
@@ -3946,6 +4026,11 @@ def main() -> int:
                                        ("c13_128 block2", 27_680, (6, 32, 64), False),
                                        ("dense_plan block3", budget, (4, 64, 128), False)],
                                flush)
+    # K9 at block 1's row counts: the three cells', and the dense plan's 10³ form.
+    k9_ratio, k9_rows = check_k9(torch, [("train_spread block1", 17_536, 14, True),
+                                         ("train_narrow block1", 16_384, 14, False),
+                                         ("c13_128 block1", 91_776, 14, False),
+                                         ("dense_plan block1", budget, 10, False)], flush)
     del flush
     torch.cuda.empty_cache()
     walls["kernels_s"] = time.perf_counter() - tic
@@ -3953,11 +4038,13 @@ def main() -> int:
         k1_rows, k2_rows, k3_rows, nt_rows)
     report["k7"], report["k2_global"] = k7_rows, k2g_rows
     report["k1_unmasked"], report["k3_unmasked"], report["k8"] = k1u_rows, k3u_rows, k8_rows
+    report["k9"] = k9_rows
     report["dense_plan_tiles"] = {"budget": budget, "active": n_active}
     log(f"kernels: K1 max err {k1_err}, K2 max err {k2_err}, K3 max err {k3_err}, "
         f"K7 max err {k7_err}, K2-global max err {k2g_err}, K1-unmasked max err {k1u_err}, "
         f"K3-unmasked max err {k3u_err} (bit-exact required); K8 max err {k8_err} "
-        f"(limit one bf16 ulp + {K8_SUM_TOL}·max|plain|); "
+        f"(limit one bf16 ulp + {K8_SUM_TOL}·max|plain|); K9 error at most {k9_ratio:.3g} of "
+        f"cuDNN's (limit {K9_LIB_RATIO}); "
         f"K4-K6, pair and two-term max err {nt_errs} (limit {NT_XENT_TOL}·max|plain|); dense "
         f"plan: "
         f"{n_active} active tiles of a {budget}-row budget")
@@ -4399,6 +4486,17 @@ def main() -> int:
          "ms": total(k8_main, "ms"), "plain_ms": total(k8_main, "plain_ms"),
          "bound_ms": total(k8_main, "bound_ms"), "bound_by": "operations",
          "library_ms": total(k8_main, "library_ms"), "shapes": k8_rows})
+    k9_main = [r for r in k9_rows if r["main"]]
+    kernels.append(
+        {"name": "conv3d_valid_wgrad", "route": "cuda",
+         "source": "tricolo_tpu_torch/csrc/conv3d_wgrad.cu",
+         "replaces": None,  # XLA's convolution backward; cuDNN's wgrad on the card
+         "launches": on_paths("conv3d_valid_wgrad"),
+         "launches_by_path": both("conv3d_valid_wgrad"),
+         "max_err_ratio_to_library": k9_ratio,
+         "ms": total(k9_main, "ms"), "plain_ms": total(k9_main, "plain_ms"),
+         "bound_ms": total(k9_main, "bound_ms"), "bound_by": "bytes",
+         "library_ms": total(k9_main, "library_ms"), "shapes": k9_rows})
     for row in kernels:
         require(row["launches"] > 0, f"kernel {row['name']} was launched on no path")
     report["kernels"] = kernels

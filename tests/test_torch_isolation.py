@@ -81,7 +81,7 @@ def test_counters_stay_zero_on_cpu():
         "bn_relu_pool", "scatter_tiles_ps", "bn_relu_pool_bwd", "nt_xent_fwd",
         "nt_xent_fwd_pair", "nt_xent_bwd_rows", "nt_xent_bwd_cols", "nt_xent_bwd", "gather_tiles",
         "scatter_tiles_global", "bn_relu_pool_unmasked", "bn_relu_pool_bwd_unmasked",
-        "conv3d_valid_dgrad")}
+        "conv3d_valid_dgrad", "conv3d_valid_wgrad")}
 
 
 def test_host_library_is_the_ports_own():

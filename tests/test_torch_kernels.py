@@ -199,7 +199,7 @@ def test_cpu_tensors_take_the_plain_version():
     y, ga, idx, _, *vectors = _k3_inputs((2, 4, 4, 4, 8), 1, torch.float32, "cpu")
     assert torch.equal(bn_relu_pool_bwd_unmasked(y, ga, idx, *vectors),
                        bn_relu_pool_bwd(y, ga, idx, None, *vectors))
-    assert set(ops.launches().values()) == {0} and len(ops.launches()) == 13
+    assert set(ops.launches().values()) == {0} and len(ops.launches()) == 14
 
 
 def test_unmasked_plain_is_the_all_ones_masked_form():

@@ -79,7 +79,7 @@ def test_report_numbers():
     assert r["device_idle_share"] == pytest.approx(0.62)
     assert r["port_kernels_ms_per_step"] == pytest.approx(
         {"K1": 0.05, "K2": 0.0, "K3": 0.075, "K4": 0.0, "K5-K6": 0.005, "K7": 0.0,
-         "K8": 0.0})
+         "K8": 0.0, "K9": 0.0})
     assert r["phase_ms_per_step"] == pytest.approx({"fwd": 0.06, "bwd": 0.105, "unlinked": 0.025})
     rows = {(row["phase"], row["name"]): row for row in r["top"]}
     assert set(rows) == {("fwd", K1), ("fwd", MEMCPY), ("bwd", K3), ("bwd", DGRAD),

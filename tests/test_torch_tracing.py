@@ -270,7 +270,7 @@ def test_counters_read_as_before():
     ops.reset_launches()
     native.reset_calls()
     assert ops.launches() == dict.fromkeys((k.__name__ for k in ops.KERNELS), 0)
-    assert len(ops.launches()) == 13
+    assert len(ops.launches()) == 14
     assert native.call_counts() == dict.fromkeys((f.__name__ for f in native.SWEEPS), 0)
     _, _, _, loader = _setup()
     copies = tracing.counts("to_device.")

@@ -60,17 +60,22 @@ statistics out of the checkpointed region and the encoder updates the
 running statistics once, from the first pass.
 
 Convolutions are ``F.conv3d`` on channels-last-3d views (cuDNN on the
-card), as the JAX package leaves them to XLA, with one exception: the input
-gradient of a VALID (tile) conv whose input needs one, in bf16 on the card
-at a form K8 is built for (``ops.conv3d.takes_kernel_dgrad``: block 2 on
-the window rows, the dense plan's tile-sparse blocks past the first, at
-``ef_dim`` 32), is kernel K8 (``ops.conv3d_valid_kernel_dgrad``); the CPU,
-an f32-compute step and other widths keep autograd's. ``explicit_dgrad``
-writes the VALID convs' input gradient as a forward conv instead
-(``ops.conv3d``), as the JAX package applies it to VALID convs only.
-``use_kernels=False`` runs the same path through the kernels' plain
-PyTorch versions (the reference the kernels are held against on the card;
-for K8, autograd's own convolution backward).
+card), as the JAX package leaves them to XLA, with two exceptions, each
+taken by the conv's form in bf16 on the card: the input gradient of a
+VALID (tile) conv whose input needs one, at a form K8 is built for
+(``ops.conv3d.takes_kernel_dgrad``: block 2 on the window rows, the dense
+plan's tile-sparse blocks past the first, at ``ef_dim`` 32), is kernel K8
+(``ops.conv3d_valid_kernel_dgrad``); the weight gradient of a VALID conv at
+a form K9 is built for (``ops.conv3d.takes_kernel_wgrad``: block 1 on the
+window rows and the dense plan's first tile-sparse block, at ``ef_dim``
+32), is kernel K9 (``ops.conv3d_valid_kernel_wgrad``). The CPU, an
+f32-compute step and other widths keep autograd's gradients.
+``explicit_dgrad`` writes the VALID convs' input gradient as a forward conv
+instead (``ops.conv3d``), as the JAX package applies it to VALID convs
+only, and keeps cuDNN's weight gradient. ``use_kernels=False`` runs the
+same path through the kernels' plain PyTorch versions (the reference the
+kernels are held against on the card; for K8 and K9, autograd's own
+convolution backward).
 
 The conv weights, the BN γ, β and the head are created in ``param_dtype``
 and used in the compute dtype (``common.in_compute``); the running
@@ -100,7 +105,9 @@ from ..ops.bn_relu_pool import (
 from ..ops.conv3d import (
     conv3d_valid_explicit_dgrad,
     conv3d_valid_kernel_dgrad,
+    conv3d_valid_kernel_wgrad,
     takes_kernel_dgrad,
+    takes_kernel_wgrad,
 )
 from ..ops.tile_gather import gather_tiles_autograd
 from ..ops.tile_scatter import scatter_tiles, scatter_tiles_global_autograd
@@ -143,6 +150,8 @@ class ConvBlock(nn.Module):
             y = conv3d_valid_explicit_dgrad(x, weight)
         elif padding == 0 and use_kernels and takes_kernel_dgrad(x, weight):
             y = conv3d_valid_kernel_dgrad(x, weight)
+        elif padding == 0 and use_kernels and takes_kernel_wgrad(x, weight):
+            y = conv3d_valid_kernel_wgrad(x, weight)
         else:
             y = F.conv3d(x, weight, padding=padding)
         y = y.permute(0, 2, 3, 4, 1).contiguous()

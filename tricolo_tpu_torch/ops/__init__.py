@@ -25,6 +25,10 @@ PyTorch version; each launch counts ``launches.<wrapper>`` in ``tracing``
   gradient of the VALID 3³ tile convolution in bf16; replaces no TPU kernel
   (the JAX package leaves it to XLA), but cuDNN's choice for it;
   ``conv3d_valid_kernel_dgrad`` is the convolution whose backward takes it.
+* ``conv3d_valid_wgrad`` (K9, ``csrc/conv3d_wgrad.cu``) — the weight
+  gradient of block 1's VALID 3³ tile convolution (4 → 32 channels) in
+  bf16; replaces no TPU kernel, but cuDNN's choice for it;
+  ``conv3d_valid_kernel_wgrad`` is the convolution whose backward takes it.
 
 Beside them: ``conv3d_valid_explicit_dgrad`` (cuDNN convolutions with the
 input gradient written as a forward conv) and the tile-sparse helpers of
@@ -49,6 +53,9 @@ from .conv3d import (
     conv3d_valid_dgrad_plain,
     conv3d_valid_explicit_dgrad,
     conv3d_valid_kernel_dgrad,
+    conv3d_valid_kernel_wgrad,
+    conv3d_valid_wgrad,
+    conv3d_valid_wgrad_plain,
 )
 from .nt_xent import (
     blocked_nt_xent_loss,
@@ -89,6 +96,7 @@ KERNELS = (
     bn_relu_pool_unmasked,
     bn_relu_pool_bwd_unmasked,
     conv3d_valid_dgrad,
+    conv3d_valid_wgrad,
 )
 
 
@@ -116,6 +124,9 @@ __all__ = [
     "conv3d_valid_dgrad_plain",
     "conv3d_valid_explicit_dgrad",
     "conv3d_valid_kernel_dgrad",
+    "conv3d_valid_kernel_wgrad",
+    "conv3d_valid_wgrad",
+    "conv3d_valid_wgrad_plain",
     "fold_bn",
     "gather_tiles",
     "gather_tiles_autograd",

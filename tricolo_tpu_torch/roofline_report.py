@@ -20,7 +20,7 @@ sheet's: 989 bf16 / 494 TF32 / 67 f32 TFLOP/s, 3350 GB/s).
 Attribution: each device event (kernel, memcpy, memset) goes to the
 innermost ``work#…`` range on its launching thread (the CUDA API call
 with its ``correlation`` id) that encloses the launch. Rows, one per
-op name (an aten op, or a port kernel's label K1 … K8): device ms a step,
+op name (an aten op, or a port kernel's label K1 … K9): device ms a step,
 floor ms a step, floor / device, BW- or FLOP-bound, calls a step that
 launched device work (``launches``) and device events a step
 (``kernels``). Device time with no enclosing range is the ``unattributed``

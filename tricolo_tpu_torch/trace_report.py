@@ -59,6 +59,7 @@ PORT_KERNELS = {
     "K5-K6": ("::nt_xent_bwd_cluster_kernel",),
     "K7": ("::tile_gather_kernel",),
     "K8": ("::conv3d_dgrad_kernel",),
+    "K9": ("::conv3d_wgrad_kernel", "::conv3d_wgrad_reduce_kernel"),
 }
 
 

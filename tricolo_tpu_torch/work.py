@@ -85,11 +85,11 @@ LABELS = {
     "bn_relu_pool_bwd": "K3", "bn_relu_pool_bwd_unmasked": "K3-unmasked",
     "nt_xent_fwd": "K4", "nt_xent_fwd_pair": "K4-pair", "nt_xent_bwd_rows": "K5",
     "nt_xent_bwd_cols": "K6", "nt_xent_bwd": "K5-K6", "gather_tiles": "K7",
-    "conv3d_valid_dgrad": "K8",
+    "conv3d_valid_dgrad": "K8", "conv3d_valid_wgrad": "K9",
 }
 # Port kernels whose FLOPs run on the tensor cores in bf16; the others' run
 # outside them in f32.
-TENSOR_CORE_LABELS = frozenset({"K8"})
+TENSOR_CORE_LABELS = frozenset({"K8", "K9"})
 _GATES = {0: 1, 1: 1, 2: 4, 3: 3}  # cuDNN RNN modes: RNN_RELU, RNN_TANH, LSTM, GRU
 
 
